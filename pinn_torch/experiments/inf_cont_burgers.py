@@ -1,0 +1,167 @@
+"""Continuous-time 1D Burgers inference on the PyTorch port.
+
+Counterpart of ``experiments/inf_cont_burgers.py``, with the same
+``DEFAULT_HP`` and ``run(hp) -> {"params", "error", ...}`` contract:
+[2, 20x8, 1] tanh MLP, N_u = 100 boundary/initial points, N_f = 10,000
+LHS collocation points, loss = MSE(data) + MSE(u_t + u u_x - nu u_xx),
+nu = 0.01/pi, Adam then L-BFGS, rel-L2 error on the full grid.
+
+- ``fused_residual: True`` trains on the fused loss
+  (``pinn_torch.ops.fused_train``): the CUDA kernels on a CUDA device,
+  their plain PyTorch version on the CPU.  float32 only.
+- ``dtype: "float64"`` trains on the eager loss; ``net_impl: "df32"``
+  (the JAX package's double-f32 engine) runs as native float64.
+- ``device`` picks the device ("cuda", "cpu"; absent: the card if
+  there is one).  Asking for "cuda" without one raises.
+
+Not yet ported: RAR (``rar_pool``/``rar_init``), the device mesh and
+the plots.
+
+Usage: ``python -m pinn_torch.experiments.inf_cont_burgers [hp.json]``
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from pinn_torch.data import burgers_cont_inference, lhs
+from pinn_torch.device import resolve_device
+from pinn_torch.models import mlp
+from pinn_torch.problems import burgers
+from pinn_torch.train import Trainer
+from pinn_torch.utils import Logger, checkpoint, load_hp
+from pinn_torch.utils.config import validate_hp
+
+DEFAULT_HP = {
+    "N_u": 100,
+    "N_f": 10000,
+    "layers": [2, 20, 20, 20, 20, 20, 20, 20, 20, 1],
+    "tf_epochs": 100,
+    "tf_lr": 0.03,
+    "tf_b1": 0.9,
+    "tf_eps": None,
+    "nt_epochs": 200,
+    "nt_lr": 0.8,
+    "nt_ncorr": 50,
+    "nt_line_search": "armijo",
+    "log_frequency": 10,
+}
+
+NOT_PORTED = ("rar_pool", "rar_init", "tpu_mesh")
+
+
+def _dtype(hp) -> torch.dtype:
+    name = hp.get("dtype", "float32")
+    if name not in ("float32", "float64"):
+        raise NotImplementedError(f"dtype {name!r} is not ported "
+                                  "(float32 and float64 are)")
+    if hp.get("net_impl") == "df32" and name != "float64":
+        raise ValueError("net_impl='df32' requires dtype=float64 "
+                         "(on this port it runs as native float64)")
+    return getattr(torch, name)
+
+
+def run(hp=None):
+    hp = {**DEFAULT_HP, **(hp or {})}
+    validate_hp(hp)
+    bad = [k for k in NOT_PORTED if hp.get(k)]
+    if bad:
+        raise NotImplementedError(f"hp key(s) {bad} are not ported to "
+                                  "pinn_torch yet")
+    seed = hp.get("seed", 1234)
+    np.random.seed(seed)  # the data draw's RNG stream, as in the JAX run
+    dtype = _dtype(hp)
+    device = resolve_device(hp.get("device"))
+    # Full-precision float32 products: second-derivative residuals do
+    # not survive TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    data = burgers_cont_inference(hp["N_u"], hp["N_f"])
+    lb, ub = tensor(data.lb), tensor(data.ub)
+    X_u, u, X_f = tensor(data.X_u_train), tensor(data.u_train), tensor(data.X_f)
+    X_star = tensor(data.X_star)
+    nu = 0.01 / np.pi
+
+    gen = torch.Generator().manual_seed(int(hp.get("init_seed") or seed))
+    net = mlp.init_mlp(hp["layers"], gen, dtype, device)
+    if hp.get("init_checkpoint"):
+        net, _ = checkpoint.load_npz(hp["init_checkpoint"], like=net)
+        print(f"Loaded initial parameters from {hp['init_checkpoint']}")
+
+    batch = {"X_u": X_u, "u": u, "X_f": X_f}
+
+    if hp.get("fused_residual"):
+        if dtype != torch.float32:
+            raise ValueError("fused_residual requires dtype=float32 "
+                             "(the eager loss covers float64)")
+        from pinn_torch.ops.fused_train import make_burgers_loss
+        sdt = ("bfloat16" if str(hp["fused_residual"]).lower()
+               in ("bf16", "bfloat16") else None)
+        loss_fn = make_burgers_loss(data.lb, data.ub, nu, stream_dtype=sdt)
+    else:
+        def loss_fn(p, b):
+            return burgers.loss_cont_inference(p, b["X_u"], b["u"], b["X_f"],
+                                               lb, ub, nu,
+                                               f_weights=b.get("f_w"))
+
+    @torch.no_grad()
+    def predict_u(p, X):
+        return mlp.apply(p, X, lb, ub)
+
+    @torch.no_grad()
+    def residual_f(p, X):
+        return burgers.residual_cont(p, X, lb, ub, nu=nu)
+
+    def resample_fn(i):
+        # Fresh LHS collocation draw (new stream); data points stay fixed.
+        rng = np.random.RandomState(seed + i)
+        b = dict(batch)
+        b["X_f"] = tensor(data.lb + (data.ub - data.lb) * lhs(2, hp["N_f"], rng))
+        return b
+
+    val_fn = None
+    if hp.get("nt_val_every"):
+        # Label-free held-out validation: the training loss with the
+        # residual on an independent LHS draw the optimizer never sees.
+        rng_v = np.random.RandomState(seed + 424242)
+        X_f_val = tensor(data.lb + (data.ub - data.lb) * lhs(2, hp["N_f"], rng_v))
+
+        @torch.no_grad()
+        def val_fn(p):
+            return float(burgers.loss_cont_inference(p, X_u, u, X_f_val,
+                                                     lb, ub, nu))
+
+    logger = Logger(hp, device=device)
+    trainer = Trainer(loss_fn, net, batch, hp, logger,
+                      resample_fn=resample_fn, val_fn=val_fn)
+
+    def error():
+        u_pred = predict_u(trainer.params, X_star).cpu().numpy()
+        return float(np.linalg.norm(data.u_star - u_pred, 2)
+                     / np.linalg.norm(data.u_star, 2))
+
+    logger.set_error_fn(error)
+    params = trainer.fit()
+    if hp.get("save_checkpoint"):
+        path = checkpoint.save_npz_atomic(hp["save_checkpoint"], params, hp=hp)
+        print(f"Saved checkpoint to {path}")
+
+    with torch.no_grad():  # on the fused path: the loss-only kernel
+        loss = float(loss_fn(params, batch))
+    u_pred = predict_u(params, X_star).cpu().numpy()
+    f_pred = residual_f(params, X_f).cpu().numpy()
+    return {"params": params, "u_pred": u_pred, "f_pred": f_pred,
+            "error": error(), "loss": loss, "data": data, "hp": hp,
+            "loss_fn": loss_fn, "batch": batch, "predict_u": predict_u,
+            "timing": dict(trainer.timing)}
+
+
+if __name__ == "__main__":
+    result = run(load_hp(sys.argv, DEFAULT_HP))
+    print(f"rel-L2 error: {result['error']:.4e}")

@@ -1,0 +1,142 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``pinn_torch/csrc/*.cu`` is compiled at first use by ``nvcc``
+into one shared library with a plain C interface,
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/pinn_torch_kernels/<lib>.so
+         pinn_torch/csrc/*.cu
+
+and loaded with ``ctypes``.  The library name carries a hash of the
+sources and flags, so an edited source builds anew and an unchanged
+one is reused.  ``nvcc`` comes from ``$CUDA_HOME/bin``, ``PATH`` or
+``/usr/local/cuda/bin``; when it is missing or the build fails this
+module raises — there is no fallback.
+
+Each C entry point returns ``cudaGetLastError()`` after its launches;
+:func:`check` turns a nonzero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import List, Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "pinn_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
+_F = ctypes.c_float
+
+# C signatures of the entry points (pinn_torch/csrc/burgers_train.cu).
+SIGNATURES = {
+    "burgers_train_sizes": [_IP, _I, _IP, _IP],
+    "burgers_loss_grad": [_P, _P, _P, _IP, _I, _I, _F, _P, _P, _P, _P],
+    "burgers_loss": [_P, _P, _P, _IP, _I, _I, _F, _P, _P, _P],
+}
+
+
+class KernelBuildFailed(RuntimeError):
+    pass
+
+
+class KernelLibrary:
+    """The loaded kernel library, with how it was built."""
+
+    def __init__(self, path: Path, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self.lib = lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.pt_error_string.argtypes = [_I]
+        lib.pt_error_string.restype = ctypes.c_char_p
+
+
+def find_nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelBuildFailed(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin): the CUDA kernels of pinn_torch are built "
+        "from source at first use and need the CUDA toolkit")
+
+
+def _sources() -> List[Path]:
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise KernelBuildFailed(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def _digest(srcs: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> KernelLibrary:
+    """Compile (if needed) and load the kernels; raises on any failure."""
+    srcs = _sources()
+    out = BUILD_DIR / f"libpinn_torch_kernels_{_digest(srcs)}.so"
+    log_path = out.with_suffix(".log")
+    if out.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return KernelLibrary(out, 0.0, log)
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildFailed(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, out)
+    return KernelLibrary(out, seconds, log)
+
+
+_LIBRARY: Optional[KernelLibrary] = None
+
+
+def library() -> KernelLibrary:
+    """The process-wide kernel library, built on first call."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        _LIBRARY = build()
+    return _LIBRARY
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if an entry point of ``lib`` reported a CUDA error."""
+    if err != 0:
+        name = lib.pt_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({name})")

@@ -1,0 +1,52 @@
+"""1D viscous Burgers: continuous-time residual and inference loss.
+
+Counterpart of the continuous terms of ``pinn/problems/burgers.py``:
+``f = u_t + lambda1 u u_x - lambda2 u_xx`` from one Taylor-mode pass,
+and ``loss = mse(u - u_pred) + mse(f)``.  This eager loss is the
+float64 engine of the port (the refinement stage) and the oracle the
+fused kernel's plain version is tested against.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from pinn_torch.models import mlp
+
+
+def mse(x: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(x))
+
+
+def _vx(X: torch.Tensor) -> torch.Tensor:
+    return torch.tensor([1.0, 0.0], dtype=X.dtype, device=X.device)
+
+
+def _vt(X: torch.Tensor) -> torch.Tensor:
+    return torch.tensor([0.0, 1.0], dtype=X.dtype, device=X.device)
+
+
+def residual_cont(net_params, X_f, lb, ub, lambda1=1.0, lambda2=None,
+                  nu=None) -> torch.Tensor:
+    """f = u_t + lambda1 u u_x - lambda2 u_xx at the points ``X_f``
+    (inference: pass ``nu``)."""
+    if lambda2 is None:
+        lambda2 = nu
+    out = mlp.taylor_apply(net_params, X_f, lb, ub, _vx(X_f), _vt(X_f))
+    return out.d2 + lambda1 * out.value * out.d1 - lambda2 * out.d11
+
+
+def loss_cont_inference(net_params, X_u, u, X_f, lb, ub, nu,
+                        f_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE(data) + MSE(residual).  ``f_weights`` (N_f,) replaces the
+    residual mean by a weighted sum (1/N_real on real points, 0 on
+    padding)."""
+    u_pred = mlp.apply(net_params, X_u, lb, ub)
+    f = residual_cont(net_params, X_f, lb, ub, nu=nu)
+    if f_weights is None:
+        mse_f = mse(f)
+    else:
+        mse_f = torch.sum(torch.square(f[:, 0]) * f_weights)
+    return mse(u - u_pred) + mse_f

@@ -1,0 +1,266 @@
+"""Trainer: Adam warmup then L-BFGS.
+
+Counterpart of ``pinn/train.py``'s ``Trainer``: Adam for ``tf_epochs``
+then the repo's L-BFGS for ``nt_epochs`` over the flat parameter
+vector, logger lines every ``log_frequency`` epochs, collocation
+resampling (``tf_resample``/``nt_resample``, which also resets the
+L-BFGS history), best-iterate selection on a held-out metric
+(``nt_val_every``), periodic atomic checkpoints (``save_every``) and
+the mixed-precision mode ``nt_vector_dtype="float64"``: a float64
+iterate and L-BFGS algebra around a network (and fused kernel) that
+runs in float32.
+
+PyTorch runs eagerly, so both phases step one iteration at a time.
+The L-BFGS phase keeps the JAX Trainer's chunk boundaries (at most
+``CHUNK_CAP`` iterations between host checks): they are where the loop
+logs, resamples, probes and revives a stalled run, so keeping them
+keeps the trajectory, and the resampling draws, equal to the JAX
+package's.
+
+Not yet ported: ``trace_dir`` (profiling), the device mesh,
+``params_callback``, ``epoch_extra`` and ``tf_net_dtype`` (the bf16
+warmup); the Trainer raises on the hp keys.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from pinn_torch import params as pcodec
+from pinn_torch.optim import lbfgs as lb
+from pinn_torch.optim.adam import adam_from_hp
+from pinn_torch.utils import checkpoint
+from pinn_torch.utils.logger import Logger
+
+NOT_PORTED_KEYS = ("trace_dir", "tf_net_dtype")
+
+
+def lbfgs_config_from_hp(hp: dict) -> lb.LbfgsConfig:
+    return lb.LbfgsConfig(
+        learning_rate=hp.get("nt_lr", 0.8),
+        max_iter=hp.get("nt_epochs", 0),
+        n_correction=hp.get("nt_ncorr", 50),
+        tol_fun=float(np.finfo(np.float64).eps),
+        line_search=hp.get("nt_line_search", "none"),
+        dir_impl=hp.get("nt_dir_impl", "scan"),
+        restart=hp.get("nt_restart",
+                       hp.get("nt_line_search", "none") != "none"),
+    )
+
+
+def _detached(params: pcodec.Params) -> pcodec.Params:
+    return [(w.detach(), b.detach()) for w, b in params]
+
+
+class Trainer:
+    """Drives ``loss_fn(params, batch) -> scalar`` through both phases.
+
+    ``params0`` is a list of ``(W, b)`` tensors; ``batch`` a dict of
+    tensors.  ``resample_fn(round) -> batch`` and ``val_fn(params) ->
+    float`` are optional, as in the JAX Trainer.
+    """
+
+    CHUNK_CAP = 10  # iterations between host checks in the L-BFGS phase
+
+    def __init__(self, loss_fn: Callable[[Any, Any], torch.Tensor], params0,
+                 batch: Any, hp: dict, logger: Optional[Logger] = None,
+                 resample_fn: Optional[Callable[[int], Any]] = None,
+                 val_fn: Optional[Callable[[Any], float]] = None):
+        bad = [k for k in NOT_PORTED_KEYS if hp.get(k)]
+        if bad:
+            raise NotImplementedError(
+                f"hp key(s) {bad} are not ported to pinn_torch yet")
+        self.loss_fn = loss_fn
+        self.val_fn = val_fn
+        self.resample_fn = resample_fn
+        self.batch = batch
+        self.params = _detached(params0)
+        self.hp = hp
+        self.logger = logger
+        self.tf_epochs = hp.get("tf_epochs", 0)
+        self.nt_config = lbfgs_config_from_hp(hp)
+        self.frequency = hp.get("log_frequency", 10)
+        self.save_every = int(hp.get("save_every", 0) or 0)
+        self.save_path = hp.get("save_checkpoint")
+        if self.save_every and not self.save_path:
+            raise ValueError("hp['save_every'] requires hp['save_checkpoint'] "
+                             "(the path periodic saves write to)")
+        # Wall-clock seconds and step counts of each phase (host clock
+        # around work that ends in a device synchronisation).
+        self.timing = {"adam_s": 0.0, "lbfgs_s": 0.0, "lbfgs_iters": 0}
+
+    # -- logging helpers ---------------------------------------------------
+    def _log(self, method: str, *args, **kw):
+        if self.logger is not None:
+            getattr(self.logger, method)(*args, **kw)
+
+    def summary(self) -> str:
+        """Parameter-shape report (hp["model_description"])."""
+        lines = []
+        for i, (w, b) in enumerate(self.params):
+            for name, a in (("W", w), ("b", b)):
+                lines.append(f"  [{i}].{name}: {tuple(a.shape)} "
+                             f"{str(a.dtype).replace('torch.', '')}")
+        lines.append(f"  total parameters: {pcodec.num_params(self.params)}")
+        return "\n".join(lines)
+
+    def _maybe_save(self, phase: str, phase_done: int) -> None:
+        if not (self.save_every and phase_done % self.save_every == 0
+                and phase_done):
+            return
+        epoch = phase_done + (self.tf_epochs if phase == "lbfgs" else 0)
+        checkpoint.save_npz_atomic(
+            self.save_path, self.params,
+            extra={"phase": phase, "epoch": int(epoch),
+                   "phase_epoch": int(phase_done)})
+
+    def _resample(self, round_idx: int) -> None:
+        self.batch = self.resample_fn(round_idx)
+
+    # -- phases ------------------------------------------------------------
+    def _adam_phase(self):
+        self._log("log_train_opt", "Adam")
+        device = self.params[0][0].device
+        leaves = [a.clone().requires_grad_(True)
+                  for a in pcodec.leaves(self.params)]
+        params = [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+        opt = adam_from_hp(leaves, self.hp)
+        every = self.hp.get("tf_resample", 0) if self.resample_fn else 0
+        self.params = _detached(params)  # views of the live leaves
+        t0 = _now(device)
+        for done in range(self.tf_epochs):
+            if every and done and done % every == 0:
+                self._resample(done)
+            opt.zero_grad(set_to_none=True)
+            loss = self.loss_fn(params, self.batch)
+            loss.backward()
+            opt.step()
+            if done % self.frequency == 0:
+                # the loss at epoch `done`, before its update
+                self._log("log_train_epoch", done, float(loss.detach()),
+                          "", False)
+            self._maybe_save("adam", done + 1)
+        self.timing["adam_s"] += _now(device) - t0
+        self.params = [(w.detach().clone(), b.detach().clone())
+                       for w, b in params]
+
+    def _lbfgs_phase(self):
+        if self.nt_config.max_iter == 0:
+            return
+        self._log("log_train_opt", "LBFGS")
+        flat, unravel = pcodec.ravel_with_unravel(self.params)
+        net_dtype = flat.dtype
+        device = flat.device
+
+        # hp["nt_vector_dtype"]="float64": the iterate, gradients and
+        # L-BFGS history in float64, the network and its loss in the
+        # model dtype.
+        vec = self.hp.get("nt_vector_dtype")
+        vec_dtype = getattr(torch, vec) if vec is not None else net_dtype
+        flat = flat.to(vec_dtype)
+
+        def to_params(x):
+            return unravel(x.to(net_dtype))
+
+        def opfunc(w, batch):
+            w_ = w.detach().requires_grad_(True)
+            loss = self.loss_fn(to_params(w_), batch)
+            g, = torch.autograd.grad(loss, w_)
+            return loss.detach().to(vec_dtype), g
+
+        def lossfunc(w, batch):
+            with torch.no_grad():
+                return self.loss_fn(to_params(w), batch).to(vec_dtype)
+
+        t0 = _now(device)
+        state = lb.lbfgs_init(opfunc, flat, self.nt_config, self.batch)
+        run = lb.make_lbfgs_run(opfunc, self.nt_config, lossfunc)
+        every = self.hp.get("nt_resample", 0) if self.resample_fn else 0
+        done = 0
+        resampled_at = -1
+        n_iters = 0
+
+        val_every = (int(self.hp.get("nt_val_every", 0) or 0)
+                     if self.val_fn is not None else 0)
+        val_best = None  # (metric, flat iterate, nt_epoch)
+
+        def val_probe(x, it):
+            nonlocal val_best
+            v = float(self.val_fn(to_params(x)))
+            if val_best is None or v < val_best[0]:
+                val_best = (v, x, it)
+
+        if val_every:
+            # The warm-start iterate is a candidate too.
+            val_probe(state.x, 0)
+
+        def refresh(i):
+            # Fresh collocation draw: restart the quasi-Newton model.
+            self._resample(i)
+            return lb.lbfgs_init(opfunc, state.x, self.nt_config, self.batch)
+
+        while done < self.nt_config.max_iter:
+            if state.reason != lb.RUNNING:
+                # Terminal on this draw: with resampling, revive on a
+                # fresh one unless this draw already started here.
+                if not every or done == resampled_at:
+                    break
+                n_iters += state.n_iter
+                state, resampled_at = refresh(done), done
+            elif every and done and done % every == 0 and done != resampled_at:
+                n_iters += state.n_iter
+                state, resampled_at = refresh(done), done
+            chunk = min(self.CHUNK_CAP, self.nt_config.max_iter - done,
+                        self.frequency - (done % self.frequency))
+            if every:
+                chunk = min(chunk, every - (done % every))
+            if self.save_every:
+                chunk = min(chunk, self.save_every - (done % self.save_every))
+            if val_every:
+                chunk = min(chunk, val_every - (done % val_every))
+            state, f_hist = run(state, self.batch, chunk)
+            done += chunk
+            self.params = to_params(state.x)
+            self._maybe_save("lbfgs", done)
+            if val_every and done % val_every == 0:
+                val_probe(state.x, done)
+            if done % self.frequency == 0:
+                self._log("log_train_epoch", done, float(f_hist[-1]), "",
+                          True)
+        self.timing["lbfgs_s"] += _now(device) - t0
+        self.timing["lbfgs_iters"] += n_iters + state.n_iter
+        self.params = to_params(state.x)
+        if val_every:
+            val_probe(state.x, done)
+            if val_best[1] is not state.x:
+                self.params = to_params(val_best[1])
+                if self.logger is not None:
+                    self.logger._print(
+                        f"-- val select: restored nt_epoch "
+                        f"{val_best[2]} iterate (val {val_best[0]:.4e}) "
+                        f"over final --")
+        if state.reason != lb.RUNNING and self.logger is not None:
+            self.logger._print(
+                f"-- LBFGS stopped after {state.n_iter} iterations: "
+                f"{lb.REASON_NAMES.get(state.reason, state.reason)} --")
+
+    def fit(self):
+        """Run both phases; returns the trained params."""
+        self._log("log_train_start", self,
+                  model_description=self.hp.get("model_description", False))
+        if self.tf_epochs > 0:
+            self._adam_phase()
+        self._lbfgs_phase()
+        self._log("log_train_end", self.tf_epochs + self.nt_config.max_iter)
+        return self.params
+
+
+def _now(device) -> float:
+    """Host clock after the device's queued work has finished."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()

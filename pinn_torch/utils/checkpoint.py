@@ -1,0 +1,82 @@
+"""npz checkpoints in the JAX package's file format.
+
+Counterpart of ``pinn/utils/checkpoint.py`` (``save_npz``/``load_npz``/
+``save_npz_atomic``): one compressed npz holding the flat parameter
+vector (W0, b0, W1, b1, ... — ``pinn_torch.params`` order) and a JSON
+``meta`` with the leaf shapes, the hp dict and any extra metadata.  A
+file written by either package loads in the other.
+
+:func:`params_from_numpy` is how parameters cross from JAX: a list of
+``(W, b)`` numpy arrays (``np.asarray`` of each JAX leaf) becomes a
+list of torch tensors on the named device and dtype.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pinn_torch import params as pcodec
+from pinn_torch.device import DeviceLike, resolve_device
+
+
+def params_from_numpy(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+                      device: DeviceLike = None,
+                      dtype: torch.dtype = torch.float32) -> pcodec.Params:
+    """``[(W, b), ...]`` numpy arrays -> the same pairs as tensors."""
+    dev = resolve_device(device)
+    # np.array copies, so the tensors never share memory with the caller's
+    # (possibly read-only) arrays.
+    return [(torch.as_tensor(np.array(w), dtype=dtype, device=dev),
+             torch.as_tensor(np.array(b), dtype=dtype, device=dev))
+            for w, b in pairs]
+
+
+def save_npz(path: str, params: Any, hp: Optional[dict] = None,
+             extra: Optional[dict] = None) -> None:
+    """Flat-vector checkpoint (layout = the reference codec order)."""
+    with torch.no_grad():
+        flat = pcodec.ravel(params).cpu().numpy()
+    shapes = [list(a.shape) for a in pcodec.leaves(params)]
+    meta = {"shapes": shapes, "hp": hp or {}, "extra": extra or {}}
+    np.savez_compressed(path, flat=flat, meta=json.dumps(meta))
+
+
+def load_npz(path: str, like: Any = None) -> Tuple[Any, dict]:
+    """Returns ``(params, meta)``.
+
+    With ``like`` (a list of ``(W, b)`` tensors) the flat vector is
+    unraveled into that structure with ``like``'s dtype and device;
+    otherwise a flat list of numpy arrays with the stored shapes comes
+    back (W0, b0, W1, b1, ...), as in the JAX package.
+    """
+    with np.load(path, allow_pickle=False) as d:
+        flat = d["flat"]
+        meta = json.loads(str(d["meta"]))
+    if like is not None:
+        ref = pcodec.leaves(like)[0]
+        t = torch.as_tensor(flat, dtype=ref.dtype, device=ref.device)
+        return [(w.clone(), b.clone())
+                for w, b in pcodec.make_unravel(like)(t)], meta
+    out, off = [], 0
+    for shape in meta["shapes"]:
+        size = int(np.prod(shape)) if shape else 1
+        out.append(flat[off:off + size].reshape(shape))
+        off += size
+    return out, meta
+
+
+def save_npz_atomic(path: str, params: Any, hp: Optional[dict] = None,
+                    extra: Optional[dict] = None) -> str:
+    """Crash-safe :func:`save_npz`: write a sibling temp file, then
+    ``os.replace`` it into place.  Returns the final path (``.npz``
+    appended if missing, as ``np.savez`` does)."""
+    final = path if path.endswith(".npz") else path + ".npz"
+    tmp = final + ".tmp.npz"
+    save_npz(tmp, params, hp=hp, extra=extra)
+    os.replace(tmp, final)
+    return final

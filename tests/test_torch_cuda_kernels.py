@@ -1,0 +1,118 @@
+"""The CUDA kernels of pinn_torch against their plain PyTorch versions,
+on the card.  Skips without a CUDA device (there is no interpret mode
+for a CUDA kernel).  No JAX here: on a machine with a card and no JAX,
+run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Bars as in tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol
+5e-4 with atol 5e-6 * max|g|; two launches are bitwise equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pinn_torch.ops import fused_train as ft
+from pinn_torch.utils.checkpoint import params_from_numpy
+
+pytestmark = [
+    pytest.mark.cuda,
+    pytest.mark.skipif(not torch.cuda.is_available(),
+                       reason="needs a CUDA device (CUDA kernels have no "
+                              "CPU mode; their plain versions are tested "
+                              "in test_torch_fused_train.py)"),
+]
+
+NU = 0.01 / np.pi
+LB = np.array([-1.0, 0.0], np.float32)
+UB = np.array([1.0, 1.0], np.float32)
+
+
+def _case(layers, n_u, n_f, seed, device):
+    rng = np.random.RandomState(seed)
+    pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
+             for a, b in zip(layers[:-1], layers[1:])]
+    params = params_from_numpy(pairs, device, torch.float32)
+    batch = {"X_u": LB + (UB - LB) * rng.rand(n_u, 2), "u": rng.rand(n_u, 1),
+             "X_f": LB + (UB - LB) * rng.rand(n_f, 2)}
+    batch = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+             for k, v in batch.items()}
+    return params, batch
+
+
+def _kernel_args(params, batch):
+    dev = batch["X_f"].device
+    lb, ub = (torch.as_tensor(a, device=dev) for a in (LB, UB))
+    a0, aux = ft._prep_points(batch, lb, ub)
+    scale = 2.0 / (ub - lb)
+    zero = torch.zeros((), device=dev)
+    vx, vt = torch.stack([scale[0], zero]), torch.stack([zero, scale[1]])
+    return (a0, aux, *ft._prep(params, vx, vt))
+
+
+def _flat(out):
+    loss, gwt, gz1, gz2 = out
+    return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)]
+
+
+@pytest.mark.parametrize("layers,n_u,n_f", [
+    ([2, 20, 20, 20, 1], 32, 300),
+    ([2] + [20] * 8 + [1], 100, 2048),
+    ([2, 16, 1], 7, 1017),
+    ([2, 40, 40, 1], 16, 256),
+    ([2, 5, 1], 1, 1),
+])
+def test_kernels_match_plain(layers, n_u, n_f):
+    params, batch = _case(layers, n_u, n_f, seed=len(layers) + n_f, device="cuda")
+    args = _kernel_args(params, batch)
+    n0, n1 = ft.n_launch_loss_grad, ft.n_launch_loss
+    got = _flat(ft.burgers_loss_grad(*args, NU))
+    again = _flat(ft.burgers_loss_grad(*args, NU))
+    loss_only = ft.burgers_loss(*args, NU)
+    want = _flat(ft.burgers_loss_grad_plain(*args, NU))
+    torch.cuda.synchronize()
+    assert (ft.n_launch_loss_grad - n0, ft.n_launch_loss - n1) == (2, 1)
+
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    gmax = max(float(w.abs().max()) for w in want[1:])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-6 * gmax)
+    torch.testing.assert_close(loss_only.reshape(1), got[0], rtol=1e-6,
+                               atol=0.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_loss_on_card_matches_cpu():
+    """make_burgers_loss on CUDA (kernels) against the same call on the
+    CPU (plain version), through prep and reassembly."""
+    layers = [2, 20, 20, 20, 1]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        params, batch = _case(layers, 20, 500, seed=5, device=dev)
+        leaves = [a.requires_grad_(True) for wb in params for a in wb]
+        loss = ft.make_burgers_loss(LB, UB, NU)
+        val = loss(params, batch)
+        grads = torch.autograd.grad(val, leaves)
+        with torch.no_grad():
+            val_only = loss(params, batch)
+        outs[dev] = [val.detach().cpu(), val_only.cpu()] + [g.cpu() for g in grads]
+    cuda, cpu = outs["cuda"], outs["cpu"]
+    torch.testing.assert_close(cuda[0], cpu[0], rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(cuda[1], cpu[1], rtol=1e-5, atol=0.0)
+    gmax = max(float(g.abs().max()) for g in cpu[2:])
+    for a, b in zip(cuda[2:], cpu[2:]):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-6 * gmax)
+
+
+def test_cuda_wrapper_raises_instead_of_falling_back():
+    params, batch = _case([2, 8, 1], 3, 40, seed=6, device="cuda")
+    a0, aux, z1row, z2row, wt_args = _kernel_args(params, batch)
+    with pytest.raises(TypeError, match="float32"):
+        ft.burgers_loss_grad(a0.double(), aux.double(), z1row.double(),
+                             z2row.double(), [w.double() for w in wt_args], NU)
+    with pytest.raises(ValueError, match="widths"):
+        wide = [torch.zeros(65, 2, device="cuda"), torch.zeros(65, 1, device="cuda"),
+                torch.zeros(1, 65, device="cuda"), torch.zeros(1, 1, device="cuda")]
+        ft.burgers_loss(a0, aux, torch.zeros(65, 1, device="cuda"),
+                        torch.zeros(65, 1, device="cuda"), wide, NU)

@@ -1,0 +1,182 @@
+"""The port's optimizers against the JAX package's: Adam against
+optax.adam over 5 steps, and L-BFGS on the quadratic and Rosenbrock
+cases of tests/test_lbfgs.py plus an iterate-by-iterate float64 trace
+against pinn.optim.lbfgs for every line search and direction form
+(rtol 1e-9)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from pinn.optim import adam as jax_adam
+from pinn.optim import lbfgs as jax_lb
+from pinn_torch.optim import lbfgs as lb
+from pinn_torch.optim.adam import adam_from_hp
+
+torch.set_num_threads(1)
+
+
+def _quad(dim=20, seed=0):
+    rng = np.random.RandomState(seed)
+    A = rng.randn(dim, dim)
+    A = A @ A.T + dim * np.eye(dim)
+    b = rng.randn(dim)
+    return A, b
+
+
+def _torch_quad(A, b):
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+
+    def opfunc(x, batch=None):
+        return 0.5 * x @ At @ x - bt @ x, At @ x - bt
+
+    return opfunc, torch.linalg.solve(At, bt)
+
+
+def _rosen_np(x, xp):
+    return xp.sum(100.0 * (x[1:] - x[:-1] ** 2) ** 2 + (1 - x[:-1]) ** 2)
+
+
+def _torch_rosen(x, batch=None):
+    x_ = x.detach().requires_grad_(True)
+    f = _rosen_np(x_, torch)
+    g, = torch.autograd.grad(f, x_)
+    return f.detach(), g
+
+
+def _jax_rosen(x, batch=None):
+    return jax.value_and_grad(lambda z: _rosen_np(z, jnp))(x)
+
+
+# ---------------------------------------------------------------------------
+# Adam
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tf_eps", [None, 1e-4])
+def test_adam_matches_optax(tf_eps):
+    hp = {"tf_lr": 0.03, "tf_b1": 0.9, "tf_eps": tf_eps}
+    A, b = _quad(dim=6, seed=1)
+    x0 = np.random.RandomState(1).randn(6)
+
+    opt = jax_adam.adam_from_hp(hp)
+    xj = jnp.asarray(x0)
+    state = opt.init(xj)
+    grad = jax.grad(lambda x: 0.5 * x @ A @ x - b @ x + jnp.sum(x ** 4))
+
+    xt = torch.tensor(x0, requires_grad=True)
+    topt = adam_from_hp([xt], hp)
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+    for _ in range(5):
+        upd, state = opt.update(grad(xj), state, xj)
+        xj = optax.apply_updates(xj, upd)
+        topt.zero_grad()
+        (0.5 * xt @ At @ xt - bt @ xt + torch.sum(xt ** 4)).backward()
+        topt.step()
+        np.testing.assert_allclose(xt.detach().numpy(), np.asarray(xj),
+                                   rtol=1e-9, atol=1e-12)
+
+
+def test_adam_keras_epsilon_default():
+    opt = adam_from_hp([torch.zeros(2, requires_grad=True)], {"tf_lr": 0.1})
+    group = opt.param_groups[0]
+    assert group["eps"] == 1e-7 and group["betas"] == (0.9, 0.999)
+
+
+# ---------------------------------------------------------------------------
+# L-BFGS convergence (the cases of tests/test_lbfgs.py)
+# ---------------------------------------------------------------------------
+
+def test_quadratic_convergence():
+    opfunc, x_star = _torch_quad(*_quad())
+    config = lb.LbfgsConfig(learning_rate=1.0, max_iter=100, n_correction=10)
+    state = lb.minimize(opfunc, torch.zeros_like(x_star), config)
+    np.testing.assert_allclose(state.x.numpy(), x_star.numpy(), rtol=1e-6,
+                               atol=1e-8)
+
+
+def test_rosenbrock_descends():
+    x0 = torch.tensor([-1.2, 1.0], dtype=torch.float64)
+    config = lb.LbfgsConfig(learning_rate=0.3, max_iter=400, n_correction=20)
+    state = lb.minimize(_torch_rosen, x0, config)
+    assert float(state.f) < 1e-2 * float(_torch_rosen(x0)[0])
+
+
+def test_history_depth_exceeded():
+    opfunc, x_star = _torch_quad(*_quad(dim=30, seed=1))
+    config = lb.LbfgsConfig(learning_rate=1.0, max_iter=60, n_correction=3)
+    state = lb.minimize(opfunc, torch.zeros_like(x_star), config)
+    assert np.isfinite(float(state.f))
+    np.testing.assert_allclose(state.x.numpy(), x_star.numpy(), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_first_step_size_rule():
+    opfunc, _ = _torch_quad(*_quad(dim=5, seed=2))
+    x0 = torch.zeros(5, dtype=torch.float64)
+    config = lb.LbfgsConfig(learning_rate=0.5, max_iter=3, n_correction=5)
+    state = lb.lbfgs_init(opfunc, x0, config)
+    run = lb.make_lbfgs_run(opfunc, config)
+    g0_sum = float(state.g.abs().sum())
+    state, _ = run(state, None, 1)
+    np.testing.assert_allclose(float(state.t), min(1.0, 1.0 / g0_sum),
+                               rtol=1e-12)
+    state, _ = run(state, None, 1)
+    np.testing.assert_allclose(float(state.t), 0.5, rtol=1e-12)
+
+
+def test_early_stop_on_converged_start():
+    opfunc, x_star = _torch_quad(*_quad(dim=5, seed=3))
+    config = lb.LbfgsConfig(max_iter=10, n_correction=5, tol_fun=1e-8)
+    state = lb.minimize(opfunc, x_star, config)
+    assert state.reason == lb.GRAD_TOL and state.n_iter == 0
+
+
+def test_armijo_trials_use_lossfunc():
+    """Rejected Armijo trials evaluate the loss alone."""
+    calls = []
+
+    def lossfunc(w, batch):
+        calls.append(torch.is_grad_enabled())
+        with torch.no_grad():
+            return _rosen_np(w, torch)
+
+    config = lb.LbfgsConfig(max_iter=30, n_correction=5, line_search="armijo")
+    run = lb.make_lbfgs_run(_torch_rosen, config, lossfunc)
+    x0 = torch.tensor([-1.2, 1.0, -0.5, 0.8], dtype=torch.float64)
+    state, _ = run(lb.lbfgs_init(_torch_rosen, x0, config), None, 30)
+    assert calls, "no Armijo trial was rejected on this path"
+    assert float(state.f) < float(_torch_rosen(x0)[0])
+
+
+# ---------------------------------------------------------------------------
+# Iterate-by-iterate trace against the JAX L-BFGS
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("line_search", ["none", "armijo", "wolfe"])
+@pytest.mark.parametrize("dir_impl", ["scan", "matrix"])
+def test_trace_matches_jax(line_search, dir_impl):
+    kw = dict(learning_rate=0.3, max_iter=10, n_correction=4,
+              line_search=line_search, dir_impl=dir_impl,
+              restart=line_search != "none")
+    x0 = np.array([-1.2, 1.0, -0.5, 0.8, 1.1, -0.3])
+    jconf, tconf = jax_lb.LbfgsConfig(**kw), lb.LbfgsConfig(**kw)
+    jstate = jax_lb.lbfgs_init(_jax_rosen, jnp.asarray(x0), jconf)
+    tstate = lb.lbfgs_init(_torch_rosen, torch.as_tensor(x0), tconf)
+    jrun = jax_lb.make_lbfgs_run(_jax_rosen, jconf)
+    trun = lb.make_lbfgs_run(_torch_rosen, tconf)
+    for it in range(10):
+        jstate, _ = jrun(jstate, None, 1)
+        tstate, _ = trun(tstate, None, 1)
+        msg = f"iteration {it + 1}"
+        np.testing.assert_allclose(tstate.x.numpy(), np.asarray(jstate.x),
+                                   rtol=1e-9, atol=1e-12, err_msg=msg)
+        np.testing.assert_allclose(float(tstate.f), float(jstate.f),
+                                   rtol=1e-9, err_msg=msg)
+        np.testing.assert_allclose(float(tstate.t), float(jstate.t),
+                                   rtol=1e-9, err_msg=msg)
+        assert tstate.n_evals == int(jstate.n_evals), msg
+        assert tstate.k == int(jstate.k), msg
+        assert tstate.reason == int(jstate.reason), msg

@@ -1,0 +1,79 @@
+"""The port's Burgers inference experiment against the JAX package's,
+end to end, from one npz checkpoint; and the port's import boundary.
+
+Both runs load the same weights (``init_checkpoint``) and draw the same
+data from the same seed (``pinn_torch.data`` keeps the RNG call order),
+so in float64 they follow one trajectory: the final loss to rtol 1e-6
+and rel-L2 to rtol 1e-5.  The fused float32 path is held to rtol 1e-3,
+the bar tests/test_pallas_train.py sets between its fused and XLA runs.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from pinn.models import mlp as jax_mlp
+from pinn.utils import checkpoint as jax_checkpoint
+from pinn_torch.experiments import inf_cont_burgers as torch_exp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+torch.set_num_threads(1)
+
+HP = {"N_u": 50, "N_f": 500, "layers": [2, 20, 20, 1], "tf_epochs": 10,
+      "nt_epochs": 10, "log_frequency": 5}
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    """A JAX-initialised checkpoint both packages start from."""
+    path = str(tmp_path_factory.mktemp("slice") / "init.npz")
+    params = jax_mlp.init_mlp(jax.random.PRNGKey(7), HP["layers"],
+                              jax.numpy.float64)
+    jax_checkpoint.save_npz(path, params)
+    return path
+
+
+@pytest.fixture(scope="module")
+def jax_exp():
+    """The JAX experiment module, imported when a test needs it (its
+    scaffolding initialises the JAX backend on import)."""
+    sys.path.insert(0, os.path.join(REPO, "experiments"))
+    import inf_cont_burgers
+    return inf_cont_burgers
+
+
+def _jax_final_loss(res):
+    return float(res["loss_fn"](res["params"], res["batch"]))
+
+
+def test_float64_run_matches_jax(ckpt, jax_exp):
+    hp = {**HP, "dtype": "float64", "init_checkpoint": ckpt}
+    want = jax_exp.run(dict(hp))
+    got = torch_exp.run({**hp, "device": "cpu"})
+    np.testing.assert_allclose(got["loss"], _jax_final_loss(want), rtol=1e-6)
+    np.testing.assert_allclose(got["error"], want["error"], rtol=1e-5)
+
+
+def test_fused_float32_run_matches_jax(ckpt, jax_exp):
+    hp = {**HP, "fused_residual": True, "init_checkpoint": ckpt}
+    want = jax_exp.run(dict(hp))
+    got = torch_exp.run({**hp, "device": "cpu"})
+    np.testing.assert_allclose(got["loss"], _jax_final_loss(want), rtol=1e-3)
+    np.testing.assert_allclose(got["error"], want["error"], rtol=1e-3)
+
+
+def test_port_never_imports_jax():
+    code = ("import sys\n"
+            "import pinn_torch, pinn_torch.experiments.inf_cont_burgers\n"
+            "import pinn_torch.ops.fused_train, pinn_torch.optim.lbfgs\n"
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
+            " if m.startswith('jax'))\n")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env=env, timeout=120)
