@@ -1,0 +1,569 @@
+// Shared device code of the fused PINN training kernels (sm_90a): one
+// point's forward through a tanh MLP carrying four Taylor streams
+// (value, d/dx, d2/dx2, d/dt), the loss head, and the hand-derived
+// backward, with per-warp partial sums reduced in a fixed order.
+//
+// Two things are template parameters:
+//
+//   Head  the output-layer misfit: its output width (kOut), its
+//         per-point inputs (Point, loaded by load()), its loss and the
+//         adjoints gU[o][s] of the output streams (eval()), and any
+//         extra accumulators (kExtra slots after the weight gradients).
+//   W     the maximum hidden width, which sizes the per-thread stream
+//         arrays (3 x 4W floats of local memory).
+//
+// Layout.  a0 (2, N) holds the normalised points.  wpack is every
+// weight in one f32 vector: per affine layer l, Wt_l (h_out, h_in)
+// row-major then b_l (h_out); then z1row (h1) and z2row (h1), the first
+// layer's constant tangent rows.  A gradient output has the loss in
+// slot 0, the gradient of wpack in wpack's own order, then the head's
+// kExtra accumulators.
+//
+// A Head is a struct with kOut, kExtra, Args (passed to the kernel by
+// value), Point, and
+//   static __device__ Point load(const Args&, int n_pts, int col, bool live);
+//   static __device__ float eval(const Args&, const Point&, float U[][4],
+//                                float gU[][4], float* extra);
+// where eval returns the point's loss term; a point past the ragged
+// edge (live == false) must give 0 and zero adjoints.
+//
+// Design.  One thread carries one point.  A warp is a tile of 32
+// points; per-point sums over a tile use a fixed butterfly of warp
+// shuffles, and each warp writes its tile's row of
+// partials[n_tiles, 1 + n_weights + kExtra].  pt_reduce_rows_kernel
+// then sums the rows in tile order.  No float atomics, so two launches
+// on the same inputs give bitwise-equal results.  The weights of the
+// whole net sit in shared memory, shared by the warps of a block: one
+// warp a block while they fit in 48 KB (many blocks per SM), and above
+// that as many warps as keep the grid within one wave of the SMs
+// (pt_warps_per_block), since then only one block fits on an SM.
+//
+// Saved activations.  The backward needs (t, z1, z11, z2) of every
+// hidden neuron of the point.  They go to a device workspace ws laid
+// out [layer][stream][neuron][point] (n_tiles * 32 points a row), so the
+// 32 threads of a warp touch 32 consecutive floats; each layer's input
+// activations are rematerialised from the previous layer's saved block.
+//
+// Precision: IEEE f32 throughout (fmaf, tanhf); build without
+// --use_fast_math.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define PT_MAX_LAYERS 16  // affine layers (n_hidden + 1)
+#define PT_TILE 32        // points per tile = one warp
+#define PT_MAX_WARPS 8    // warps per block when the weights are large
+
+struct PtNet {
+  int n_layers;                     // affine layers, n_hidden + 1
+  int width[PT_MAX_LAYERS + 1];     // width[0] = 2, width[n_layers] = kOut
+  int w_off[PT_MAX_LAYERS];         // Wt_l offset in wpack
+  int b_off[PT_MAX_LAYERS];         // b_l offset in wpack
+  int s_off[PT_MAX_LAYERS];         // first workspace row of hidden layer l
+  int z1_off, z2_off, n_weights;
+  int ws_rows;                      // 4 * sum of hidden widths
+};
+
+namespace {
+
+__device__ __forceinline__ float pt_warp_sum(float v) {
+  // Fixed butterfly: every lane ends with the same, order-fixed sum.
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v;
+}
+
+// out[k] = the tile's sum of g . act[:, k] over the four streams, for
+// k < n: one weight row's gradient, stored by lane 0.  Four butterflies
+// run side by side, so the shuffle latency of one hides behind the
+// others'; each sum keeps pt_warp_sum's order.
+template <int W>
+__device__ __forceinline__ void pt_grad_row(float g0, float g1, float g2,
+                                            float g3, const float* act, int n,
+                                            float* out, int lane) {
+  int k = 0;
+  for (; k + 4 <= n; k += 4) {
+    float c[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      c[q] = g0 * act[0 * W + k + q] + g1 * act[1 * W + k + q]
+             + g2 * act[2 * W + k + q] + g3 * act[3 * W + k + q];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        c[q] += __shfl_xor_sync(0xffffffffu, c[q], off);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[k + q] = c[q];
+    }
+  }
+  for (; k < n; ++k) {
+    const float c = g0 * act[0 * W + k] + g1 * act[1 * W + k]
+                    + g2 * act[2 * W + k] + g3 * act[3 * W + k];
+    const float cs = pt_warp_sum(c);
+    if (lane == 0) out[k] = cs;
+  }
+}
+
+__device__ __forceinline__ void pt_load_weights(const PtNet& net,
+                                                const float* __restrict__ wpack,
+                                                float* w_s) {
+  for (int i = threadIdx.x; i < net.n_weights; i += blockDim.x) {
+    w_s[i] = wpack[i];
+  }
+  __syncthreads();
+}
+
+// Forward of one point through the hidden stack.  On return act holds
+// the last hidden layer's four output streams [s * W + k].  With kSave
+// each hidden layer's (t, z1, z11, z2) is saved at
+// ws[(s_off[l] + s * h + j) * cols + col].  kSave is a template
+// argument, not a test of ws: with a runtime test the compiler kept
+// both versions of every layer loop in the loss+grad kernel, which ran
+// 1.7x slower on the H100.
+template <int W, bool kSave>
+__device__ void pt_forward_hidden(const PtNet& net, const float* w_s,
+                                  float x0, float x1, float* act,
+                                  float* nxt, float* ws, int cols,
+                                  int col) {
+  const int n_hidden = net.n_layers - 1;
+  // Layer 0: two inputs, constant tangent rows, z11 = 0.
+  {
+    const int h = net.width[1];
+    const float* Wt = w_s + net.w_off[0];
+    const float* b = w_s + net.b_off[0];
+    for (int j = 0; j < h; ++j) {
+      const float zv = Wt[2 * j] * x0 + Wt[2 * j + 1] * x1 + b[j];
+      const float z1 = w_s[net.z1_off + j];
+      const float z2 = w_s[net.z2_off + j];
+      const float t = tanhf(zv);
+      const float sp = 1.0f - t * t;
+      const float spp = -2.0f * t * sp;
+      if (kSave) {
+        const int r = net.s_off[0] + j;
+        ws[(size_t)(r + 0 * h) * cols + col] = t;
+        ws[(size_t)(r + 1 * h) * cols + col] = z1;
+        ws[(size_t)(r + 2 * h) * cols + col] = 0.0f;
+        ws[(size_t)(r + 3 * h) * cols + col] = z2;
+      }
+      act[0 * W + j] = t;
+      act[1 * W + j] = sp * z1;
+      act[2 * W + j] = spp * z1 * z1;
+      act[3 * W + j] = sp * z2;
+    }
+  }
+  for (int l = 1; l < n_hidden; ++l) {
+    const int hin = net.width[l];
+    const int h = net.width[l + 1];
+    const float* Wt = w_s + net.w_off[l];
+    const float* b = w_s + net.b_off[l];
+    for (int j = 0; j < h; ++j) {
+      const float* Wj = Wt + j * hin;
+      float zv = 0.0f, z1 = 0.0f, z11 = 0.0f, z2 = 0.0f;
+#pragma unroll 4
+      for (int k = 0; k < hin; ++k) {
+        const float wk = Wj[k];
+        zv = fmaf(wk, act[0 * W + k], zv);
+        z1 = fmaf(wk, act[1 * W + k], z1);
+        z11 = fmaf(wk, act[2 * W + k], z11);
+        z2 = fmaf(wk, act[3 * W + k], z2);
+      }
+      zv += b[j];
+      const float t = tanhf(zv);
+      const float sp = 1.0f - t * t;
+      const float spp = -2.0f * t * sp;
+      if (kSave) {
+        const int r = net.s_off[l] + j;
+        ws[(size_t)(r + 0 * h) * cols + col] = t;
+        ws[(size_t)(r + 1 * h) * cols + col] = z1;
+        ws[(size_t)(r + 2 * h) * cols + col] = z11;
+        ws[(size_t)(r + 3 * h) * cols + col] = z2;
+      }
+      nxt[0 * W + j] = t;
+      nxt[1 * W + j] = sp * z1;
+      nxt[2 * W + j] = spp * z1 * z1 + sp * z11;
+      nxt[3 * W + j] = sp * z2;
+    }
+    for (int s = 0; s < 4; ++s) {
+      for (int j = 0; j < h; ++j) {
+        act[s * W + j] = nxt[s * W + j];
+      }
+    }
+  }
+}
+
+// Output layer: U[o][s] = sum_k Wt_out[o][k] act[s][k], plus b_o on the
+// value stream (s = 0).  Streams: value, d/dx, d2/dx2, d/dt.
+template <int W, int NO>
+__device__ __forceinline__ void pt_output(const PtNet& net, const float* w_s,
+                                          const float* act, float U[NO][4]) {
+  const int L = net.n_layers - 1;
+  const int hin = net.width[L];
+  for (int o = 0; o < NO; ++o) {
+    const float* Wo = w_s + net.w_off[L] + o * hin;
+    float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f, u3 = 0.0f;
+    for (int k = 0; k < hin; ++k) {
+      const float wk = Wo[k];
+      u0 = fmaf(wk, act[0 * W + k], u0);
+      u1 = fmaf(wk, act[1 * W + k], u1);
+      u2 = fmaf(wk, act[2 * W + k], u2);
+      u3 = fmaf(wk, act[3 * W + k], u3);
+    }
+    U[o][0] = u0 + w_s[net.b_off[L] + o];
+    U[o][1] = u1;
+    U[o][2] = u2;
+    U[o][3] = u3;
+  }
+}
+
+// Adjoints of a hidden layer's pre-activation streams (_layer_bwd of
+// the TPU kernels): g holds the adjoints of the layer's four outputs,
+// gz receives (gz_v, gz_1, gz_11, gz_2).
+template <int W>
+__device__ __forceinline__ void pt_layer_bwd(const PtNet& net, int l,
+                                             const float* g, float* gz,
+                                             const float* ws, int cols,
+                                             int col) {
+  const int h = net.width[l + 1];
+  for (int j = 0; j < h; ++j) {
+    const int r = net.s_off[l] + j;
+    const float t = ws[(size_t)(r + 0 * h) * cols + col];
+    const float z1 = ws[(size_t)(r + 1 * h) * cols + col];
+    const float z11 = ws[(size_t)(r + 2 * h) * cols + col];
+    const float z2 = ws[(size_t)(r + 3 * h) * cols + col];
+    const float g0 = g[0 * W + j];
+    const float g1 = g[1 * W + j];
+    const float g2 = g[2 * W + j];
+    const float g3 = g[3 * W + j];
+    const float sp = 1.0f - t * t;
+    const float spp = -2.0f * t * sp;
+    const float gt = g0 + g1 * (-2.0f * t * z1)
+                     + g2 * ((6.0f * t * t - 2.0f) * z1 * z1 - 2.0f * t * z11)
+                     + g3 * (-2.0f * t * z2);
+    gz[0 * W + j] = sp * gt;
+    gz[1 * W + j] = g1 * sp + g2 * (2.0f * spp * z1);
+    gz[2 * W + j] = g2 * sp;
+    gz[3 * W + j] = g3 * sp;
+  }
+}
+
+// Loss and every gradient of one tile per warp.
+template <class Head, int W>
+__global__ void pt_loss_grad_kernel(PtNet net, const float* __restrict__ a0,
+                                    const float* __restrict__ wpack,
+                                    int n_pts, typename Head::Args args,
+                                    float* __restrict__ ws,
+                                    float* __restrict__ partials) {
+  extern __shared__ float w_s[];
+  pt_load_weights(net, wpack, w_s);
+
+  const int lane = threadIdx.x & (PT_TILE - 1);
+  const int tile = blockIdx.x * (blockDim.x / PT_TILE) + threadIdx.x / PT_TILE;
+  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
+  if (tile >= n_tiles) return;  // a whole warp; no barrier follows
+  const int cols = n_tiles * PT_TILE;
+  const int col = tile * PT_TILE + lane;
+  const bool live = col < n_pts;
+  // Points past the ragged edge run with zero inputs and a zero weight
+  // (Head::load): they add exactly 0 to the loss and every gradient,
+  // and keep the warp converged for the shuffles.
+  const float x0 = live ? a0[col] : 0.0f;
+  const float x1 = live ? a0[n_pts + col] : 0.0f;
+  const typename Head::Point pt = Head::load(args, n_pts, col, live);
+
+  float act[4 * W];
+  float buf[4 * W];
+  float gz[4 * W];
+
+  pt_forward_hidden<W, true>(net, w_s, x0, x1, act, buf, ws, cols, col);
+  float U[Head::kOut][4], gU[Head::kOut][4];
+  float ex[Head::kExtra + 1];
+  pt_output<W, Head::kOut>(net, w_s, act, U);
+  const float loss = Head::eval(args, pt, U, gU, ex);
+
+  float* part = partials
+                + (size_t)tile * (1 + net.n_weights + Head::kExtra) + 1;
+  const float loss_tile = pt_warp_sum(loss);
+  if (lane == 0) part[-1] = loss_tile;
+  for (int e = 0; e < Head::kExtra; ++e) {
+    const float es = pt_warp_sum(ex[e]);
+    if (lane == 0) part[net.n_weights + e] = es;
+  }
+
+  // ---- output layer ----
+  const int L = net.n_layers - 1;
+  {
+    const int hin = net.width[L];
+    const float* Wt = w_s + net.w_off[L];
+    for (int o = 0; o < Head::kOut; ++o) {
+      pt_grad_row<W>(gU[o][0], gU[o][1], gU[o][2], gU[o][3], act, hin,
+                     part + net.w_off[L] + o * hin, lane);
+      const float cb = pt_warp_sum(gU[o][0]);
+      if (lane == 0) part[net.b_off[L] + o] = cb;
+    }
+    // buf <- adjoints of the last hidden layer's outputs.
+    for (int s = 0; s < 4; ++s) {
+      for (int k = 0; k < hin; ++k) {
+        float a = Wt[k] * gU[0][s];
+        for (int o = 1; o < Head::kOut; ++o) {
+          a = fmaf(Wt[o * hin + k], gU[o][s], a);
+        }
+        buf[s * W + k] = a;
+      }
+    }
+  }
+
+  // ---- hidden layers L-1 .. 1 ----
+  for (int l = L - 1; l >= 1; --l) {
+    const int hin = net.width[l];
+    const int h = net.width[l + 1];
+    const float* Wt = w_s + net.w_off[l];
+    pt_layer_bwd<W>(net, l, buf, gz, ws, cols, col);
+    // act <- this layer's inputs, rematerialised from layer l-1.
+    for (int k = 0; k < hin; ++k) {
+      const int r = net.s_off[l - 1] + k;
+      const float tp = ws[(size_t)(r + 0 * hin) * cols + col];
+      const float z1p = ws[(size_t)(r + 1 * hin) * cols + col];
+      const float z11p = ws[(size_t)(r + 2 * hin) * cols + col];
+      const float z2p = ws[(size_t)(r + 3 * hin) * cols + col];
+      const float spp_ = 1.0f - tp * tp;
+      const float sppp = -2.0f * tp * spp_;
+      act[0 * W + k] = tp;
+      act[1 * W + k] = spp_ * z1p;
+      act[2 * W + k] = sppp * z1p * z1p + spp_ * z11p;
+      act[3 * W + k] = spp_ * z2p;
+    }
+    for (int j = 0; j < h; ++j) {
+      const float gz0 = gz[0 * W + j];
+      pt_grad_row<W>(gz0, gz[1 * W + j], gz[2 * W + j], gz[3 * W + j], act,
+                     hin, part + net.w_off[l] + j * hin, lane);
+      const float cb = pt_warp_sum(gz0);
+      if (lane == 0) part[net.b_off[l] + j] = cb;
+    }
+    // buf <- adjoints of this layer's inputs: Wt^T gz per stream.
+    for (int k = 0; k < hin; ++k) {
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+      for (int j = 0; j < h; ++j) {
+        const float wjk = Wt[j * hin + k];
+        s0 = fmaf(wjk, gz[0 * W + j], s0);
+        s1 = fmaf(wjk, gz[1 * W + j], s1);
+        s2 = fmaf(wjk, gz[2 * W + j], s2);
+        s3 = fmaf(wjk, gz[3 * W + j], s3);
+      }
+      buf[0 * W + k] = s0;
+      buf[1 * W + k] = s1;
+      buf[2 * W + k] = s2;
+      buf[3 * W + k] = s3;
+    }
+  }
+
+  // ---- layer 0: W0 sees only the value stream; the tangent rows'
+  // adjoints are column sums of gz_1 and gz_2 ----
+  {
+    const int h = net.width[1];
+    pt_layer_bwd<W>(net, 0, buf, gz, ws, cols, col);
+    for (int j = 0; j < h; ++j) {
+      const float gz0 = gz[0 * W + j];
+      const float c0 = pt_warp_sum(gz0 * x0);
+      const float c1 = pt_warp_sum(gz0 * x1);
+      const float cb = pt_warp_sum(gz0);
+      const float cz1 = pt_warp_sum(gz[1 * W + j]);
+      const float cz2 = pt_warp_sum(gz[3 * W + j]);
+      if (lane == 0) {
+        part[net.w_off[0] + 2 * j] = c0;
+        part[net.w_off[0] + 2 * j + 1] = c1;
+        part[net.b_off[0] + j] = cb;
+        part[net.z1_off + j] = cz1;
+        part[net.z2_off + j] = cz2;
+      }
+    }
+  }
+}
+
+// The loss alone: one partial per tile.
+template <class Head, int W>
+__global__ void pt_loss_kernel(PtNet net, const float* __restrict__ a0,
+                               const float* __restrict__ wpack, int n_pts,
+                               typename Head::Args args,
+                               float* __restrict__ partials) {
+  extern __shared__ float w_s[];
+  pt_load_weights(net, wpack, w_s);
+
+  const int lane = threadIdx.x & (PT_TILE - 1);
+  const int tile = blockIdx.x * (blockDim.x / PT_TILE) + threadIdx.x / PT_TILE;
+  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
+  if (tile >= n_tiles) return;
+  const int col = tile * PT_TILE + lane;
+  const bool live = col < n_pts;
+  const float x0 = live ? a0[col] : 0.0f;
+  const float x1 = live ? a0[n_pts + col] : 0.0f;
+  const typename Head::Point pt = Head::load(args, n_pts, col, live);
+
+  float act[4 * W];
+  float buf[4 * W];
+  pt_forward_hidden<W, false>(net, w_s, x0, x1, act, buf, nullptr, 0, col);
+  float U[Head::kOut][4], gU[Head::kOut][4];
+  float ex[Head::kExtra + 1];
+  pt_output<W, Head::kOut>(net, w_s, act, U);
+  const float loss_tile = pt_warp_sum(Head::eval(args, pt, U, gU, ex));
+  if (lane == 0) partials[tile] = loss_tile;
+}
+
+// out[p] = sum over rows r = 0, 1, ... of partials[r, p], in row order.
+__global__ void pt_reduce_rows_kernel(const float* __restrict__ partials,
+                                      int rows, int n_cols,
+                                      float* __restrict__ out) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_cols) return;
+  float s = 0.0f;
+  for (int r = 0; r < rows; ++r) {
+    s += partials[(size_t)r * n_cols + p];
+  }
+  out[p] = s;
+}
+
+// ---- host side ----
+
+// Offsets of a layer list [2, h1, ..., hH, n_out] with every hidden
+// width in [1, max_width]; nonzero on a list the kernels do not take.
+int pt_make_net(const int* widths, int n_layers, int n_out, int max_width,
+                PtNet* net) {
+  if (n_layers < 2 || n_layers > PT_MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  if (widths[0] != 2 || widths[n_layers] != n_out) return (int)cudaErrorInvalidValue;
+  net->n_layers = n_layers;
+  int off = 0, rows = 0;
+  for (int l = 0; l <= n_layers; ++l) net->width[l] = widths[l];
+  for (int l = 0; l < n_layers; ++l) {
+    const int hin = widths[l], hout = widths[l + 1];
+    if (l < n_layers - 1 && (hout < 1 || hout > max_width)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    net->w_off[l] = off;
+    off += hin * hout;
+    net->b_off[l] = off;
+    off += hout;
+    if (l < n_layers - 1) {
+      net->s_off[l] = rows;
+      rows += 4 * hout;
+    }
+  }
+  net->z1_off = off;
+  off += widths[1];
+  net->z2_off = off;
+  off += widths[1];
+  net->n_weights = off;
+  net->ws_rows = rows;
+  return 0;
+}
+
+int pt_sizes(const int* widths, int n_layers, int n_out, int max_width,
+             int* n_weights, int* ws_rows) {
+  PtNet net;
+  const int err = pt_make_net(widths, n_layers, n_out, max_width, &net);
+  if (err) return err;
+  *n_weights = net.n_weights;
+  *ws_rows = net.ws_rows;
+  return 0;
+}
+
+int pt_smem_bytes(const PtNet& net, const void* kernel, size_t* bytes) {
+  *bytes = (size_t)net.n_weights * sizeof(float);
+  if (*bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// Warps per block.  Weights within 48 KB: one warp, and many blocks
+// share an SM.  Larger weights allow one block per SM, so the warps of
+// a block share one copy: as many as keep the grid within one wave of
+// the SMs, at most PT_MAX_WARPS.
+int pt_warps_per_block(size_t smem, int n_tiles, int* warps) {
+  *warps = 1;
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int w = (n_tiles + n_sm - 1) / n_sm;
+  *warps = w < 1 ? 1 : (w > PT_MAX_WARPS ? PT_MAX_WARPS : w);
+  return 0;
+}
+
+int pt_reduce(const float* partials, int rows, int n_cols, float* out,
+              cudaStream_t stream) {
+  const int threads = 256;
+  const int blocks = (n_cols + threads - 1) / threads;
+  pt_reduce_rows_kernel<<<blocks, threads, 0, stream>>>(partials, rows,
+                                                        n_cols, out);
+  return (int)cudaGetLastError();
+}
+
+// Loss, every gradient and the head's extras.  ws: ws_rows * (n_tiles *
+// 32) floats; partials: n_tiles * (1 + n_weights + kExtra); out:
+// 1 + n_weights + kExtra, where n_tiles = ceil(n_pts / 32).
+template <class Head, int W>
+int pt_launch_loss_grad(const int* widths, int n_layers, const float* a0,
+                        const float* wpack, int n_pts,
+                        typename Head::Args args, float* ws, float* partials,
+                        float* out, void* stream) {
+  PtNet net;
+  int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
+  if (err) return err;
+  if (n_pts < 1) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  err = pt_smem_bytes(net, (const void*)pt_loss_grad_kernel<Head, W>, &smem);
+  if (err) return err;
+  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
+  int warps = 1;
+  err = pt_warps_per_block(smem, n_tiles, &warps);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = (n_tiles + warps - 1) / warps;
+  pt_loss_grad_kernel<Head, W><<<blocks, warps * PT_TILE, smem, s>>>(
+      net, a0, wpack, n_pts, args, ws, partials);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return pt_reduce(partials, n_tiles, 1 + net.n_weights + Head::kExtra, out,
+                   s);
+}
+
+// Loss only.  partials: n_tiles floats; out: 1 float.
+template <class Head, int W>
+int pt_launch_loss(const int* widths, int n_layers, const float* a0,
+                   const float* wpack, int n_pts, typename Head::Args args,
+                   float* partials, float* out, void* stream) {
+  PtNet net;
+  int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
+  if (err) return err;
+  if (n_pts < 1) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  err = pt_smem_bytes(net, (const void*)pt_loss_kernel<Head, W>, &smem);
+  if (err) return err;
+  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
+  int warps = 1;
+  err = pt_warps_per_block(smem, n_tiles, &warps);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = (n_tiles + warps - 1) / warps;
+  pt_loss_kernel<Head, W><<<blocks, warps * PT_TILE, smem, s>>>(
+      net, a0, wpack, n_pts, args, partials);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return pt_reduce(partials, n_tiles, 1, out, s);
+}
+
+}  // namespace

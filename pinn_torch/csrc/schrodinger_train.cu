@@ -1,0 +1,123 @@
+// Fused nonlinear-Schrödinger residual SSE for Hopper (sm_90a): the sum
+//
+//     SSE = sum_i (f_u^2 + f_v^2)_i,
+//     f_u = u_t + 0.5 v_xx + (u^2 + v^2) v,
+//     f_v = v_t - 0.5 u_xx - (u^2 + v^2) u,
+//
+// of a two-output tanh MLP [2, h1, ..., hH, 2], (u, v) = (Re h, Im h),
+// over the collocation points, with every parameter gradient, in one
+// pass.  Points past the ragged edge carry weight 0, where the TPU
+// kernel masks by n_real.
+//
+// Replaces (pinn/ops/pallas_schrodinger.py):
+//   schrodinger_sse_grad  <- _make_fwd_bwd_kernel (:95), launched by
+//                            _sse_fwd_bwd_call (:219)
+//   schrodinger_sse       <- _fwd_kernel (:70), launched by
+//                            _sse_fwd_call (:193)
+//
+// The forward, backward, layout and reductions are pt_mlp.cuh's; this
+// file holds the two-output head and the entry points, instantiated at
+// hidden width <= 128.  The output layer carries 2 x 4 streams; the
+// adjoint of the d/dx stream is 0 (the residual has no first x
+// derivative).
+//
+// Block shape.  The flagship [2, 100x4, 2] has 31,002 weights: 124 KB
+// of shared memory, more than half an SM's 228 KB, so one block fits on
+// an SM.  A one-warp block would leave each SM one warp; instead the
+// warps of a block share one copy of the weights, as many as keep the
+// grid within one wave (pt_warps_per_block: 5 warps x 125 blocks at
+// N_f = 20,000).  Smaller nets keep one-warp blocks.
+//
+// Bounds on this card.  Per point, ~0.74 MFLOP of f32 FMA forward and
+// backward at the flagship: 14.8 GFLOP a step at N_f = 20,000, 0.22 ms
+// at the card's 67 TFLOP/s f32 (non-tensor-core) peak.  What bounds it
+// is latency and local memory: the three
+// per-thread stream arrays are 3 x 4 x 128 floats, 6 KB a thread, far
+// beyond the registers, so they live in L1 and spill to L2.  The saved
+// activations are 4 layers x 4 streams x 100 x 4 B = 6,400 B a point,
+// 128 MB at N_f = 20,000, more than the 50 MB L2, so they stream from
+// HBM; and the per-warp gradient partials are 625 x 31,003 floats
+// (77.6 MB).  A later design would give a point's neurons to several
+// lanes (streams in registers, the layer products as warp-level
+// matrix products on the tensor cores) and reduce the weight gradients
+// across a block before they leave the SM.
+//
+// Every entry returns cudaGetLastError().
+
+#include "pt_mlp.cuh"
+
+#define SCHRODINGER_MAX_WIDTH 128
+
+namespace {
+
+struct SchrodingerHead {
+  static constexpr int kOut = 2;
+  static constexpr int kExtra = 0;
+  struct Args {};
+  struct Point {
+    float m;  // 1 on live points, 0 past the ragged edge
+  };
+  static __device__ __forceinline__ Point load(const Args&, int, int,
+                                               bool live) {
+    Point p;
+    p.m = live ? 1.0f : 0.0f;
+    return p;
+  }
+  static __device__ __forceinline__ float eval(const Args&, const Point& p,
+                                               float U[][4], float gU[][4],
+                                               float*) {
+    const float u = U[0][0], v = U[1][0];
+    const float h2 = u * u + v * v;
+    const float f_u = p.m * (U[0][3] + 0.5f * U[1][2] + h2 * v);
+    const float f_v = p.m * (U[1][3] - 0.5f * U[0][2] - h2 * u);
+    const float g_fu = 2.0f * f_u;
+    const float g_fv = 2.0f * f_v;
+    gU[0][0] = g_fu * (2.0f * u * v) - g_fv * (3.0f * u * u + v * v);
+    gU[1][0] = g_fu * (u * u + 3.0f * v * v) - g_fv * (2.0f * u * v);
+    gU[0][1] = 0.0f;
+    gU[1][1] = 0.0f;
+    gU[0][2] = -0.5f * g_fv;
+    gU[1][2] = 0.5f * g_fu;
+    gU[0][3] = g_fu;
+    gU[1][3] = g_fv;
+    return f_u * f_u + f_v * f_v;
+  }
+};
+
+}  // namespace
+
+// ---- host entry points (plain C interface, loaded with ctypes) ----
+
+extern "C" {
+
+// Packed weight count and workspace rows; nonzero on a layer list the
+// kernels do not take (input 2, output 2, at most 15 hidden layers of
+// width <= 128).
+int schrodinger_train_sizes(const int* widths, int n_layers, int* n_weights,
+                            int* ws_rows) {
+  return pt_sizes(widths, n_layers, 2, SCHRODINGER_MAX_WIDTH, n_weights,
+                  ws_rows);
+}
+
+// SSE and all gradients.  ws: ws_rows * (n_tiles * 32) floats;
+// partials: n_tiles * (1 + n_weights); out: 1 + n_weights, where
+// n_tiles = ceil(n_pts / 32).
+int schrodinger_sse_grad(const float* a0, const float* wpack,
+                         const int* widths, int n_layers, int n_pts,
+                         float* ws, float* partials, float* out,
+                         void* stream) {
+  return pt_launch_loss_grad<SchrodingerHead, SCHRODINGER_MAX_WIDTH>(
+      widths, n_layers, a0, wpack, n_pts, SchrodingerHead::Args{}, ws,
+      partials, out, stream);
+}
+
+// SSE only.  partials: n_tiles floats; out: 1 float.
+int schrodinger_sse(const float* a0, const float* wpack, const int* widths,
+                    int n_layers, int n_pts, float* partials, float* out,
+                    void* stream) {
+  return pt_launch_loss<SchrodingerHead, SCHRODINGER_MAX_WIDTH>(
+      widths, n_layers, a0, wpack, n_pts, SchrodingerHead::Args{}, partials,
+      out, stream);
+}
+
+}  // extern "C"

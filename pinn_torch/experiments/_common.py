@@ -1,0 +1,81 @@
+"""Shared experiment scaffolding of the port: hp checks, seeding, dtype
+and device resolution, and the per-case checkpoint paths.
+
+Counterpart of ``experiments/_common.py``.  The identification
+experiments train a clean and a noisy case inside one ``run``; each
+case warm-starts from, and saves to, its own checkpoint
+(``<path>-noisy.npz`` for the noisy one).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pinn_torch.device import resolve_device
+from pinn_torch.utils import checkpoint
+from pinn_torch.utils.config import validate_hp
+
+
+def resolve_dtype(hp) -> torch.dtype:
+    """hp["dtype"] in {"float32", "float64"}; ``net_impl: "df32"`` (the
+    JAX package's double-f32 engine) runs as native float64."""
+    name = hp.get("dtype", "float32")
+    if name not in ("float32", "float64"):
+        raise NotImplementedError(f"dtype {name!r} is not ported "
+                                  "(float32 and float64 are)")
+    if hp.get("net_impl") == "df32" and name != "float64":
+        raise ValueError("net_impl='df32' requires dtype=float64 "
+                         "(on this port it runs as native float64)")
+    return getattr(torch, name)
+
+
+def setup(hp, not_ported: Sequence[str] = ()) -> Tuple[int, torch.dtype,
+                                                        torch.device]:
+    """Validate ``hp``, refuse keys the port lacks, seed numpy (the data
+    draws' RNG stream, as in the JAX run) and resolve dtype and device.
+    Returns ``(seed, dtype, device)``."""
+    validate_hp(hp)
+    bad = [k for k in not_ported if hp.get(k)]
+    if bad:
+        raise NotImplementedError(f"hp key(s) {bad} are not ported to "
+                                  "pinn_torch yet")
+    seed = hp.get("seed", 1234)
+    np.random.seed(seed)
+    dtype = resolve_dtype(hp)
+    device = resolve_device(hp.get("device"))
+    # Full-precision float32 products: second-derivative residuals do
+    # not survive TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return seed, dtype, device
+
+
+def _case_path(path: str, case) -> str:
+    """``path`` suffixed per sub-case (``run-noisy.npz``)."""
+    if not case:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}-{case}{ext or '.npz'}"
+
+
+def maybe_load_params(hp, params, case=None):
+    """hp["init_checkpoint"]: warm-start from a saved flat-vector npz,
+    in ``params``' structure, dtypes and devices."""
+    path = hp.get("init_checkpoint")
+    if path:
+        path = _case_path(path, case)
+        params, _ = checkpoint.load_npz(path, like=params)
+        print(f"Loaded initial parameters from {path}")
+    return params
+
+
+def maybe_save_params(hp, params, case=None) -> None:
+    """hp["save_checkpoint"]: persist the trained parameters."""
+    path = hp.get("save_checkpoint")
+    if path:
+        path = checkpoint.save_npz_atomic(_case_path(path, case), params,
+                                          hp=hp)
+        print(f"Saved checkpoint to {path}")

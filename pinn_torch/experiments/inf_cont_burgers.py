@@ -28,12 +28,12 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_cont_inference, lhs
-from pinn_torch.device import resolve_device
+from pinn_torch.experiments._common import (maybe_load_params,
+                                            maybe_save_params, setup)
 from pinn_torch.models import mlp
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
-from pinn_torch.utils import Logger, checkpoint, load_hp
-from pinn_torch.utils.config import validate_hp
+from pinn_torch.utils import Logger, load_hp
 
 DEFAULT_HP = {
     "N_u": 100,
@@ -53,31 +53,9 @@ DEFAULT_HP = {
 NOT_PORTED = ("rar_pool", "rar_init", "tpu_mesh")
 
 
-def _dtype(hp) -> torch.dtype:
-    name = hp.get("dtype", "float32")
-    if name not in ("float32", "float64"):
-        raise NotImplementedError(f"dtype {name!r} is not ported "
-                                  "(float32 and float64 are)")
-    if hp.get("net_impl") == "df32" and name != "float64":
-        raise ValueError("net_impl='df32' requires dtype=float64 "
-                         "(on this port it runs as native float64)")
-    return getattr(torch, name)
-
-
 def run(hp=None):
     hp = {**DEFAULT_HP, **(hp or {})}
-    validate_hp(hp)
-    bad = [k for k in NOT_PORTED if hp.get(k)]
-    if bad:
-        raise NotImplementedError(f"hp key(s) {bad} are not ported to "
-                                  "pinn_torch yet")
-    seed = hp.get("seed", 1234)
-    np.random.seed(seed)  # the data draw's RNG stream, as in the JAX run
-    dtype = _dtype(hp)
-    device = resolve_device(hp.get("device"))
-    # Full-precision float32 products: second-derivative residuals do
-    # not survive TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
+    seed, dtype, device = setup(hp, NOT_PORTED)
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -89,10 +67,7 @@ def run(hp=None):
     nu = 0.01 / np.pi
 
     gen = torch.Generator().manual_seed(int(hp.get("init_seed") or seed))
-    net = mlp.init_mlp(hp["layers"], gen, dtype, device)
-    if hp.get("init_checkpoint"):
-        net, _ = checkpoint.load_npz(hp["init_checkpoint"], like=net)
-        print(f"Loaded initial parameters from {hp['init_checkpoint']}")
+    net = maybe_load_params(hp, mlp.init_mlp(hp["layers"], gen, dtype, device))
 
     batch = {"X_u": X_u, "u": u, "X_f": X_f}
 
@@ -148,9 +123,7 @@ def run(hp=None):
 
     logger.set_error_fn(error)
     params = trainer.fit()
-    if hp.get("save_checkpoint"):
-        path = checkpoint.save_npz_atomic(hp["save_checkpoint"], params, hp=hp)
-        print(f"Saved checkpoint to {path}")
+    maybe_save_params(hp, params)
 
     with torch.no_grad():  # on the fused path: the loss-only kernel
         loss = float(loss_fn(params, batch))

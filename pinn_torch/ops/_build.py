@@ -1,17 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-Every ``pinn_torch/csrc/*.cu`` is compiled at first use by ``nvcc``
-into one shared library with a plain C interface,
+Every ``pinn_torch/csrc/*.cu`` is compiled at first use by its own
+``nvcc`` process, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/pinn_torch_kernels/<lib>.so
-         pinn_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <src>.o pinn_torch/csrc/<src>.cu
 
-and loaded with ``ctypes``.  The library name carries a hash of the
-sources and flags, so an edited source builds anew and an unchanged
-one is reused.  ``nvcc`` comes from ``$CUDA_HOME/bin``, ``PATH`` or
-``/usr/local/cuda/bin``; when it is missing or the build fails this
-module raises — there is no fallback.
+then linked by one ``nvcc -shared`` into one shared library with a
+plain C interface in ``build/pinn_torch_kernels/``, and loaded with
+``ctypes``.  The sources share device code through the header
+``pinn_torch/csrc/pt_mlp.cuh``.  The library name carries a hash of
+the flags, the sources and the headers, so an edited file builds anew
+and an unchanged tree is reused.  ``nvcc`` comes from
+``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda/bin``; when it is
+missing or the build fails this module raises — there is no fallback.
 
 Each C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` turns a nonzero code into an exception.
@@ -26,24 +28,30 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pinn_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _F = ctypes.c_float
 
-# C signatures of the entry points (pinn_torch/csrc/burgers_train.cu).
+# C signatures of the entry points (pinn_torch/csrc/burgers_train.cu,
+# schrodinger_train.cu).
 SIGNATURES = {
     "burgers_train_sizes": [_IP, _I, _IP, _IP],
     "burgers_loss_grad": [_P, _P, _P, _IP, _I, _I, _F, _P, _P, _P, _P],
     "burgers_loss": [_P, _P, _P, _IP, _I, _I, _F, _P, _P, _P],
+    "burgers_ide_loss_grad": [_P, _P, _P, _P, _IP, _I, _I, _P, _P, _P, _P],
+    "burgers_ide_loss": [_P, _P, _P, _P, _IP, _I, _I, _P, _P, _P],
+    "schrodinger_train_sizes": [_IP, _I, _IP, _IP],
+    "schrodinger_sse_grad": [_P, _P, _IP, _I, _I, _P, _P, _P, _P],
+    "schrodinger_sse": [_P, _P, _IP, _I, _I, _P, _P, _P],
 }
 
 
@@ -92,11 +100,21 @@ def _sources() -> List[Path]:
 
 
 def _digest(srcs: List[Path]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: List[List[str]]) -> List[Tuple[List[str], int, str]]:
+    """Run the commands side by side; (cmd, exit code, output) of each."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    return [(cmd, p.returncode, text)
+            for cmd, p in procs for text in [p.communicate()[0]]]
 
 
 def build() -> KernelLibrary:
@@ -109,16 +127,26 @@ def build() -> KernelLibrary:
         return KernelLibrary(out, 0.0, log)
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in srcs]
+    tmp = out.with_name(f"{tag}.tmp.so")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        steps = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                          for src, obj in zip(srcs, objs)])
+        if all(rc == 0 for _, rc, _ in steps):
+            steps += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                                *map(str, objs)]])
+        log = "".join(text for _, _, text in steps)
+        for cmd, rc, text in steps:
+            if rc != 0:
+                tmp.unlink(missing_ok=True)
+                raise KernelBuildFailed(
+                    f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{text}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildFailed(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, out)
     return KernelLibrary(out, seconds, log)

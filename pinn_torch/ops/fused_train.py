@@ -1,14 +1,29 @@
-"""Fused Burgers training loss: one CUDA launch for the loss and every
+"""Fused Burgers training losses: one CUDA launch for the loss and every
 parameter gradient.
 
-Counterpart of ``pinn.ops.pallas_train.make_burgers_loss``.  Data and
-collocation points ride one stream with three aux rows (target, w, d):
+Counterpart of ``pinn.ops.pallas_train.make_burgers_loss`` and
+``make_burgers_ide_loss``.
+
+Inference.  Data and collocation points ride one stream with three aux
+rows (target, w, d):
 
     loss = sum_i w_i f_i^2,   f_i = d_i (u_i - target_i)
                                     + (1 - d_i)(u_t + u u_x - nu u_xx)_i
 
 with w = 1/N_u on data points and 1/N_f on collocation points, so the
 loss is mse(u - u_pred) + mse(f) exactly.
+
+Identification.  Both misfits at the same N points, aux rows (target,
+w_d, w_f) with w = 1/N, and trainable coefficients:
+
+    loss = sum_i w_d (u - target)^2 + w_f f^2,
+    f    = u_t + lambda1 u u_x - exp(log_lambda2) u_xx.
+
+The kernel also returns A1 = sum g_f u u_x and A2 = sum g_f u_xx
+(g_f = 2 w_f f), and the backward chains them through the exp
+reparameterisation: dL/dlambda1 = A1, dL/dlog_lambda2 = -A2 e^lambda2.
+(lambda1, e^lambda2) reach the kernel as a 2-float device buffer built
+on the card, so a step needs no device-to-host copy.
 
 Kernels (``pinn_torch/csrc/burgers_train.cu``, built by ``_build``):
 
@@ -17,18 +32,23 @@ Kernels (``pinn_torch/csrc/burgers_train.cu``, built by ``_build``):
   tangent-row adjoints in one launch, plus a fixed-order reduction of
   the per-tile partials.
 - ``burgers_loss`` replaces ``_fwd_train_kernel`` (:576): the loss alone.
+- ``burgers_ide_loss_grad`` replaces ``_make_ide_kernel`` (:847): as
+  ``burgers_loss_grad``, plus A1 and A2.
+- ``burgers_ide_loss`` replaces ``_fwd_ide_kernel`` (:906).
 
-Both are bound by latency at the flagship N = 10,100 (316 warps on 132
-SMs); the source note in the .cu says what the design does about the
-saved activations and the cross-block sum.
+All four are bound by latency (a few hundred warps on 132 SMs); the
+source notes in ``pinn_torch/csrc/`` say what the design does about
+the saved activations and the cross-block sum.
 
 Each kernel has a plain PyTorch version with the same signature
-``(a0, aux, z1row, z2row, wt_args, nu) -> (loss, gwt, gz1row, gz2row)``
-(the loss-only one returns the loss).  The wrappers take the plain
-version only for tensors on the CPU; for CUDA tensors they launch the
-kernel or raise.  The host-side prep (:func:`_prep`,
-:func:`_prep_points`) and reassembly (:func:`_assemble_net_grads`)
-wrap both, so the CPU tests exercise everything but the kernel body.
+(``burgers_loss_grad_plain(a0, aux, z1row, z2row, wt_args, nu) ->
+(loss, gwt, gz1row, gz2row)``; the ide pair takes ``lam`` after
+``aux`` and returns ``glam`` = (A1, A2) last; the loss-only versions
+return the loss).  The wrappers take the plain version only for
+tensors on the CPU; for CUDA tensors they launch the kernel or raise.
+The host-side prep (:func:`_prep`, :func:`_prep_points`) and
+reassembly (:func:`_assemble_net_grads`) wrap both, so the CPU tests
+exercise everything but the kernel body.
 
 Layouts follow the TPU kernel: a0 (2, N) normalised points
 (features-major), aux (3, N), per layer Wt (h_out, h_in) and b
@@ -44,15 +64,18 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from pinn_torch.models.mlp import normalize
 from pinn_torch.ops import _build
 from pinn_torch.params import Params, leaves
 
-# Launch counts of the two kernels (CUDA launches only; the plain
-# versions do not count).
+# Launch counts of the kernels (CUDA launches only; the plain versions
+# do not count).
 n_launch_loss_grad = 0
 n_launch_loss = 0
+n_launch_ide_loss_grad = 0
+n_launch_ide_loss = 0
 
-TILE = 32  # points per CUDA block (burgers_train.cu PT_TILE)
+TILE = 32  # points per partials row: one warp (pt_mlp.cuh PT_TILE)
 
 
 # ---------------------------------------------------------------------------
@@ -70,13 +93,16 @@ def _prep(params: Params, vx: torch.Tensor, vt: torch.Tensor):
     return z1row, z2row, wt_args
 
 
+def _normalise(X: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor):
+    return normalize(X, lb, ub).t().contiguous()   # (2, N)
+
+
 def _prep_points(batch, lb: torch.Tensor, ub: torch.Tensor):
     """Stack [X_u; X_f], normalise, and build the aux rows (target, w, d)."""
     X_u, u, X_f = batch["X_u"], batch["u"], batch["X_f"]
     n_u, n_f = X_u.shape[0], X_f.shape[0]
     dtype, dev = X_f.dtype, X_f.device
-    X = torch.cat([X_u, X_f], dim=0)
-    a0 = (2.0 * (X - lb) / (ub - lb) - 1.0).t().contiguous()   # (2, N)
+    a0 = _normalise(torch.cat([X_u, X_f], dim=0), lb, ub)
     target = torch.cat([u[:, 0], torch.zeros((n_f,), dtype=dtype, device=dev)])
     w = torch.cat([torch.full((n_u,), 1.0 / n_u, dtype=dtype, device=dev),
                    torch.full((n_f,), 1.0 / n_f, dtype=dtype, device=dev)])
@@ -84,6 +110,20 @@ def _prep_points(batch, lb: torch.Tensor, ub: torch.Tensor):
                    torch.zeros((n_f,), dtype=dtype, device=dev)])
     aux = torch.stack([target, w, d]).contiguous()             # (3, N)
     return a0, aux
+
+
+def _prep_ide_points(batch, lb: torch.Tensor, ub: torch.Tensor):
+    """Normalise X_u and build the aux rows (target, w_d, w_f), w = 1/N."""
+    X, u = batch["X_u"], batch["u"]
+    n = X.shape[0]
+    w = torch.full((n,), 1.0 / n, dtype=X.dtype, device=X.device)
+    return _normalise(X, lb, ub), torch.stack([u[:, 0], w, w]).contiguous()
+
+
+def _lam(lambda1: torch.Tensor, log_lambda2: torch.Tensor) -> torch.Tensor:
+    """(lambda1, exp(log_lambda2)) as a 2-float tensor, computed on the
+    coefficients' device (no host copy)."""
+    return torch.cat([lambda1.reshape(1), torch.exp(log_lambda2.reshape(1))])
 
 
 def _assemble_net_grads(params: Params, gwt, gz1row, gz2row, vx, vt):
@@ -99,13 +139,31 @@ def _assemble_net_grads(params: Params, gwt, gz1row, gz2row, vx, vt):
     return grads
 
 
+def _tangents(lb_np, ub_np, dev):
+    """(lb, ub, vx, vt) on ``dev``: vx, vt are the x and t directions
+    scaled into the normalised input space."""
+    lb_t = torch.as_tensor(lb_np, device=dev)
+    ub_t = torch.as_tensor(ub_np, device=dev)
+    scale = 2.0 / (ub_t - lb_t)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return lb_t, ub_t, torch.stack([scale[0], zero]), torch.stack([zero, scale[1]])
+
+
+def _check_stream_dtype(stream_dtype) -> None:
+    if stream_dtype not in (None, "float32", torch.float32):
+        raise NotImplementedError(
+            "stream_dtype other than float32 (the bf16-stream variant) "
+            "is not ported yet")
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the on-card reference)
 # ---------------------------------------------------------------------------
 
-def burgers_loss_plain(a0, aux, z1row, z2row, wt_args, nu) -> torch.Tensor:
-    """The fused loss in plain torch ops, streams stacked as the TPU
-    kernel stacks them: each layer is one (h, 4N) product."""
+def streams_plain(a0, z1row, z2row, wt_args):
+    """The network's four output streams (value, d/dx, d2/dx2, d/dt),
+    each (h_out, N), streams stacked as the TPU kernel stacks them:
+    each layer is one (h, 4N) product."""
     n = a0.shape[1]
     n_hidden = len(wt_args) // 2 - 1
     zv = wt_args[0] @ a0 + wt_args[1]
@@ -125,26 +183,60 @@ def burgers_loss_plain(a0, aux, z1row, z2row, wt_args, nu) -> torch.Tensor:
         a_cat = torch.cat([t, sp * z1, spp * z1 * z1 + sp * z11, sp * z2],
                           dim=1)
     U = wt_args[-2] @ a_cat
-    u = U[:, :n] + wt_args[-1]
-    u_x, u_xx, u_t = U[:, n:2 * n], U[:, 2 * n:3 * n], U[:, 3 * n:]
+    return (U[:, :n] + wt_args[-1], U[:, n:2 * n], U[:, 2 * n:3 * n],
+            U[:, 3 * n:])
+
+
+def burgers_loss_plain(a0, aux, z1row, z2row, wt_args, nu) -> torch.Tensor:
+    """The fused inference loss in plain torch ops."""
+    u, u_x, u_xx, u_t = streams_plain(a0, z1row, z2row, wt_args)
     target, w, d = aux[0:1], aux[1:2], aux[2:3]
     e = 1.0 - d
     f = d * (u - target) + e * (u_t + u * u_x - nu * u_xx)
     return torch.sum(w * f * f)
 
 
+def _value_and_grads(fn, xs):
+    """``fn(*xs)`` and its gradient with respect to every ``xs``."""
+    with torch.enable_grad():
+        xs = [a.detach().requires_grad_(True) for a in xs]
+        loss = fn(*xs)
+        grads = torch.autograd.grad(loss, xs)
+    return loss.detach(), list(grads)
+
+
 def burgers_loss_grad_plain(a0, aux, z1row, z2row, wt_args, nu):
     """Loss and gradients of :func:`burgers_loss_plain` by autograd."""
-    with torch.enable_grad():
-        xs = [a.detach().requires_grad_(True)
-              for a in (*wt_args, z1row, z2row)]
-        loss = burgers_loss_plain(a0, aux, xs[-2], xs[-1], xs[:-2], nu)
-        grads = torch.autograd.grad(loss, xs)
-    return loss.detach(), list(grads[:-2]), grads[-2], grads[-1]
+    loss, g = _value_and_grads(
+        lambda *x: burgers_loss_plain(a0, aux, x[-2], x[-1], x[:-2], nu),
+        [*wt_args, z1row, z2row])
+    return loss, g[:-2], g[-2], g[-1]
+
+
+def burgers_ide_loss_plain(a0, aux, lam, z1row, z2row, wt_args) -> torch.Tensor:
+    """The fused identification loss in plain torch ops; ``lam`` =
+    (lambda1, exp(log_lambda2))."""
+    u, u_x, u_xx, u_t = streams_plain(a0, z1row, z2row, wt_args)
+    target, w_d, w_f = aux[0:1], aux[1:2], aux[2:3]
+    f = u_t + lam[0] * u * u_x - lam[1] * u_xx
+    e = u - target
+    return torch.sum(w_d * e * e + w_f * f * f)
+
+
+def burgers_ide_loss_grad_plain(a0, aux, lam, z1row, z2row, wt_args):
+    """Loss, net gradients and glam = (A1, A2) by autograd.  With
+    g_f = 2 w_f f, dL/dlambda1 = sum g_f u u_x = A1 and
+    dL/d(e^lambda2) = -sum g_f u_xx = -A2."""
+    loss, g = _value_and_grads(
+        lambda *x: burgers_ide_loss_plain(a0, aux, x[-1], x[-3], x[-2],
+                                          x[:-3]),
+        [*wt_args, z1row, z2row, lam])
+    glam = g[-1] * torch.tensor([1.0, -1.0], dtype=lam.dtype, device=lam.device)
+    return loss, g[:-3], g[-3], g[-2], glam
 
 
 # ---------------------------------------------------------------------------
-# CUDA launches
+# CUDA launches (shared with pinn_torch.ops.fused_schrodinger)
 # ---------------------------------------------------------------------------
 
 def _widths(a0, wt_args) -> List[int]:
@@ -152,12 +244,16 @@ def _widths(a0, wt_args) -> List[int]:
                             for l in range(len(wt_args) // 2)]
 
 
-def _check_inputs(a0, aux, z1row, z2row, wt_args) -> None:
+def _check_inputs(a0, aux, z1row, z2row, wt_args, n_out: int = 1,
+                  extra=()) -> None:
+    """What the CUDA launch checks before it touches the card.  ``aux``
+    may be None (kernels without aux rows); ``extra`` are further
+    float32 inputs on the same device (the ide kernels' ``lam``)."""
     dev = a0.device
     n = a0.shape[1] if a0.dim() == 2 else -1
     if a0.dim() != 2 or a0.shape[0] != 2 or n < 1:
         raise ValueError(f"a0 must be (2, N) with N >= 1, got {tuple(a0.shape)}")
-    if tuple(aux.shape) != (3, n):
+    if aux is not None and tuple(aux.shape) != (3, n):
         raise ValueError(f"aux must be (3, {n}), got {tuple(aux.shape)}")
     if len(wt_args) < 4 or len(wt_args) % 2:
         raise ValueError("wt_args must be [Wt, b] per layer, >= 2 layers")
@@ -168,19 +264,21 @@ def _check_inputs(a0, aux, z1row, z2row, wt_args) -> None:
             raise ValueError(f"layer {l}: Wt {tuple(wt.shape)} / b "
                              f"{tuple(b.shape)} do not chain from width {h_in}")
         h_in = wt.shape[0]
-    if h_in != 1:
-        raise ValueError(f"the Burgers kernels need one output, got {h_in}")
+    if h_in != n_out:
+        raise ValueError(f"these kernels need {n_out} output(s), got {h_in}")
     h1 = wt_args[0].shape[0]
     for name, z in (("z1row", z1row), ("z2row", z2row)):
         if tuple(z.shape) != (h1, 1):
             raise ValueError(f"{name} must be ({h1}, 1), got {tuple(z.shape)}")
-    for a in (a0, aux, z1row, z2row, *wt_args):
+    tensors = [a for a in (a0, aux, z1row, z2row, *wt_args, *extra)
+               if a is not None]
+    for a in tensors:
         if a.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {a.device}")
         if a.dtype != torch.float32:
             raise TypeError(f"the CUDA kernels take float32, got {a.dtype}")
-    for name, a in (("a0", a0), ("aux", aux)):
-        if not a.is_contiguous():
+    for name, a in (("a0", a0), ("aux", aux), *(("lam", e) for e in extra)):
+        if a is not None and not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
@@ -188,25 +286,26 @@ def _pack(z1row, z2row, wt_args) -> torch.Tensor:
     return torch.cat([a.reshape(-1) for a in (*wt_args, z1row, z2row)])
 
 
-def _sizes(lib, widths: Sequence[int]) -> Tuple[int, int]:
+def _sizes(lib, sizes_fn: str, widths: Sequence[int], limits: str) -> Tuple[int, int]:
     arr = (ctypes.c_int * len(widths))(*widths)
     n_weights, ws_rows = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.burgers_train_sizes(arr, len(widths) - 1,
-                                  ctypes.byref(n_weights),
-                                  ctypes.byref(ws_rows))
+    err = getattr(lib, sizes_fn)(arr, len(widths) - 1,
+                                 ctypes.byref(n_weights), ctypes.byref(ws_rows))
     if err:
         raise ValueError(f"layer widths {list(widths)} are not supported by "
-                         "the CUDA kernels (input 2, output 1, at most 15 "
-                         "hidden layers of width <= 64)")
+                         f"the CUDA kernels ({limits})")
     return n_weights.value, ws_rows.value
 
 
-def _unpack(out: torch.Tensor, z1row, z2row, wt_args):
-    """Split ``out`` = [loss, grad of wpack] into the kernel's outputs."""
+def _unpack(out: torch.Tensor, z1row, z2row, wt_args, n_extra: int = 0):
+    """Split ``out`` = [loss, grad of wpack, extras] into the kernel's
+    outputs ``(loss, gwt, gz1row, gz2row[, extras])``."""
     shapes = [a.shape for a in (*wt_args, z1row, z2row)]
-    parts = torch.split(out[1:], [int(np.prod(s)) for s in shapes])
+    sizes = [int(np.prod(s)) for s in shapes]
+    parts = torch.split(out[1:], sizes + [n_extra])
     grads = [p.view(s) for p, s in zip(parts, shapes)]
-    return out[0], grads[:-2], grads[-2], grads[-1]
+    res = (out[0], grads[:-2], grads[-2], grads[-1])
+    return res + (parts[-1],) if n_extra else res
 
 
 def _on_cuda(a0) -> bool:
@@ -217,37 +316,40 @@ def _on_cuda(a0) -> bool:
     return True
 
 
-def _launch(a0, aux, z1row, z2row, wt_args, nu, grads: bool):
-    """Check the inputs, allocate scratch and output with ``torch.empty``
-    and launch ``burgers_loss_grad`` (``grads``) or ``burgers_loss`` on
-    the current stream of ``a0``'s device; no synchronisation.  Returns
-    the output buffer: [loss, grad of wpack] or [loss]."""
-    _check_inputs(a0, aux, z1row, z2row, wt_args)
+def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
+           wt_args, scalars=(), grads: bool = True, n_extra: int = 0):
+    """Allocate scratch and output with ``torch.empty`` and launch the
+    C entry point ``name`` on the current stream of ``a0``'s device; no
+    synchronisation.  The call is ``name(a0, *lead, wpack, widths,
+    n_layers, n_pts, *scalars, [ws,] partials, out, stream)``.  Returns
+    the output buffer: [loss, grad of wpack, n_extra extras] with
+    ``grads``, else [loss].  The caller has run :func:`_check_inputs`."""
     lib = _build.library().lib
     widths = _widths(a0, wt_args)
-    n_weights, ws_rows = _sizes(lib, widths)
+    n_weights, ws_rows = _sizes(lib, sizes_fn, widths, limits)
     n = a0.shape[1]
-    blocks = -(-n // TILE)
+    rows = -(-n // TILE)
     wpack = _pack(z1row, z2row, wt_args)
 
     def buf(size):
         return torch.empty(size, dtype=torch.float32, device=a0.device)
 
-    if grads:   # saved activations, per-block partials, their sums
-        name = "burgers_loss_grad"
-        bufs = (buf(ws_rows * blocks * TILE), buf(blocks * (1 + n_weights)),
-                buf(1 + n_weights))
-    else:       # per-block partial losses, their sum
-        name = "burgers_loss"
-        bufs = (buf(blocks), buf(1))
+    cols = 1 + n_weights + n_extra
+    if grads:   # saved activations, per-tile partials, their sums
+        bufs = (buf(ws_rows * rows * TILE), buf(rows * cols), buf(cols))
+    else:       # per-tile partial losses, their sum
+        bufs = (buf(rows), buf(1))
     with torch.cuda.device(a0.device):
         err = getattr(lib, name)(
-            a0.data_ptr(), aux.data_ptr(), wpack.data_ptr(),
+            a0.data_ptr(), *(t.data_ptr() for t in lead), wpack.data_ptr(),
             (ctypes.c_int * len(widths))(*widths), len(widths) - 1, n,
-            float(nu), *(t.data_ptr() for t in bufs),
+            *scalars, *(t.data_ptr() for t in bufs),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, name)
     return bufs[-1]
+
+
+_BURGERS_LIMITS = "input 2, output 1, at most 15 hidden layers of width <= 64"
 
 
 def burgers_loss_grad(a0, aux, z1row, z2row, wt_args, nu):
@@ -256,7 +358,9 @@ def burgers_loss_grad(a0, aux, z1row, z2row, wt_args, nu):
     global n_launch_loss_grad
     if not _on_cuda(a0):
         return burgers_loss_grad_plain(a0, aux, z1row, z2row, wt_args, nu)
-    out = _launch(a0, aux, z1row, z2row, wt_args, nu, grads=True)
+    _check_inputs(a0, aux, z1row, z2row, wt_args)
+    out = launch("burgers_loss_grad", "burgers_train_sizes", _BURGERS_LIMITS,
+                 a0, [aux], z1row, z2row, wt_args, [float(nu)])
     n_launch_loss_grad += 1
     return _unpack(out, z1row, z2row, wt_args)
 
@@ -267,14 +371,51 @@ def burgers_loss(a0, aux, z1row, z2row, wt_args, nu) -> torch.Tensor:
     global n_launch_loss
     if not _on_cuda(a0):
         return burgers_loss_plain(a0, aux, z1row, z2row, wt_args, nu)
-    out = _launch(a0, aux, z1row, z2row, wt_args, nu, grads=False)
+    _check_inputs(a0, aux, z1row, z2row, wt_args)
+    out = launch("burgers_loss", "burgers_train_sizes", _BURGERS_LIMITS,
+                 a0, [aux], z1row, z2row, wt_args, [float(nu)], grads=False)
     n_launch_loss += 1
     return out[0]
 
 
+def burgers_ide_loss_grad(a0, aux, lam, z1row, z2row, wt_args):
+    """Loss, gradients and (A1, A2): ``(loss, gwt, gz1row, gz2row,
+    glam)``; the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    global n_launch_ide_loss_grad
+    if not _on_cuda(a0):
+        return burgers_ide_loss_grad_plain(a0, aux, lam, z1row, z2row, wt_args)
+    _check_inputs(a0, aux, z1row, z2row, wt_args, extra=(lam,))
+    out = launch("burgers_ide_loss_grad", "burgers_train_sizes",
+                 _BURGERS_LIMITS, a0, [aux, lam], z1row, z2row, wt_args,
+                 n_extra=2)
+    n_launch_ide_loss_grad += 1
+    return _unpack(out, z1row, z2row, wt_args, n_extra=2)
+
+
+def burgers_ide_loss(a0, aux, lam, z1row, z2row, wt_args) -> torch.Tensor:
+    """The identification loss alone (0-d)."""
+    global n_launch_ide_loss
+    if not _on_cuda(a0):
+        return burgers_ide_loss_plain(a0, aux, lam, z1row, z2row, wt_args)
+    _check_inputs(a0, aux, z1row, z2row, wt_args, extra=(lam,))
+    out = launch("burgers_ide_loss", "burgers_train_sizes", _BURGERS_LIMITS,
+                 a0, [aux, lam], z1row, z2row, wt_args, grads=False)
+    n_launch_ide_loss += 1
+    return out[0]
+
+
 # ---------------------------------------------------------------------------
-# The differentiable loss
+# The differentiable losses
 # ---------------------------------------------------------------------------
+
+def _pairs(net) -> Params:
+    return [(net[i], net[i + 1]) for i in range(0, len(net), 2)]
+
+
+def _wants_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
+
 
 class _FusedBurgersLoss(torch.autograd.Function):
     """Forward launches the loss+grad kernel and stashes the gradients;
@@ -283,7 +424,7 @@ class _FusedBurgersLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a0, aux, vx, vt, nu, *net):
-        params = [(net[i], net[i + 1]) for i in range(0, len(net), 2)]
+        params = _pairs(net)
         z1row, z2row, wt_args = _prep(params, vx, vt)
         loss, gwt, gz1row, gz2row = burgers_loss_grad(a0, aux, z1row, z2row,
                                                       wt_args, nu)
@@ -306,33 +447,78 @@ def make_burgers_loss(lb, ub, nu: float, stream_dtype=None):
     evaluations) one ``burgers_loss`` launch gives the loss.  float32
     only, as the JAX kernel's exact path.
     """
-    if stream_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(
-            "stream_dtype other than float32 (the bf16-stream variant) "
-            "is not ported yet")
+    _check_stream_dtype(stream_dtype)
     nu = float(nu)
     lb_np = np.asarray(lb, np.float32)
     ub_np = np.asarray(ub, np.float32)
     consts = {}
 
-    def _consts(dev):
-        if dev not in consts:
-            lb_t = torch.as_tensor(lb_np, device=dev)
-            ub_t = torch.as_tensor(ub_np, device=dev)
-            scale = 2.0 / (ub_t - lb_t)
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            vx = torch.stack([scale[0], zero])
-            vt = torch.stack([zero, scale[1]])
-            consts[dev] = (lb_t, ub_t, vx, vt)
-        return consts[dev]
-
     def loss(params: Params, batch) -> torch.Tensor:
-        lb_t, ub_t, vx, vt = _consts(batch["X_f"].device)
+        dev = batch["X_f"].device
+        if dev not in consts:
+            consts[dev] = _tangents(lb_np, ub_np, dev)
+        lb_t, ub_t, vx, vt = consts[dev]
         a0, aux = _prep_points(batch, lb_t, ub_t)
         net = leaves(params)
-        if torch.is_grad_enabled() and any(a.requires_grad for a in net):
+        if _wants_grad(net):
             return _FusedBurgersLoss.apply(a0, aux, vx, vt, nu, *net)
         z1row, z2row, wt_args = _prep(params, vx, vt)
         return burgers_loss(a0, aux, z1row, z2row, wt_args, nu)
+
+    return loss
+
+
+class _FusedBurgersIdeLoss(torch.autograd.Function):
+    """Forward launches the identification loss+grad kernel; backward
+    is a scalar rescale of the stashed gradients, with the lambda
+    adjoints chained through the exp reparameterisation."""
+
+    @staticmethod
+    def forward(ctx, a0, aux, vx, vt, lambda1, log_lambda2, *net):
+        params = _pairs(net)
+        lam = _lam(lambda1, log_lambda2)
+        z1row, z2row, wt_args = _prep(params, vx, vt)
+        loss, gwt, gz1row, gz2row, glam = burgers_ide_loss_grad(
+            a0, aux, lam, z1row, z2row, wt_args)
+        g_l1 = glam[0:1].reshape(lambda1.shape)
+        g_logl2 = (-glam[1:2] * lam[1:2]).reshape(log_lambda2.shape)
+        ctx.save_for_backward(g_l1, g_logl2,
+                              *_assemble_net_grads(params, gwt, gz1row,
+                                                   gz2row, vx, vt))
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) * 4 + tuple(g * gr for gr in ctx.saved_tensors)
+
+
+def make_burgers_ide_loss(lb, ub, stream_dtype=None):
+    """Fused identification loss ``loss(params: IdeParams, batch)``
+    with ``batch = {"X_u", "u"}``: data MSE plus residual MSE at the
+    same points, residual ``u_t + lambda1 u u_x - exp(log_lambda2)
+    u_xx`` with trainable coefficients.
+
+    With gradients wanted, one ``burgers_ide_loss_grad`` launch gives
+    the loss, every net gradient and both lambda adjoints; otherwise
+    one ``burgers_ide_loss`` launch gives the loss.  float32 only.
+    """
+    _check_stream_dtype(stream_dtype)
+    lb_np = np.asarray(lb, np.float32)
+    ub_np = np.asarray(ub, np.float32)
+    consts = {}
+
+    def loss(params, batch) -> torch.Tensor:
+        dev = batch["X_u"].device
+        if dev not in consts:
+            consts[dev] = _tangents(lb_np, ub_np, dev)
+        lb_t, ub_t, vx, vt = consts[dev]
+        a0, aux = _prep_ide_points(batch, lb_t, ub_t)
+        net = leaves(params.net)
+        if _wants_grad(leaves(params)):
+            return _FusedBurgersIdeLoss.apply(a0, aux, vx, vt, params.lambda1,
+                                              params.log_lambda2, *net)
+        z1row, z2row, wt_args = _prep(params.net, vx, vt)
+        return burgers_ide_loss(a0, aux, _lam(params.lambda1, params.log_lambda2),
+                                z1row, z2row, wt_args)
 
     return loss

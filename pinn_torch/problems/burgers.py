@@ -1,15 +1,19 @@
-"""1D viscous Burgers: continuous-time residual and inference loss.
+"""1D viscous Burgers: continuous-time residual, inference and
+identification losses.
 
 Counterpart of the continuous terms of ``pinn/problems/burgers.py``:
 ``f = u_t + lambda1 u u_x - lambda2 u_xx`` from one Taylor-mode pass,
-and ``loss = mse(u - u_pred) + mse(f)``.  This eager loss is the
-float64 engine of the port (the refinement stage) and the oracle the
-fused kernel's plain version is tested against.
+``loss = mse(u - u_pred) + mse(f)`` for inference, and for
+identification the same with trainable ``lambda1`` and
+``lambda2 = exp(log_lambda2)`` (``IdeParams``), the residual taken at
+the data points.  These eager losses are the float64 engine of the
+port (the refinement stage) and the oracles the fused kernels' plain
+versions are tested against.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,3 +54,32 @@ def loss_cont_inference(net_params, X_u, u, X_f, lb, ub, nu,
     else:
         mse_f = torch.sum(torch.square(f[:, 0]) * f_weights)
     return mse(u - u_pred) + mse_f
+
+
+class IdeParams(NamedTuple):
+    """Identification-mode trainables: the net's ``(W, b)`` pairs and
+    the PDE coefficients, each of shape (1,).  The coefficients sit at
+    the tail of the flat vector, as in the JAX package."""
+
+    net: list
+    lambda1: torch.Tensor
+    log_lambda2: torch.Tensor
+
+
+def init_ide_params(net_params, dtype: Optional[torch.dtype] = None) -> IdeParams:
+    """lambda1 = 0 and log lambda2 = -6, the reference's inits."""
+    w0 = net_params[0][0]
+    dtype = dtype or w0.dtype
+    return IdeParams(net=net_params,
+                     lambda1=torch.zeros((1,), dtype=dtype, device=w0.device),
+                     log_lambda2=torch.full((1,), -6.0, dtype=dtype,
+                                            device=w0.device))
+
+
+def loss_cont_identification(params: IdeParams, X_u, u, lb, ub) -> torch.Tensor:
+    """Data MSE + residual MSE at the data points (there is no separate
+    collocation set)."""
+    u_pred = mlp.apply(params.net, X_u, lb, ub)
+    f = residual_cont(params.net, X_u, lb, ub, lambda1=params.lambda1,
+                      lambda2=torch.exp(params.log_lambda2))
+    return mse(u - u_pred) + mse(f)

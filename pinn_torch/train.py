@@ -8,7 +8,10 @@ L-BFGS history), best-iterate selection on a held-out metric
 (``nt_val_every``), periodic atomic checkpoints (``save_every``) and
 the mixed-precision mode ``nt_vector_dtype="float64"``: a float64
 iterate and L-BFGS algebra around a network (and fused kernel) that
-runs in float32.
+runs in float32.  Parameters may be any structure the codec takes
+(``pinn_torch.params``): ``(W, b)`` pairs or ``IdeParams``.
+``epoch_extra(params) -> str`` is appended to each epoch log line (the
+logger's ``custom`` field) and to the end line.
 
 PyTorch runs eagerly, so both phases step one iteration at a time.
 The L-BFGS phase keeps the JAX Trainer's chunk boundaries (at most
@@ -18,8 +21,8 @@ keeps the trajectory, and the resampling draws, equal to the JAX
 package's.
 
 Not yet ported: ``trace_dir`` (profiling), the device mesh,
-``params_callback``, ``epoch_extra`` and ``tf_net_dtype`` (the bf16
-warmup); the Trainer raises on the hp keys.
+``params_callback`` and ``tf_net_dtype`` (the bf16 warmup); the
+Trainer raises on the hp keys.
 """
 
 from __future__ import annotations
@@ -52,15 +55,16 @@ def lbfgs_config_from_hp(hp: dict) -> lb.LbfgsConfig:
     )
 
 
-def _detached(params: pcodec.Params) -> pcodec.Params:
-    return [(w.detach(), b.detach()) for w, b in params]
+def _detached(params):
+    return pcodec.tree_map(torch.Tensor.detach, params)
 
 
 class Trainer:
     """Drives ``loss_fn(params, batch) -> scalar`` through both phases.
 
-    ``params0`` is a list of ``(W, b)`` tensors; ``batch`` a dict of
-    tensors.  ``resample_fn(round) -> batch`` and ``val_fn(params) ->
+    ``params0`` is a parameter structure (``(W, b)`` pairs,
+    ``IdeParams``); ``batch`` a dict of tensors.  ``epoch_extra(params)
+    -> str``, ``resample_fn(round) -> batch`` and ``val_fn(params) ->
     float`` are optional, as in the JAX Trainer.
     """
 
@@ -68,6 +72,7 @@ class Trainer:
 
     def __init__(self, loss_fn: Callable[[Any, Any], torch.Tensor], params0,
                  batch: Any, hp: dict, logger: Optional[Logger] = None,
+                 epoch_extra: Optional[Callable[[Any], str]] = None,
                  resample_fn: Optional[Callable[[int], Any]] = None,
                  val_fn: Optional[Callable[[Any], float]] = None):
         bad = [k for k in NOT_PORTED_KEYS if hp.get(k)]
@@ -75,6 +80,7 @@ class Trainer:
             raise NotImplementedError(
                 f"hp key(s) {bad} are not ported to pinn_torch yet")
         self.loss_fn = loss_fn
+        self.epoch_extra = epoch_extra
         self.val_fn = val_fn
         self.resample_fn = resample_fn
         self.batch = batch
@@ -98,13 +104,15 @@ class Trainer:
         if self.logger is not None:
             getattr(self.logger, method)(*args, **kw)
 
+    def _extra(self) -> str:
+        return self.epoch_extra(self.params) if self.epoch_extra else ""
+
     def summary(self) -> str:
         """Parameter-shape report (hp["model_description"])."""
-        lines = []
-        for i, (w, b) in enumerate(self.params):
-            for name, a in (("W", w), ("b", b)):
-                lines.append(f"  [{i}].{name}: {tuple(a.shape)} "
-                             f"{str(a.dtype).replace('torch.', '')}")
+        lines = [f"  {name}: {tuple(a.shape)} "
+                 f"{str(a.dtype).replace('torch.', '')}"
+                 for name, a in zip(pcodec.paths(self.params),
+                                    pcodec.leaves(self.params))]
         lines.append(f"  total parameters: {pcodec.num_params(self.params)}")
         return "\n".join(lines)
 
@@ -124,13 +132,14 @@ class Trainer:
     # -- phases ------------------------------------------------------------
     def _adam_phase(self):
         self._log("log_train_opt", "Adam")
-        device = self.params[0][0].device
         leaves = [a.clone().requires_grad_(True)
                   for a in pcodec.leaves(self.params)]
-        params = [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+        device = leaves[0].device
+        params = pcodec.rebuild(self.params, leaves)
         opt = adam_from_hp(leaves, self.hp)
         every = self.hp.get("tf_resample", 0) if self.resample_fn else 0
         self.params = _detached(params)  # views of the live leaves
+        pending = None  # (epoch, its loss, the step count it logs at)
         t0 = _now(device)
         for done in range(self.tf_epochs):
             if every and done and done % every == 0:
@@ -140,13 +149,24 @@ class Trainer:
             loss.backward()
             opt.step()
             if done % self.frequency == 0:
-                # the loss at epoch `done`, before its update
-                self._log("log_train_epoch", done, float(loss.detach()),
-                          "", False)
+                # The loss at epoch `done`, before its update, logged
+                # with epoch_extra at the end of the JAX Trainer's
+                # chunk (at most CHUNK_CAP steps, cut at log, resample
+                # and save boundaries), where it sees the parameters.
+                chunk = min(self.CHUNK_CAP, self.tf_epochs - done,
+                            self.frequency)
+                for period in (every, self.save_every):
+                    if period:
+                        chunk = min(chunk, period - done % period)
+                pending = (done, loss.detach(), done + chunk)
+            if pending is not None and pending[2] == done + 1:
+                self._log("log_train_epoch", pending[0], float(pending[1]),
+                          self._extra(), False)
+                pending = None
             self._maybe_save("adam", done + 1)
         self.timing["adam_s"] += _now(device) - t0
-        self.params = [(w.detach().clone(), b.detach().clone())
-                       for w, b in params]
+        self.params = pcodec.tree_map(
+            lambda a: a.detach().clone(), params)
 
     def _lbfgs_phase(self):
         if self.nt_config.max_iter == 0:
@@ -229,8 +249,8 @@ class Trainer:
             if val_every and done % val_every == 0:
                 val_probe(state.x, done)
             if done % self.frequency == 0:
-                self._log("log_train_epoch", done, float(f_hist[-1]), "",
-                          True)
+                self._log("log_train_epoch", done, float(f_hist[-1]),
+                          self._extra(), True)
         self.timing["lbfgs_s"] += _now(device) - t0
         self.timing["lbfgs_iters"] += n_iters + state.n_iter
         self.params = to_params(state.x)
@@ -255,7 +275,8 @@ class Trainer:
         if self.tf_epochs > 0:
             self._adam_phase()
         self._lbfgs_phase()
-        self._log("log_train_end", self.tf_epochs + self.nt_config.max_iter)
+        self._log("log_train_end", self.tf_epochs + self.nt_config.max_iter,
+                  self._extra())
         return self.params
 
 

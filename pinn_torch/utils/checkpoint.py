@@ -2,13 +2,16 @@
 
 Counterpart of ``pinn/utils/checkpoint.py`` (``save_npz``/``load_npz``/
 ``save_npz_atomic``): one compressed npz holding the flat parameter
-vector (W0, b0, W1, b1, ... — ``pinn_torch.params`` order) and a JSON
-``meta`` with the leaf shapes, the hp dict and any extra metadata.  A
-file written by either package loads in the other.
+vector (``pinn_torch.params`` order: W0, b0, W1, b1, ..., then any
+tail leaves such as ``IdeParams``' ``lambda1``, ``log_lambda2``) and a
+JSON ``meta`` with the leaf shapes, the hp dict and any extra
+metadata.  A file written by either package loads in the other.
 
 :func:`params_from_numpy` is how parameters cross from JAX: a list of
 ``(W, b)`` numpy arrays (``np.asarray`` of each JAX leaf) becomes a
-list of torch tensors on the named device and dtype.
+list of torch tensors on the named device and dtype;
+:func:`ide_params_from_numpy` does the same for identification
+parameters ``(net_pairs, lambda1, log_lambda2)``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,22 @@ def params_from_numpy(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
             for w, b in pairs]
 
 
+def ide_params_from_numpy(net_pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+                          lambda1: np.ndarray, log_lambda2: np.ndarray,
+                          device: DeviceLike = None,
+                          dtype: torch.dtype = torch.float32):
+    """JAX ``IdeParams`` leaves as numpy -> the port's ``IdeParams``."""
+    from pinn_torch.problems.burgers import IdeParams
+
+    dev = resolve_device(device)
+
+    def vec(a):  # (1,) like the JAX leaves
+        return torch.as_tensor(np.array(a).reshape(1), dtype=dtype, device=dev)
+
+    return IdeParams(net=params_from_numpy(net_pairs, dev, dtype),
+                     lambda1=vec(lambda1), log_lambda2=vec(log_lambda2))
+
+
 def save_npz(path: str, params: Any, hp: Optional[dict] = None,
              extra: Optional[dict] = None) -> None:
     """Flat-vector checkpoint (layout = the reference codec order)."""
@@ -49,19 +68,24 @@ def save_npz(path: str, params: Any, hp: Optional[dict] = None,
 def load_npz(path: str, like: Any = None) -> Tuple[Any, dict]:
     """Returns ``(params, meta)``.
 
-    With ``like`` (a list of ``(W, b)`` tensors) the flat vector is
-    unraveled into that structure with ``like``'s dtype and device;
-    otherwise a flat list of numpy arrays with the stored shapes comes
-    back (W0, b0, W1, b1, ...), as in the JAX package.
+    With ``like`` (any parameter structure: ``(W, b)`` pairs,
+    ``IdeParams``) the flat vector is unraveled into that structure,
+    each leaf with the dtype and device of ``like``'s leaf; otherwise a
+    flat list of numpy arrays with the stored shapes comes back (W0,
+    b0, W1, b1, ...), as in the JAX package.
     """
     with np.load(path, allow_pickle=False) as d:
         flat = d["flat"]
         meta = json.loads(str(d["meta"]))
     if like is not None:
-        ref = pcodec.leaves(like)[0]
-        t = torch.as_tensor(flat, dtype=ref.dtype, device=ref.device)
-        return [(w.clone(), b.clone())
-                for w, b in pcodec.make_unravel(like)(t)], meta
+        tmpl = pcodec.leaves(like)
+        if flat.size != sum(a.numel() for a in tmpl):
+            raise ValueError(f"{path} holds {flat.size} parameters; the "
+                             f"template has {pcodec.num_params(like)}")
+        parts = pcodec.leaves(pcodec.make_unravel(like)(torch.as_tensor(flat)))
+        return pcodec.rebuild(like, [
+            p.to(dtype=a.dtype, device=a.device, copy=True)
+            for p, a in zip(parts, tmpl)]), meta
     out, off = [], 0
     for shape in meta["shapes"]:
         size = int(np.prod(shape)) if shape else 1

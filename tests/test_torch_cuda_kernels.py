@@ -6,13 +6,15 @@ run
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Bars as in tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol
-5e-4 with atol 5e-6 * max|g|; two launches are bitwise equal.
+5e-4 with atol 5e-6 * max|g|, identification lambda adjoints rtol 1e-4;
+two launches are bitwise equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from pinn_torch.ops import fused_schrodinger as fs
 from pinn_torch.ops import fused_train as ft
 from pinn_torch.utils.checkpoint import params_from_numpy
 
@@ -116,3 +118,82 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
                 torch.zeros(1, 65, device="cuda"), torch.zeros(1, 1, device="cuda")]
         ft.burgers_loss(a0, aux, torch.zeros(65, 1, device="cuda"),
                         torch.zeros(65, 1, device="cuda"), wide, NU)
+
+
+def _check_against_plain(got, again, want, loss_only, n_lam=0):
+    """Flat outputs [loss, *grads, (lam adjoints)] of the kernel, a second
+    launch, and the plain version; the loss-only kernel's value."""
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    net = slice(1, len(want) - n_lam)
+    gmax = max(float(w.abs().max()) for w in want[net])
+    for g, w in zip(got[net], want[net]):
+        torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-6 * gmax)
+    for g, w in zip(got[len(want) - n_lam:], want[len(want) - n_lam:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(loss_only.reshape(1), got[0], rtol=1e-6,
+                               atol=0.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("layers,n", [
+    ([2] + [20] * 8 + [1], 2000),
+    ([2, 20, 20, 20, 1], 300),
+    ([2, 16, 1], 1017),
+])
+@pytest.mark.parametrize("l1,logl2", [(0.0, -6.0), (1.3, -4.0)])
+def test_ide_kernels_match_plain(layers, n, l1, logl2):
+    params, batch = _case(layers, n, 1, seed=n, device="cuda")
+    lb, ub, vx, vt = ft._tangents(LB, UB, "cuda")
+    a0, aux = ft._prep_ide_points(batch, lb, ub)
+    lam = ft._lam(torch.tensor([l1], device="cuda"),
+                  torch.tensor([logl2], device="cuda"))
+    args = (a0, aux, lam, *ft._prep(params, vx, vt))
+
+    def flat(out):
+        loss, gwt, gz1, gz2, glam = out
+        return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)] + [glam]
+
+    n0, n1 = ft.n_launch_ide_loss_grad, ft.n_launch_ide_loss
+    got = flat(ft.burgers_ide_loss_grad(*args))
+    again = flat(ft.burgers_ide_loss_grad(*args))
+    loss_only = ft.burgers_ide_loss(*args)
+    want = flat(ft.burgers_ide_loss_grad_plain(*args))
+    torch.cuda.synchronize()
+    assert (ft.n_launch_ide_loss_grad - n0, ft.n_launch_ide_loss - n1) == (2, 1)
+    _check_against_plain(got, again, want, loss_only, n_lam=1)
+
+
+@pytest.mark.parametrize("layers,n", [
+    ([2, 100, 100, 100, 100, 2], 2048),
+    ([2, 100, 100, 100, 100, 2], 300),
+    ([2, 40, 40, 2], 300),
+    ([2, 32, 2], 512),
+])
+def test_schrodinger_kernels_match_plain(layers, n):
+    rng = np.random.RandomState(n)
+    pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
+             for a, b in zip(layers[:-1], layers[1:])]
+    params = params_from_numpy(pairs, "cuda", torch.float32)
+    lbs, ubs = np.array([-5.0, 0.0], np.float32), np.array([5.0, np.pi / 2], np.float32)
+    X_f = torch.as_tensor(lbs + (ubs - lbs) * rng.rand(n, 2), dtype=torch.float32,
+                          device="cuda")
+    lb, ub, vx, vt = ft._tangents(lbs, ubs, "cuda")
+    args = (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
+
+    n0, n1 = fs.n_launch_sse_grad, fs.n_launch_sse
+    got = _flat(fs.schrodinger_sse_grad(*args))
+    again = _flat(fs.schrodinger_sse_grad(*args))
+    loss_only = fs.schrodinger_sse(*args)
+    want = _flat(fs.schrodinger_sse_grad_plain(*args))
+    torch.cuda.synchronize()
+    assert (fs.n_launch_sse_grad - n0, fs.n_launch_sse - n1) == (2, 1)
+    _check_against_plain(got, again, want, loss_only)
+
+
+def test_schrodinger_wrapper_refuses_wide_nets():
+    a0 = torch.zeros(2, 40, device="cuda")
+    wide = [torch.zeros(129, 2, device="cuda"), torch.zeros(129, 1, device="cuda"),
+            torch.zeros(2, 129, device="cuda"), torch.zeros(2, 1, device="cuda")]
+    z = torch.zeros(129, 1, device="cuda")
+    with pytest.raises(ValueError, match="widths"):
+        fs.schrodinger_sse(a0, z, z, wide)

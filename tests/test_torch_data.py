@@ -33,6 +33,37 @@ def test_burgers_cont_inference_equal(n_u, n_f, seed):
     np.testing.assert_array_equal(got_next, want_next)
 
 
+def _assert_same_draw(seed, got_fn, want_fn):
+    """Same global seed, same call order: every array equal, and the
+    global stream left in the same place."""
+    np.random.seed(seed)
+    got = got_fn()
+    got_next = np.random.rand(3)
+    np.random.seed(seed)
+    want = want_fn()
+    want_next = np.random.rand(3)
+    assert got._fields == want._fields
+    for name, a, b in zip(got._fields, got, want):
+        if a is None:
+            assert b is None, name
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    np.testing.assert_array_equal(got_next, want_next)
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.01])
+def test_burgers_cont_identification_equal(noise):
+    _assert_same_draw(
+        1234, lambda: data.burgers_cont_identification(2000, noise=noise),
+        lambda: jax_data.burgers_cont_identification(2000, noise=noise))
+
+
+@pytest.mark.parametrize("n_0,n_b,n_f", [(50, 50, 20000), (30, 30, 600)])
+def test_schrodinger_inference_equal(n_0, n_b, n_f):
+    _assert_same_draw(1234, lambda: data.schrodinger_inference(n_0, n_b, n_f),
+                      lambda: jax_data.schrodinger_inference(n_0, n_b, n_f))
+
+
 @pytest.mark.parametrize("q", [1, 8, 100])
 def test_irk_tableaux_equal(q):
     got, want = irk.gauss_legendre_irk(q), jax_irk.gauss_legendre_irk(q)

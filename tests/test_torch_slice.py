@@ -71,7 +71,10 @@ def test_fused_float32_run_matches_jax(ckpt, jax_exp):
 def test_port_never_imports_jax():
     code = ("import sys\n"
             "import pinn_torch, pinn_torch.experiments.inf_cont_burgers\n"
+            "import pinn_torch.experiments.ide_cont_burgers\n"
+            "import pinn_torch.experiments.inf_cont_schrodinger\n"
             "import pinn_torch.ops.fused_train, pinn_torch.optim.lbfgs\n"
+            "import pinn_torch.ops.fused_schrodinger\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
             " if m.startswith('jax'))\n")
     env = {**os.environ, "PYTHONPATH": REPO}
