@@ -21,6 +21,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (lambda1, log lambda2) = (0, -6) and (1.3, -4); times at N = 2,000.
 3c. Schrödinger kernels vs plain, at [2, 100x4, 2] (N = 20,000 and
    300) and [2, 32, 2] (N = 512); times at N = 20,000.
+3d. The six bf16-stream kernels vs their plain bf16 versions: the
+   inference pair at the three shapes of 3, the identification pair at
+   [2, 20x8, 1] (N = 2,000) and [2, 16, 1] (N = 1,017), the
+   Schrödinger pair at [2, 100x4, 2] (N = 20,000) and [2, 32, 2]
+   (N = 512); bitwise repeatability; times at each flagship.
 4. Burgers inference main path: ``pinn_torch.experiments
    .inf_cont_burgers.run`` twice at the flagship width, a fused float32
    stage (Adam, then mixed-precision L-BFGS with a Wolfe search and
@@ -31,9 +36,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 4c. Schrödinger main path: ``inf_cont_schrodinger.run`` at [2, 100x4,
    2], N_f = 20,000, a fused stage and a float64 stage from its
    checkpoint.
+4d. The bf16 warmup on the inference flagship: the campaign's mixed
+   stage (``fused_residual: True, tf_net_dtype: "bfloat16"``, float64
+   vectors, matrix direction): every bf16 launch is an Adam step, the
+   L-BFGS phase runs the float32 kernels; then a ``fused_residual:
+   "bf16"`` run, whose L-BFGS trials launch the bf16 loss-only kernel.
+4e. Identification with ``fused_residual: "bf16"`` (clean and noisy
+   cases): both phases on the bf16 kernels, none on the float32 ones.
+4f. Schrödinger with ``fused_residual: True, tf_net_dtype: "bfloat16"``
+   (Adam on the bf16 kernel), then a short ``fused_residual: "bf16"``
+   run (Adam at lr 0.005).
 Each main path runs with every launch count set to 0 just before its
 fused stage; every kernel of the path must have launched by its end,
 the logged loss must fall and every reported number must be finite.
+
+Bounds.  Each kernel's ``bound_ms`` is the larger of its bytes (inputs
+read once, outputs written once) over the card's 3.35 TB/s and its
+operations over the card's peak: for the float32 kernels all of them
+at the 67 TFLOP/s float32 rate; for the bf16 ones the layer products
+(bf16 operands, float32 sums) at the 989 TFLOP/s bf16 tensor-core rate
+and the elementwise work at 67 TFLOP/s.  No single PyTorch call
+computes a fused loss with all its gradients, so ``library_ms`` is
+null.
 
 The last three lines are the nvidia-smi line, a JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -73,14 +97,25 @@ WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 BURGERS_SRC = "pinn_torch/csrc/burgers_train.cu"
 SCHRODINGER_SRC = "pinn_torch/csrc/schrodinger_train.cu"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
-    "burgers_loss_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:524"),
-    "burgers_loss": (BURGERS_SRC, "pinn/ops/pallas_train.py:576"),
-    "burgers_ide_loss_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:847"),
-    "burgers_ide_loss": (BURGERS_SRC, "pinn/ops/pallas_train.py:906"),
-    "schrodinger_sse_grad": (SCHRODINGER_SRC,
-                             "pinn/ops/pallas_schrodinger.py:95"),
-    "schrodinger_sse": (SCHRODINGER_SRC, "pinn/ops/pallas_schrodinger.py:70"),
+    name + sfx: entry
+    for name, entry in {
+        "burgers_loss_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:524"),
+        "burgers_loss": (BURGERS_SRC, "pinn/ops/pallas_train.py:576"),
+        "burgers_ide_loss_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:847"),
+        "burgers_ide_loss": (BURGERS_SRC, "pinn/ops/pallas_train.py:906"),
+        "schrodinger_sse_grad": (SCHRODINGER_SRC,
+                                 "pinn/ops/pallas_schrodinger.py:95"),
+        "schrodinger_sse": (SCHRODINGER_SRC,
+                            "pinn/ops/pallas_schrodinger.py:70"),
+    }.items()
+    for sfx in ("", "_bf16")
 }
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+F32_FLOPS = 67e12             # float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12        # bf16 tensor cores, dense
+FWD_EW, BWD_EW = 12, 40       # elementwise operations per hidden neuron
+                              # and point (tanh and stream recombination;
+                              # its adjoint and the rematerialisation)
 
 
 def log(msg: str) -> None:
@@ -169,6 +204,27 @@ def _flat(out):
     return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2, *extra)]
 
 
+def _bound(layers, n, grads, bf16, n_aux, n_extra=0):
+    """(bound_ms, bound_by) of one call of a fused kernel at ``layers``
+    and ``n`` points: the larger of its bytes over the memory rate and
+    its operations over the peak rates (module docstring)."""
+    hidden, n_out = layers[1:-1], layers[-1]
+    pairs = list(zip(hidden[:-1], hidden[1:])) + [(hidden[-1], n_out)]
+    mm = 4 * hidden[0] + sum(8 * a * b for a, b in pairs)    # forward
+    ew = FWD_EW * sum(hidden)
+    if grads:  # dW0 on the value stream; dW and input adjoints above it
+        mm += 4 * hidden[0] + sum(16 * a * b for a, b in pairs)
+        ew += BWD_EW * sum(hidden)
+    mm, ew = mm * n, ew * n
+    n_weights = sum(a * b + b for a, b in zip(layers[:-1], layers[1:])) \
+        + 2 * hidden[0]
+    n_bytes = 4 * ((2 + n_aux) * n + n_weights + n_extra
+                   + (1 + n_weights + n_extra if grads else 1))
+    t_ops = mm / BF16_TC_FLOPS + ew / F32_FLOPS if bf16 else (mm + ew) / F32_FLOPS
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def _median_ms(fn, reps=50, warmup=5):
     import torch
     for _ in range(warmup):
@@ -186,13 +242,31 @@ def _median_ms(fn, reps=50, warmup=5):
     return float(np.median(times))
 
 
+def _check_bf16_grads(tag, got, want):
+    """bf16 gradient bars: rel-L2 <= 1e-2 and cosine >= 0.9999."""
+    import torch
+    g, w = torch.cat(got), torch.cat(want)
+    rel = float(torch.linalg.norm(g - w) / torch.linalg.norm(w))
+    cos = float(g @ w / (torch.linalg.norm(g) * torch.linalg.norm(w)))
+    if not (rel <= 1e-2 and cos >= 0.9999):
+        raise AssertionError(f"{tag}: bf16 gradients rel-L2 {rel:.3e}, "
+                             f"cosine {cos:.6f}")
+    return rel, cos
+
+
 def _check_pair(stats, tag, grad_name, loss_name, kernel_grad, kernel_loss,
-                plain_grad, plain_loss, args, n_lam=0, time_it=False):
+                plain_grad, plain_loss, args, layers, n_aux, n_lam=0,
+                time_it=False, bf16=False):
     """Hold the loss+grad and loss-only kernels to their plain versions
-    on ``args``: loss rtol 1e-5; net gradients rtol 5e-4 with atol
-    5e-6 * max|g|; the last ``n_lam`` gradient pieces (the lambda
-    adjoints) rtol 1e-4; the loss-only kernel to the loss+grad one at
-    rtol 1e-6; two launches bitwise equal.  Updates ``stats``."""
+    on ``args`` (a net of ``layers``; ``n_aux`` aux rows).  float32:
+    loss rtol 1e-5; net gradients rtol 5e-4 with atol 5e-6 * max|g|;
+    the last ``n_lam`` gradient pieces (the lambda adjoints) rtol 1e-4;
+    the loss-only kernel to the loss+grad one at rtol 1e-6.  bf16
+    streams (the same roundings, summed in another order, which can move
+    a rounding): losses rtol 2e-3, the net gradients and the lambda
+    adjoints each rel-L2 <= 1e-2 and cosine >= 0.9999.  Two launches
+    bitwise equal.  Updates ``stats``; with ``time_it`` the times and
+    the bound at this shape."""
     import torch
     got = _flat(kernel_grad(*args))
     again = _flat(kernel_grad(*args))
@@ -201,18 +275,27 @@ def _check_pair(stats, tag, grad_name, loss_name, kernel_grad, kernel_loss,
     want_loss = plain_loss(*args)
     torch.cuda.synchronize()
 
-    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
     net = slice(1, len(want) - n_lam)
+    lam = slice(len(want) - n_lam, len(want))
     gmax = max(float(w.abs().max()) for w in want[net])
-    err = float((got[0] - want[0]).abs().max())
-    for g, w in zip(got[net], want[net]):
-        torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-6 * gmax)
-        err = max(err, float((g - w).abs().max()))
-    for g, w in zip(got[len(want) - n_lam:], want[len(want) - n_lam:]):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
-        err = max(err, float((g - w).abs().max()))
-    torch.testing.assert_close(loss_only.reshape(1), got[0], rtol=1e-6, atol=0.0)
-    torch.testing.assert_close(loss_only, want_loss, rtol=1e-5, atol=0.0)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if bf16:
+        torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=0.0)
+        torch.testing.assert_close(loss_only, want_loss, rtol=2e-3, atol=0.0)
+        rel, cos = _check_bf16_grads(tag, got[net], want[net])
+        if n_lam:
+            _check_bf16_grads(tag + " lambda", got[lam], want[lam])
+        bars = f"grad rel-L2 {rel:.3e}, cosine {cos:.7f}"
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+        for g, w in zip(got[net], want[net]):
+            torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-6 * gmax)
+        for g, w in zip(got[lam], want[lam]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+        torch.testing.assert_close(loss_only.reshape(1), got[0], rtol=1e-6,
+                                   atol=0.0)
+        torch.testing.assert_close(loss_only, want_loss, rtol=1e-5, atol=0.0)
+        bars = "within the float32 bars"
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
         raise AssertionError(f"{tag}: two launches differ bitwise")
     lerr = float(abs(loss_only - want_loss))
@@ -221,60 +304,101 @@ def _check_pair(stats, tag, grad_name, loss_name, kernel_grad, kernel_loss,
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
     log(f"[kernels] {tag}: loss {float(got[0]):.6e} (plain "
         f"{float(want[0]):.6e}), grad max|err| {err:.3e} of max|g| "
-        f"{gmax:.3e}, loss-only |err| {lerr:.3e}, bitwise repeatable")
+        f"{gmax:.3e}, {bars}, loss-only {float(loss_only):.6e} (plain "
+        f"{float(want_loss):.6e}), bitwise repeatable")
     if time_it:
+        n = args[0].shape[1]
         t = {"grad": _median_ms(lambda: kernel_grad(*args)),
              "plain_grad": _median_ms(lambda: plain_grad(*args)),
              "loss": _median_ms(lambda: kernel_loss(*args)),
              "plain_loss": _median_ms(lambda: plain_loss(*args))}
-        stats[grad_name].update(ms=t["grad"], plain_ms=t["plain_grad"])
-        stats[loss_name].update(ms=t["loss"], plain_ms=t["plain_loss"])
-        log(f"[kernels] {tag} median ms: {grad_name} {t['grad']:.4f} vs plain "
-            f"{t['plain_grad']:.4f}; {loss_name} {t['loss']:.4f} vs plain "
-            f"{t['plain_loss']:.4f}")
+        for name, kind, grads in ((grad_name, "grad", True),
+                                  (loss_name, "loss", False)):
+            bound_ms, bound_by = _bound(layers, n, grads, bf16, n_aux,
+                                        2 * n_lam if grads else 2 * (n_lam > 0))
+            stats[name].update(ms=t[kind], plain_ms=t["plain_" + kind],
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=None)
+            log(f"[kernels] {tag} {name}: median {t[kind]:.4f} ms, plain "
+                f"{t['plain_' + kind]:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by})")
 
 
-def phase_kernels(stats: dict) -> None:
-    """3: the Burgers inference kernels against their plain versions."""
+def _shape_tag(layers, n):
+    return f"{layers[1]}x{len(layers) - 2} N={n}"
+
+
+def phase_kernels(stats: dict, bf16: bool = False,
+                  shapes=KERNEL_SHAPES) -> None:
+    """3 (3d with ``bf16``): the Burgers inference kernels against their
+    plain versions."""
     from pinn_torch.ops import fused_train as ft
+    sfx = "_bf16" if bf16 else ""
+    plain_grad = (ft.burgers_loss_grad_bf16_plain if bf16
+                  else ft.burgers_loss_grad_plain)
+    plain_loss = ft.burgers_loss_bf16_plain if bf16 else ft.burgers_loss_plain
 
-    for i, (layers, n_u, n_f) in enumerate(KERNEL_SHAPES):
+    for i, (layers, n_u, n_f) in enumerate(shapes):
         args = _kernel_inputs(layers, n_u, n_f, seed=100 + i)
-        _check_pair(stats, f"{layers[1]}x{len(layers) - 2} N={n_u + n_f}",
-                    "burgers_loss_grad", "burgers_loss",
-                    lambda *a: ft.burgers_loss_grad(*a, NU),
-                    lambda *a: ft.burgers_loss(*a, NU),
-                    lambda *a: ft.burgers_loss_grad_plain(*a, NU),
-                    lambda *a: ft.burgers_loss_plain(*a, NU),
-                    args, time_it=i == 0)
+        _check_pair(stats, sfx[1:] + " " + _shape_tag(layers, n_u + n_f),
+                    "burgers_loss_grad" + sfx, "burgers_loss" + sfx,
+                    lambda *a: ft.burgers_loss_grad(*a, NU, bf16=bf16),
+                    lambda *a: ft.burgers_loss(*a, NU, bf16=bf16),
+                    lambda *a: plain_grad(*a, NU),
+                    lambda *a: plain_loss(*a, NU),
+                    args, layers, n_aux=3, time_it=i == 0, bf16=bf16)
 
 
-def phase_ide_kernels(stats: dict) -> None:
-    """3b: the identification kernels against their plain versions."""
+def phase_ide_kernels(stats: dict, bf16: bool = False, shapes=IDE_SHAPES,
+                      lambdas=IDE_LAMBDAS) -> None:
+    """3b (3d with ``bf16``): the identification kernels against their
+    plain versions."""
     from pinn_torch.ops import fused_train as ft
+    sfx = "_bf16" if bf16 else ""
+    plain_grad = (ft.burgers_ide_loss_grad_bf16_plain if bf16
+                  else ft.burgers_ide_loss_grad_plain)
+    plain_loss = (ft.burgers_ide_loss_bf16_plain if bf16
+                  else ft.burgers_ide_loss_plain)
 
-    for i, (layers, n) in enumerate(IDE_SHAPES):
-        for j, lam in enumerate(IDE_LAMBDAS):
+    for i, (layers, n) in enumerate(shapes):
+        for j, lam in enumerate(lambdas):
             args = _ide_inputs(layers, n, lam, seed=200 + i)
-            _check_pair(stats, f"ide {layers[1]}x{len(layers) - 2} N={n} "
-                        f"lam={lam}", "burgers_ide_loss_grad",
-                        "burgers_ide_loss", ft.burgers_ide_loss_grad,
-                        ft.burgers_ide_loss, ft.burgers_ide_loss_grad_plain,
-                        ft.burgers_ide_loss_plain, args, n_lam=1,
-                        time_it=i == 0 and j == 0)
+            _check_pair(stats, f"ide{sfx} {_shape_tag(layers, n)} lam={lam}",
+                        "burgers_ide_loss_grad" + sfx, "burgers_ide_loss" + sfx,
+                        lambda *a: ft.burgers_ide_loss_grad(*a, bf16=bf16),
+                        lambda *a: ft.burgers_ide_loss(*a, bf16=bf16),
+                        plain_grad, plain_loss, args, layers, n_aux=3,
+                        n_lam=1, time_it=i == 0 and j == 0, bf16=bf16)
 
 
-def phase_schrodinger_kernels(stats: dict) -> None:
-    """3c: the Schrödinger kernels against their plain versions."""
+def phase_schrodinger_kernels(stats: dict, bf16: bool = False,
+                              shapes=SCHRODINGER_SHAPES) -> None:
+    """3c (3d with ``bf16``): the Schrödinger kernels against their
+    plain versions."""
     from pinn_torch.ops import fused_schrodinger as fs
+    sfx = "_bf16" if bf16 else ""
+    plain_grad = (fs.schrodinger_sse_grad_bf16_plain if bf16
+                  else fs.schrodinger_sse_grad_plain)
+    plain_loss = fs.schrodinger_sse_bf16_plain if bf16 else fs.schrodinger_sse_plain
 
-    for i, (layers, n) in enumerate(SCHRODINGER_SHAPES):
+    for i, (layers, n) in enumerate(shapes):
         args = _schrodinger_inputs(layers, n, seed=300 + i)
-        _check_pair(stats, f"schrodinger {layers[1]}x{len(layers) - 2} N={n}",
-                    "schrodinger_sse_grad", "schrodinger_sse",
-                    fs.schrodinger_sse_grad, fs.schrodinger_sse,
-                    fs.schrodinger_sse_grad_plain, fs.schrodinger_sse_plain,
-                    args, time_it=i == 0)
+        _check_pair(stats, f"schrodinger{sfx} {_shape_tag(layers, n)}",
+                    "schrodinger_sse_grad" + sfx, "schrodinger_sse" + sfx,
+                    lambda *a: fs.schrodinger_sse_grad(*a, bf16=bf16),
+                    lambda *a: fs.schrodinger_sse(*a, bf16=bf16),
+                    plain_grad, plain_loss, args, layers, n_aux=0,
+                    time_it=i == 0, bf16=bf16)
+
+
+def phase_bf16_kernels(stats: dict) -> None:
+    """3d: the six bf16-stream kernels against their plain versions."""
+    phase_kernels(stats, bf16=True)
+    phase_ide_kernels(stats, bf16=True, shapes=[IDE_SHAPES[0], IDE_SHAPES[2]],
+                      lambdas=IDE_LAMBDAS[1:])
+    phase_schrodinger_kernels(stats, bf16=True,
+                              shapes=[SCHRODINGER_SHAPES[0],
+                                      SCHRODINGER_SHAPES[2]])
 
 
 def _logged_runs(path):
@@ -301,28 +425,38 @@ def _check_falls(tag, losses):
         raise AssertionError(f"{tag}: loss did not fall: {first} -> {last}")
 
 
-def _reset_counts():
+def _counters():
     from pinn_torch.ops import fused_schrodinger as fs
     from pinn_torch.ops import fused_train as ft
-    ft.n_launch_loss_grad = ft.n_launch_loss = 0
-    ft.n_launch_ide_loss_grad = ft.n_launch_ide_loss = 0
-    fs.n_launch_sse_grad = fs.n_launch_sse = 0
+    return ft.launches, fs.launches
+
+
+def _reset_counts():
+    for counts in _counters():
+        for name in counts:
+            counts[name] = 0
+
+
+def _counts() -> dict:
+    ft_counts, fs_counts = _counters()
+    return {**ft_counts, **fs_counts}
 
 
 def _read_counts(names):
-    from pinn_torch.ops import fused_schrodinger as fs
-    from pinn_torch.ops import fused_train as ft
-    counts = {"burgers_loss_grad": ft.n_launch_loss_grad,
-              "burgers_loss": ft.n_launch_loss,
-              "burgers_ide_loss_grad": ft.n_launch_ide_loss_grad,
-              "burgers_ide_loss": ft.n_launch_ide_loss,
-              "schrodinger_sse_grad": fs.n_launch_sse_grad,
-              "schrodinger_sse": fs.n_launch_sse}
+    counts = _counts()
     launches = {n: counts[n] for n in names}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"the main path never launched {name}")
     return launches
+
+
+def _expect_counts(tag, want: dict) -> None:
+    """Every named count equals its expected value."""
+    counts = _counts()
+    got = {n: counts[n] for n in want}
+    if got != want:
+        raise AssertionError(f"{tag}: launch counts {got}, expected {want}")
 
 
 def _check_finite(values):
@@ -348,8 +482,8 @@ def phase_main_path() -> dict:
     stage1 = {"device": "cuda", "layers": FLAGSHIP, "N_u": 100,
               "N_f": 10000, "fused_residual": True,
               "nt_vector_dtype": "float64", "nt_line_search": "wolfe",
-              "tf_epochs": 200, "nt_epochs": 200, "nt_resample": 100,
-              "log_frequency": 50, "save_checkpoint": ckpt,
+              "tf_epochs": 100, "nt_epochs": 100, "nt_resample": 50,
+              "log_frequency": 25, "save_checkpoint": ckpt,
               "log_file": os.path.join(WORK_DIR, "stage1.jsonl")}
     stage2 = {"device": "cuda", "layers": FLAGSHIP, "N_u": 100,
               "N_f": 10000, "dtype": "float64", "net_impl": "df32",
@@ -498,6 +632,147 @@ def phase_schrodinger_main_path() -> dict:
     return launches
 
 
+def _run_stage(tag, run, hp):
+    """One experiment run, timed on the host after a device sync;
+    returns (result, seconds, logged runs)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = run(hp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    runs = _logged_runs(hp["log_file"])
+    for i, losses in enumerate(runs):
+        log(f"[{tag}] run {i} logged losses: {_fmt(losses)}")
+        _check_falls(f"{tag} run {i}", losses)
+    return r, seconds, runs
+
+
+def phase_bf16_main_path() -> dict:
+    """4d: the campaign's bf16-warmup mixed stage on the inference
+    flagship, then a run on the bf16 kernels alone."""
+    from pinn_torch.experiments import inf_cont_burgers
+
+    mixed = {"device": "cuda", "layers": FLAGSHIP, "N_u": 100, "N_f": 10000,
+             "fused_residual": True, "tf_net_dtype": "bfloat16",
+             "nt_vector_dtype": "float64", "nt_dir_impl": "matrix",
+             "nt_line_search": "wolfe", "nt_resample": 100,
+             "tf_epochs": 200, "nt_epochs": 200, "log_frequency": 50,
+             "log_file": os.path.join(WORK_DIR, "bf16_mixed.jsonl")}
+    bf16 = {"device": "cuda", "layers": FLAGSHIP, "N_u": 100, "N_f": 10000,
+            "fused_residual": "bf16", "nt_vector_dtype": "float64",
+            "tf_epochs": 50, "nt_epochs": 50, "log_frequency": 25,
+            "log_file": os.path.join(WORK_DIR, "bf16_only.jsonl")}
+
+    _reset_counts()
+    r1, s1, (losses1,) = _run_stage("bf16 mixed", inf_cont_burgers.run, mixed)
+    # One bf16 loss+grad launch per Adam step and none elsewhere: the
+    # L-BFGS phase, its line searches and the final loss are float32.
+    _expect_counts("bf16 mixed", {"burgers_loss_grad_bf16": mixed["tf_epochs"],
+                                  "burgers_loss_bf16": 0})
+    mixed_counts = _read_counts(["burgers_loss_grad", "burgers_loss"])
+    adam_rate, lbfgs_rate = _rates(r1["timing"], mixed["tf_epochs"])
+    log(f"[bf16] mixed stage launches: {mixed_counts} + "
+        f"{mixed['tf_epochs']} burgers_loss_grad_bf16 (the Adam steps)")
+    log(f"[bf16] mixed stage: rel-L2 {r1['error']:.6e}, {s1:.2f} s, Adam "
+        f"{adam_rate:.2f} steps/s, L-BFGS {lbfgs_rate:.2f} iters/s "
+        f"({r1['timing']['lbfgs_iters']} iterations)")
+
+    r2, s2, (losses2,) = _run_stage("bf16 only", inf_cont_burgers.run, bf16)
+    _expect_counts("bf16 only", mixed_counts)   # no new float32 launch
+    launches = _read_counts(["burgers_loss_grad_bf16", "burgers_loss_bf16"])
+    adam2, lbfgs2 = _rates(r2["timing"], bf16["tf_epochs"])
+    log(f"[bf16] bf16-only run: rel-L2 {r2['error']:.6e}, {s2:.2f} s, Adam "
+        f"{adam2:.2f} steps/s, L-BFGS {lbfgs2:.2f} iters/s; path launches "
+        f"{launches}")
+    values = [r1["error"], r2["error"], r1["loss"], r2["loss"], adam_rate,
+              lbfgs_rate, adam2, lbfgs2,
+              *[l for _, _, l in losses1 + losses2]]
+    for r in (r1, r2):
+        values += [float(np.max(np.abs(r["u_pred"]))),
+                   float(np.max(np.abs(r["f_pred"]))), *_param_maxes(r["params"])]
+    _check_finite(values)
+    return launches
+
+
+def phase_ide_bf16_main_path() -> dict:
+    """4e: identification on the bf16 kernels, clean and noisy cases."""
+    from pinn_torch.experiments import ide_cont_burgers
+
+    hp = {"device": "cuda", "fused_residual": "bf16",
+          "nt_vector_dtype": "float64", "tf_epochs": 100, "nt_epochs": 100,
+          "log_file": os.path.join(WORK_DIR, "ide_bf16.jsonl")}
+    _reset_counts()
+    r, seconds, runs = _run_stage("ide bf16", ide_cont_burgers.run, hp)
+    _expect_counts("ide bf16", {"burgers_ide_loss_grad": 0,
+                                "burgers_ide_loss": 0})
+    launches = _read_counts(["burgers_ide_loss_grad_bf16",
+                             "burgers_ide_loss_bf16"])
+    rates = {case: _rates(r["timing"][case], hp["tf_epochs"])
+             for case in ("clean", "noisy")}
+    log(f"[ide bf16] launches: {launches}; {seconds:.2f} s; " + "; ".join(
+        f"{case}: Adam {a:.2f} steps/s, L-BFGS {b:.2f} iters/s "
+        f"({r['timing'][case]['lbfgs_iters']} iterations)"
+        for case, (a, b) in rates.items()))
+    log(f"[ide bf16] lambda1 {r['lambdas'][0]:.6f}, lambda2 "
+        f"{r['lambdas'][1]:.6e}; noisy lambda1 {r['lambdas_noisy'][0]:.6f}, "
+        f"lambda2 {r['lambdas_noisy'][1]:.6e}; mean relative lambda error "
+        f"{r['error']:.6e}")
+    _check_finite([*r["lambdas"], *r["lambdas_noisy"], r["error"],
+                   float(np.max(np.abs(r["u_pred"]))),
+                   *_param_maxes(r["params"]), *_param_maxes(r["params_noisy"]),
+                   *[l for losses in runs for _, _, l in losses],
+                   *[x for ab in rates.values() for x in ab]])
+    return launches
+
+
+def phase_schrodinger_bf16_main_path() -> dict:
+    """4f: Schrödinger with the bf16 warmup, then on the bf16 kernels
+    alone."""
+    from pinn_torch.experiments import inf_cont_schrodinger
+
+    warm = {"device": "cuda", "fused_residual": True,
+            "tf_net_dtype": "bfloat16", "nt_vector_dtype": "float64",
+            "tf_epochs": 200, "nt_epochs": 50, "log_frequency": 50,
+            "log_file": os.path.join(WORK_DIR, "schrodinger_bf16_warm.jsonl")}
+    # The recipe's Adam (lr 0.05, beta1 0.99) spikes the loss for its
+    # first ~150 steps (ROADMAP Queue 3); this short run takes a gentler
+    # one, so that its logged loss can fall within 20 steps.
+    bf16 = {"device": "cuda", "fused_residual": "bf16", "tf_lr": 0.005,
+            "tf_b1": 0.9, "nt_vector_dtype": "float64", "tf_epochs": 20,
+            "nt_epochs": 20, "log_frequency": 10,
+            "log_file": os.path.join(WORK_DIR, "schrodinger_bf16_only.jsonl")}
+    _reset_counts()
+    r1, s1, (losses1,) = _run_stage("schrodinger bf16 warmup",
+                                    inf_cont_schrodinger.run, warm)
+    _expect_counts("schrodinger bf16 warmup",
+                   {"schrodinger_sse_grad_bf16": warm["tf_epochs"],
+                    "schrodinger_sse_bf16": 0})
+    warm_counts = _read_counts(["schrodinger_sse_grad", "schrodinger_sse"])
+    adam_rate, lbfgs_rate = _rates(r1["timing"], warm["tf_epochs"])
+    log(f"[schrodinger bf16] warmup stage launches: {warm_counts} + "
+        f"{warm['tf_epochs']} schrodinger_sse_grad_bf16 (the Adam steps); "
+        f"rel-L2 |h| {r1['error']:.6e}, {s1:.2f} s, Adam {adam_rate:.2f} "
+        f"steps/s, L-BFGS {lbfgs_rate:.2f} iters/s "
+        f"({r1['timing']['lbfgs_iters']} iterations)")
+
+    r2, s2, (losses2,) = _run_stage("schrodinger bf16 only",
+                                    inf_cont_schrodinger.run, bf16)
+    _expect_counts("schrodinger bf16 only", warm_counts)
+    launches = _read_counts(["schrodinger_sse_grad_bf16", "schrodinger_sse_bf16"])
+    adam2, lbfgs2 = _rates(r2["timing"], bf16["tf_epochs"])
+    log(f"[schrodinger bf16] bf16-only run: rel-L2 |h| {r2['error']:.6e}, "
+        f"{s2:.2f} s, Adam {adam2:.2f} steps/s, L-BFGS {lbfgs2:.2f} iters/s; "
+        f"path launches {launches}")
+    values = [r1["error"], r2["error"], r1["loss"], r2["loss"], adam_rate,
+              lbfgs_rate, adam2, lbfgs2,
+              *[l for _, _, l in losses1 + losses2]]
+    for r in (r1, r2):
+        values += [float(np.max(np.abs(r["h_pred"]))), *_param_maxes(r["params"])]
+    _check_finite(values)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -516,17 +791,29 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     stats = {}
+    t0 = time.perf_counter()
     phase_kernels(stats)
     phase_ide_kernels(stats)
     phase_schrodinger_kernels(stats)
+    phase_bf16_kernels(stats)
+    t1 = time.perf_counter()
     launches = {**phase_main_path(), **phase_ide_main_path(),
-                **phase_schrodinger_main_path()}
+                **phase_schrodinger_main_path(), **phase_bf16_main_path(),
+                **phase_ide_bf16_main_path(),
+                **phase_schrodinger_bf16_main_path()}
+    log(f"[time] kernel checks {t1 - t0:.1f} s, main paths "
+        f"{time.perf_counter() - t1:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 **stats[name]} for name, (src, replaces) in KERNELS.items()]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        missing = [key for key in keys if key not in k]
+        if missing:
+            raise AssertionError(f"{k['name']}: no {missing}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,10 @@
 //                             _ide_loss_grad_call (:971)
 //   burgers_ide_loss       <- _fwd_ide_kernel (:906), launched by
 //                             _ide_loss_call (:942)
+// and, each with the suffix _bf16, the same four kernels with
+// stream_dtype="bfloat16": bf16 streams and saved activations, f32
+// accumulation (pt_mlp.cuh says where they round).  They take the
+// same f32 inputs and round them as they load them; ws holds bf16.
 //
 // The forward, backward, layout and reductions are pt_mlp.cuh's; this
 // file holds the two loss heads and the entry points, instantiated at
@@ -33,7 +37,7 @@
 // [2, 20x8, 1], 46.9 KB at [2, 40x8, 1]), so every block is one warp
 // and many blocks share an SM.  The saved-activation workspace is
 // 2,560 B a point at width 20 (25.9 MB at the inference flagship's
-// N = 10,100, inside the 50 MB L2).
+// N = 10,100, inside the 50 MB L2), half that with bf16 streams.
 //
 // Bounds on this card.  The inference flagship step is ~0.7 GFLOP of
 // f32 FMA for ~26 MB of workspace traffic, but N = 10,100 points make
@@ -42,7 +46,11 @@
 // latency (of the shuffle reductions, 3,021 per warp at width 20, and
 // of per-thread local-memory arrays) rather than by FLOP/s or
 // bandwidth.  Spreading a point's neurons over several lanes, so that
-// a small N still fills the SMs, is the next step for speed.
+// a small N still fills the SMs, is the next step for speed.  The bf16
+// entry points are bound the same way: their products are the same
+// per-thread f32 FMAs (on the tensor cores bf16 operands would run at
+// 989 TFLOP/s), plus a conversion at each rounding point on the
+// dependency chain; PERF.md has their times beside the f32 ones.
 //
 // Every entry returns cudaGetLastError().
 
@@ -55,6 +63,7 @@ namespace {
 struct BurgersInfHead {
   static constexpr int kOut = 1;
   static constexpr int kExtra = 0;
+  static constexpr bool kRoundedBias = true;
   struct Args {
     const float* aux;  // (3, N): target, w, d
     float nu;
@@ -89,6 +98,7 @@ struct BurgersInfHead {
 struct BurgersIdeHead {
   static constexpr int kOut = 1;
   static constexpr int kExtra = 2;  // A1, A2
+  static constexpr bool kRoundedBias = true;
   struct Args {
     const float* aux;  // (3, N): target, w_d, w_f
     const float* lam;  // (2,): lambda1, exp(log_lambda2)
@@ -143,15 +153,27 @@ int burgers_train_sizes(const int* widths, int n_layers, int* n_weights,
   return pt_sizes(widths, n_layers, 1, BURGERS_MAX_WIDTH, n_weights, ws_rows);
 }
 
-// Loss and all gradients.  ws: ws_rows * (n_tiles * 32) floats;
-// partials: n_tiles * (1 + n_weights); out: 1 + n_weights, where
-// n_tiles = ceil(n_pts / 32).
+// Loss and all gradients.  ws: ws_rows * (n_tiles * 32) floats (bf16
+// values for the _bf16 entry); partials: n_tiles * (1 + n_weights);
+// out: 1 + n_weights, where n_tiles = ceil(n_pts / 32).
 int burgers_loss_grad(const float* a0, const float* aux, const float* wpack,
                       const int* widths, int n_layers, int n_pts, float nu,
                       float* ws, float* partials, float* out, void* stream) {
   const BurgersInfHead::Args args = {aux, nu};
-  return pt_launch_loss_grad<BurgersInfHead, BURGERS_MAX_WIDTH>(
+  return pt_launch_loss_grad<BurgersInfHead, BURGERS_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, args, ws, partials, out, stream);
+}
+
+int burgers_loss_grad_bf16(const float* a0, const float* aux,
+                           const float* wpack, const int* widths,
+                           int n_layers, int n_pts, float nu,
+                           __nv_bfloat16* ws, float* partials, float* out,
+                           void* stream) {
+  const BurgersInfHead::Args args = {aux, nu};
+  return pt_launch_loss_grad<BurgersInfHead, BURGERS_MAX_WIDTH,
+                             __nv_bfloat16>(widths, n_layers, a0, wpack,
+                                            n_pts, args, ws, partials, out,
+                                            stream);
 }
 
 // Loss only.  partials: n_tiles floats; out: 1 float.
@@ -159,7 +181,15 @@ int burgers_loss(const float* a0, const float* aux, const float* wpack,
                  const int* widths, int n_layers, int n_pts, float nu,
                  float* partials, float* out, void* stream) {
   const BurgersInfHead::Args args = {aux, nu};
-  return pt_launch_loss<BurgersInfHead, BURGERS_MAX_WIDTH>(
+  return pt_launch_loss<BurgersInfHead, BURGERS_MAX_WIDTH, float>(
+      widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
+}
+
+int burgers_loss_bf16(const float* a0, const float* aux, const float* wpack,
+                      const int* widths, int n_layers, int n_pts, float nu,
+                      float* partials, float* out, void* stream) {
+  const BurgersInfHead::Args args = {aux, nu};
+  return pt_launch_loss<BurgersInfHead, BURGERS_MAX_WIDTH, __nv_bfloat16>(
       widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
 }
 
@@ -170,8 +200,20 @@ int burgers_ide_loss_grad(const float* a0, const float* aux, const float* lam,
                           int n_pts, float* ws, float* partials, float* out,
                           void* stream) {
   const BurgersIdeHead::Args args = {aux, lam};
-  return pt_launch_loss_grad<BurgersIdeHead, BURGERS_MAX_WIDTH>(
+  return pt_launch_loss_grad<BurgersIdeHead, BURGERS_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, args, ws, partials, out, stream);
+}
+
+int burgers_ide_loss_grad_bf16(const float* a0, const float* aux,
+                               const float* lam, const float* wpack,
+                               const int* widths, int n_layers, int n_pts,
+                               __nv_bfloat16* ws, float* partials, float* out,
+                               void* stream) {
+  const BurgersIdeHead::Args args = {aux, lam};
+  return pt_launch_loss_grad<BurgersIdeHead, BURGERS_MAX_WIDTH,
+                             __nv_bfloat16>(widths, n_layers, a0, wpack,
+                                            n_pts, args, ws, partials, out,
+                                            stream);
 }
 
 // Identification loss only.  partials: n_tiles floats; out: 1 float.
@@ -179,7 +221,16 @@ int burgers_ide_loss(const float* a0, const float* aux, const float* lam,
                      const float* wpack, const int* widths, int n_layers,
                      int n_pts, float* partials, float* out, void* stream) {
   const BurgersIdeHead::Args args = {aux, lam};
-  return pt_launch_loss<BurgersIdeHead, BURGERS_MAX_WIDTH>(
+  return pt_launch_loss<BurgersIdeHead, BURGERS_MAX_WIDTH, float>(
+      widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
+}
+
+int burgers_ide_loss_bf16(const float* a0, const float* aux, const float* lam,
+                          const float* wpack, const int* widths, int n_layers,
+                          int n_pts, float* partials, float* out,
+                          void* stream) {
+  const BurgersIdeHead::Args args = {aux, lam};
+  return pt_launch_loss<BurgersIdeHead, BURGERS_MAX_WIDTH, __nv_bfloat16>(
       widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
 }
 

@@ -3,7 +3,7 @@
 // (value, d/dx, d2/dx2, d/dt), the loss head, and the hand-derived
 // backward, with per-warp partial sums reduced in a fixed order.
 //
-// Two things are template parameters:
+// Three things are template parameters:
 //
 //   Head  the output-layer misfit: its output width (kOut), its
 //         per-point inputs (Point, loaded by load()), its loss and the
@@ -11,6 +11,8 @@
 //         extra accumulators (kExtra slots after the weight gradients).
 //   W     the maximum hidden width, which sizes the per-thread stream
 //         arrays (3 x 4W floats of local memory).
+//   S     the stream type: float (exact) or __nv_bfloat16 (the bf16
+//         streams of the TPU kernels' stream_dtype="bfloat16").
 //
 // Layout.  a0 (2, N) holds the normalised points.  wpack is every
 // weight in one f32 vector: per affine layer l, Wt_l (h_out, h_in)
@@ -19,8 +21,10 @@
 // slot 0, the gradient of wpack in wpack's own order, then the head's
 // kExtra accumulators.
 //
-// A Head is a struct with kOut, kExtra, Args (passed to the kernel by
-// value), Point, and
+// A Head is a struct with kOut, kExtra, kRoundedBias (whether the
+// output bias gradient sums the stream-rounded value adjoint, as the
+// Burgers TPU kernels do, or the f32 one, as the Schrodinger kernel
+// does), Args (passed to the kernel by value), Point, and
 //   static __device__ Point load(const Args&, int n_pts, int col, bool live);
 //   static __device__ float eval(const Args&, const Point&, float U[][4],
 //                                float gU[][4], float* extra);
@@ -44,11 +48,28 @@
 // 32 threads of a warp touch 32 consecutive floats; each layer's input
 // activations are rematerialised from the previous layer's saved block.
 //
-// Precision: IEEE f32 throughout (fmaf, tanhf); build without
-// --use_fast_math.
+// bf16 streams (S = __nv_bfloat16).  The TPU kernels round to bf16 at
+// fixed points (pinn/ops/pallas_train.py:121-274) and this code rounds
+// at the same ones, round-to-nearest-even as JAX's astype: the weights,
+// biases, tangent rows and a0 as they are loaded; each layer's four
+// output streams (the next layer is computed from the unrounded t, z1,
+// z11, z2, while the backward reads them rounded from ws); the output
+// adjoints gU; each layer's pre-activation adjoints gz (feeding both the
+// input adjoints and the weight gradients); and the rematerialised
+// layer inputs.  Every product takes rounded operands and accumulates
+// in f32; the loss, its aux rows, the partials and their reduction stay
+// f32.  ws holds S, which halves it.  The weights stay f32 in shared
+// memory, holding rounded values: the shared-memory size, and with it
+// the block shape (pt_warps_per_block), is the f32 kernels', and no
+// product pays a conversion.  With S = float every rounding is the
+// identity and the code is the f32 kernels'.
+//
+// Precision: IEEE f32 arithmetic throughout (fmaf, tanhf); build
+// without --use_fast_math.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -67,6 +88,30 @@ struct PtNet {
 };
 
 namespace {
+
+// The stream type's rounding (rnd), and its stores and loads of ws.
+template <class S>
+struct PtStream;
+
+template <>
+struct PtStream<float> {
+  static __device__ __forceinline__ float rnd(float x) { return x; }
+  static __device__ __forceinline__ float put(float x) { return x; }
+  static __device__ __forceinline__ float get(float x) { return x; }
+};
+
+template <>
+struct PtStream<__nv_bfloat16> {
+  static __device__ __forceinline__ float rnd(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 put(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float get(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+};
 
 __device__ __forceinline__ float pt_warp_sum(float v) {
   // Fixed butterfly: every lane ends with the same, order-fixed sum.
@@ -114,11 +159,12 @@ __device__ __forceinline__ void pt_grad_row(float g0, float g1, float g2,
   }
 }
 
+template <class S>
 __device__ __forceinline__ void pt_load_weights(const PtNet& net,
                                                 const float* __restrict__ wpack,
                                                 float* w_s) {
   for (int i = threadIdx.x; i < net.n_weights; i += blockDim.x) {
-    w_s[i] = wpack[i];
+    w_s[i] = PtStream<S>::rnd(wpack[i]);
   }
   __syncthreads();
 }
@@ -129,12 +175,13 @@ __device__ __forceinline__ void pt_load_weights(const PtNet& net,
 // ws[(s_off[l] + s * h + j) * cols + col].  kSave is a template
 // argument, not a test of ws: with a runtime test the compiler kept
 // both versions of every layer loop in the loss+grad kernel, which ran
-// 1.7x slower on the H100.
-template <int W, bool kSave>
+// 1.7x slower on the H100.  act holds S-rounded values.
+template <int W, bool kSave, class S>
 __device__ void pt_forward_hidden(const PtNet& net, const float* w_s,
                                   float x0, float x1, float* act,
-                                  float* nxt, float* ws, int cols,
+                                  float* nxt, S* ws, int cols,
                                   int col) {
+  using St = PtStream<S>;
   const int n_hidden = net.n_layers - 1;
   // Layer 0: two inputs, constant tangent rows, z11 = 0.
   {
@@ -150,15 +197,15 @@ __device__ void pt_forward_hidden(const PtNet& net, const float* w_s,
       const float spp = -2.0f * t * sp;
       if (kSave) {
         const int r = net.s_off[0] + j;
-        ws[(size_t)(r + 0 * h) * cols + col] = t;
-        ws[(size_t)(r + 1 * h) * cols + col] = z1;
-        ws[(size_t)(r + 2 * h) * cols + col] = 0.0f;
-        ws[(size_t)(r + 3 * h) * cols + col] = z2;
+        ws[(size_t)(r + 0 * h) * cols + col] = St::put(t);
+        ws[(size_t)(r + 1 * h) * cols + col] = St::put(z1);
+        ws[(size_t)(r + 2 * h) * cols + col] = St::put(0.0f);
+        ws[(size_t)(r + 3 * h) * cols + col] = St::put(z2);
       }
-      act[0 * W + j] = t;
-      act[1 * W + j] = sp * z1;
-      act[2 * W + j] = spp * z1 * z1;
-      act[3 * W + j] = sp * z2;
+      act[0 * W + j] = St::rnd(t);
+      act[1 * W + j] = St::rnd(sp * z1);
+      act[2 * W + j] = St::rnd(spp * z1 * z1);
+      act[3 * W + j] = St::rnd(sp * z2);
     }
   }
   for (int l = 1; l < n_hidden; ++l) {
@@ -183,15 +230,15 @@ __device__ void pt_forward_hidden(const PtNet& net, const float* w_s,
       const float spp = -2.0f * t * sp;
       if (kSave) {
         const int r = net.s_off[l] + j;
-        ws[(size_t)(r + 0 * h) * cols + col] = t;
-        ws[(size_t)(r + 1 * h) * cols + col] = z1;
-        ws[(size_t)(r + 2 * h) * cols + col] = z11;
-        ws[(size_t)(r + 3 * h) * cols + col] = z2;
+        ws[(size_t)(r + 0 * h) * cols + col] = St::put(t);
+        ws[(size_t)(r + 1 * h) * cols + col] = St::put(z1);
+        ws[(size_t)(r + 2 * h) * cols + col] = St::put(z11);
+        ws[(size_t)(r + 3 * h) * cols + col] = St::put(z2);
       }
-      nxt[0 * W + j] = t;
-      nxt[1 * W + j] = sp * z1;
-      nxt[2 * W + j] = spp * z1 * z1 + sp * z11;
-      nxt[3 * W + j] = sp * z2;
+      nxt[0 * W + j] = St::rnd(t);
+      nxt[1 * W + j] = St::rnd(sp * z1);
+      nxt[2 * W + j] = St::rnd(spp * z1 * z1 + sp * z11);
+      nxt[3 * W + j] = St::rnd(sp * z2);
     }
     for (int s = 0; s < 4; ++s) {
       for (int j = 0; j < h; ++j) {
@@ -227,19 +274,20 @@ __device__ __forceinline__ void pt_output(const PtNet& net, const float* w_s,
 
 // Adjoints of a hidden layer's pre-activation streams (_layer_bwd of
 // the TPU kernels): g holds the adjoints of the layer's four outputs,
-// gz receives (gz_v, gz_1, gz_11, gz_2).
-template <int W>
+// gz receives (gz_v, gz_1, gz_11, gz_2), S-rounded.
+template <int W, class S>
 __device__ __forceinline__ void pt_layer_bwd(const PtNet& net, int l,
                                              const float* g, float* gz,
-                                             const float* ws, int cols,
+                                             const S* ws, int cols,
                                              int col) {
+  using St = PtStream<S>;
   const int h = net.width[l + 1];
   for (int j = 0; j < h; ++j) {
     const int r = net.s_off[l] + j;
-    const float t = ws[(size_t)(r + 0 * h) * cols + col];
-    const float z1 = ws[(size_t)(r + 1 * h) * cols + col];
-    const float z11 = ws[(size_t)(r + 2 * h) * cols + col];
-    const float z2 = ws[(size_t)(r + 3 * h) * cols + col];
+    const float t = St::get(ws[(size_t)(r + 0 * h) * cols + col]);
+    const float z1 = St::get(ws[(size_t)(r + 1 * h) * cols + col]);
+    const float z11 = St::get(ws[(size_t)(r + 2 * h) * cols + col]);
+    const float z2 = St::get(ws[(size_t)(r + 3 * h) * cols + col]);
     const float g0 = g[0 * W + j];
     const float g1 = g[1 * W + j];
     const float g2 = g[2 * W + j];
@@ -249,22 +297,23 @@ __device__ __forceinline__ void pt_layer_bwd(const PtNet& net, int l,
     const float gt = g0 + g1 * (-2.0f * t * z1)
                      + g2 * ((6.0f * t * t - 2.0f) * z1 * z1 - 2.0f * t * z11)
                      + g3 * (-2.0f * t * z2);
-    gz[0 * W + j] = sp * gt;
-    gz[1 * W + j] = g1 * sp + g2 * (2.0f * spp * z1);
-    gz[2 * W + j] = g2 * sp;
-    gz[3 * W + j] = g3 * sp;
+    gz[0 * W + j] = St::rnd(sp * gt);
+    gz[1 * W + j] = St::rnd(g1 * sp + g2 * (2.0f * spp * z1));
+    gz[2 * W + j] = St::rnd(g2 * sp);
+    gz[3 * W + j] = St::rnd(g3 * sp);
   }
 }
 
 // Loss and every gradient of one tile per warp.
-template <class Head, int W>
+template <class Head, int W, class S>
 __global__ void pt_loss_grad_kernel(PtNet net, const float* __restrict__ a0,
                                     const float* __restrict__ wpack,
                                     int n_pts, typename Head::Args args,
-                                    float* __restrict__ ws,
+                                    S* __restrict__ ws,
                                     float* __restrict__ partials) {
+  using St = PtStream<S>;
   extern __shared__ float w_s[];
-  pt_load_weights(net, wpack, w_s);
+  pt_load_weights<S>(net, wpack, w_s);
 
   const int lane = threadIdx.x & (PT_TILE - 1);
   const int tile = blockIdx.x * (blockDim.x / PT_TILE) + threadIdx.x / PT_TILE;
@@ -276,19 +325,23 @@ __global__ void pt_loss_grad_kernel(PtNet net, const float* __restrict__ a0,
   // Points past the ragged edge run with zero inputs and a zero weight
   // (Head::load): they add exactly 0 to the loss and every gradient,
   // and keep the warp converged for the shuffles.
-  const float x0 = live ? a0[col] : 0.0f;
-  const float x1 = live ? a0[n_pts + col] : 0.0f;
+  const float x0 = St::rnd(live ? a0[col] : 0.0f);
+  const float x1 = St::rnd(live ? a0[n_pts + col] : 0.0f);
   const typename Head::Point pt = Head::load(args, n_pts, col, live);
 
   float act[4 * W];
   float buf[4 * W];
   float gz[4 * W];
 
-  pt_forward_hidden<W, true>(net, w_s, x0, x1, act, buf, ws, cols, col);
-  float U[Head::kOut][4], gU[Head::kOut][4];
+  pt_forward_hidden<W, true, S>(net, w_s, x0, x1, act, buf, ws, cols, col);
+  float U[Head::kOut][4], gU[Head::kOut][4], gb[Head::kOut];
   float ex[Head::kExtra + 1];
   pt_output<W, Head::kOut>(net, w_s, act, U);
   const float loss = Head::eval(args, pt, U, gU, ex);
+  for (int o = 0; o < Head::kOut; ++o) {
+    gb[o] = Head::kRoundedBias ? St::rnd(gU[o][0]) : gU[o][0];
+    for (int s = 0; s < 4; ++s) gU[o][s] = St::rnd(gU[o][s]);
+  }
 
   float* part = partials
                 + (size_t)tile * (1 + net.n_weights + Head::kExtra) + 1;
@@ -307,7 +360,7 @@ __global__ void pt_loss_grad_kernel(PtNet net, const float* __restrict__ a0,
     for (int o = 0; o < Head::kOut; ++o) {
       pt_grad_row<W>(gU[o][0], gU[o][1], gU[o][2], gU[o][3], act, hin,
                      part + net.w_off[L] + o * hin, lane);
-      const float cb = pt_warp_sum(gU[o][0]);
+      const float cb = pt_warp_sum(gb[o]);
       if (lane == 0) part[net.b_off[L] + o] = cb;
     }
     // buf <- adjoints of the last hidden layer's outputs.
@@ -327,20 +380,20 @@ __global__ void pt_loss_grad_kernel(PtNet net, const float* __restrict__ a0,
     const int hin = net.width[l];
     const int h = net.width[l + 1];
     const float* Wt = w_s + net.w_off[l];
-    pt_layer_bwd<W>(net, l, buf, gz, ws, cols, col);
+    pt_layer_bwd<W, S>(net, l, buf, gz, ws, cols, col);
     // act <- this layer's inputs, rematerialised from layer l-1.
     for (int k = 0; k < hin; ++k) {
       const int r = net.s_off[l - 1] + k;
-      const float tp = ws[(size_t)(r + 0 * hin) * cols + col];
-      const float z1p = ws[(size_t)(r + 1 * hin) * cols + col];
-      const float z11p = ws[(size_t)(r + 2 * hin) * cols + col];
-      const float z2p = ws[(size_t)(r + 3 * hin) * cols + col];
+      const float tp = St::get(ws[(size_t)(r + 0 * hin) * cols + col]);
+      const float z1p = St::get(ws[(size_t)(r + 1 * hin) * cols + col]);
+      const float z11p = St::get(ws[(size_t)(r + 2 * hin) * cols + col]);
+      const float z2p = St::get(ws[(size_t)(r + 3 * hin) * cols + col]);
       const float spp_ = 1.0f - tp * tp;
       const float sppp = -2.0f * tp * spp_;
-      act[0 * W + k] = tp;
-      act[1 * W + k] = spp_ * z1p;
-      act[2 * W + k] = sppp * z1p * z1p + spp_ * z11p;
-      act[3 * W + k] = spp_ * z2p;
+      act[0 * W + k] = St::rnd(tp);
+      act[1 * W + k] = St::rnd(spp_ * z1p);
+      act[2 * W + k] = St::rnd(sppp * z1p * z1p + spp_ * z11p);
+      act[3 * W + k] = St::rnd(spp_ * z2p);
     }
     for (int j = 0; j < h; ++j) {
       const float gz0 = gz[0 * W + j];
@@ -370,7 +423,7 @@ __global__ void pt_loss_grad_kernel(PtNet net, const float* __restrict__ a0,
   // adjoints are column sums of gz_1 and gz_2 ----
   {
     const int h = net.width[1];
-    pt_layer_bwd<W>(net, 0, buf, gz, ws, cols, col);
+    pt_layer_bwd<W, S>(net, 0, buf, gz, ws, cols, col);
     for (int j = 0; j < h; ++j) {
       const float gz0 = gz[0 * W + j];
       const float c0 = pt_warp_sum(gz0 * x0);
@@ -390,13 +443,14 @@ __global__ void pt_loss_grad_kernel(PtNet net, const float* __restrict__ a0,
 }
 
 // The loss alone: one partial per tile.
-template <class Head, int W>
+template <class Head, int W, class S>
 __global__ void pt_loss_kernel(PtNet net, const float* __restrict__ a0,
                                const float* __restrict__ wpack, int n_pts,
                                typename Head::Args args,
                                float* __restrict__ partials) {
+  using St = PtStream<S>;
   extern __shared__ float w_s[];
-  pt_load_weights(net, wpack, w_s);
+  pt_load_weights<S>(net, wpack, w_s);
 
   const int lane = threadIdx.x & (PT_TILE - 1);
   const int tile = blockIdx.x * (blockDim.x / PT_TILE) + threadIdx.x / PT_TILE;
@@ -404,13 +458,14 @@ __global__ void pt_loss_kernel(PtNet net, const float* __restrict__ a0,
   if (tile >= n_tiles) return;
   const int col = tile * PT_TILE + lane;
   const bool live = col < n_pts;
-  const float x0 = live ? a0[col] : 0.0f;
-  const float x1 = live ? a0[n_pts + col] : 0.0f;
+  const float x0 = St::rnd(live ? a0[col] : 0.0f);
+  const float x1 = St::rnd(live ? a0[n_pts + col] : 0.0f);
   const typename Head::Point pt = Head::load(args, n_pts, col, live);
 
   float act[4 * W];
   float buf[4 * W];
-  pt_forward_hidden<W, false>(net, w_s, x0, x1, act, buf, nullptr, 0, col);
+  pt_forward_hidden<W, false, S>(net, w_s, x0, x1, act, buf,
+                                 static_cast<S*>(nullptr), 0, col);
   float U[Head::kOut][4], gU[Head::kOut][4];
   float ex[Head::kExtra + 1];
   pt_output<W, Head::kOut>(net, w_s, act, U);
@@ -513,19 +568,20 @@ int pt_reduce(const float* partials, int rows, int n_cols, float* out,
 }
 
 // Loss, every gradient and the head's extras.  ws: ws_rows * (n_tiles *
-// 32) floats; partials: n_tiles * (1 + n_weights + kExtra); out:
-// 1 + n_weights + kExtra, where n_tiles = ceil(n_pts / 32).
-template <class Head, int W>
+// 32) values of S; partials: n_tiles * (1 + n_weights + kExtra) floats;
+// out: 1 + n_weights + kExtra floats, where n_tiles = ceil(n_pts / 32).
+template <class Head, int W, class S>
 int pt_launch_loss_grad(const int* widths, int n_layers, const float* a0,
                         const float* wpack, int n_pts,
-                        typename Head::Args args, float* ws, float* partials,
+                        typename Head::Args args, S* ws, float* partials,
                         float* out, void* stream) {
   PtNet net;
   int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
   if (err) return err;
   if (n_pts < 1) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  err = pt_smem_bytes(net, (const void*)pt_loss_grad_kernel<Head, W>, &smem);
+  err = pt_smem_bytes(net, (const void*)pt_loss_grad_kernel<Head, W, S>,
+                      &smem);
   if (err) return err;
   const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
   int warps = 1;
@@ -533,7 +589,7 @@ int pt_launch_loss_grad(const int* widths, int n_layers, const float* a0,
   if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (n_tiles + warps - 1) / warps;
-  pt_loss_grad_kernel<Head, W><<<blocks, warps * PT_TILE, smem, s>>>(
+  pt_loss_grad_kernel<Head, W, S><<<blocks, warps * PT_TILE, smem, s>>>(
       net, a0, wpack, n_pts, args, ws, partials);
   err = (int)cudaGetLastError();
   if (err) return err;
@@ -542,7 +598,7 @@ int pt_launch_loss_grad(const int* widths, int n_layers, const float* a0,
 }
 
 // Loss only.  partials: n_tiles floats; out: 1 float.
-template <class Head, int W>
+template <class Head, int W, class S>
 int pt_launch_loss(const int* widths, int n_layers, const float* a0,
                    const float* wpack, int n_pts, typename Head::Args args,
                    float* partials, float* out, void* stream) {
@@ -551,7 +607,7 @@ int pt_launch_loss(const int* widths, int n_layers, const float* a0,
   if (err) return err;
   if (n_pts < 1) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  err = pt_smem_bytes(net, (const void*)pt_loss_kernel<Head, W>, &smem);
+  err = pt_smem_bytes(net, (const void*)pt_loss_kernel<Head, W, S>, &smem);
   if (err) return err;
   const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
   int warps = 1;
@@ -559,7 +615,7 @@ int pt_launch_loss(const int* widths, int n_layers, const float* a0,
   if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (n_tiles + warps - 1) / warps;
-  pt_loss_kernel<Head, W><<<blocks, warps * PT_TILE, smem, s>>>(
+  pt_loss_kernel<Head, W, S><<<blocks, warps * PT_TILE, smem, s>>>(
       net, a0, wpack, n_pts, args, partials);
   err = (int)cudaGetLastError();
   if (err) return err;

@@ -14,6 +14,10 @@
 //                            _sse_fwd_bwd_call (:219)
 //   schrodinger_sse       <- _fwd_kernel (:70), launched by
 //                            _sse_fwd_call (:193)
+// and, with the suffix _bf16, both with stream_dtype="bfloat16" (bf16
+// streams and saved activations, f32 accumulation; pt_mlp.cuh).  As in
+// the TPU kernel, the output bias gradient sums the f32 value adjoints
+// (kRoundedBias = false), the weight gradients the rounded ones.
 //
 // The forward, backward, layout and reductions are pt_mlp.cuh's; this
 // file holds the two-output head and the entry points, instantiated at
@@ -35,12 +39,14 @@
 // per-thread stream arrays are 3 x 4 x 128 floats, 6 KB a thread, far
 // beyond the registers, so they live in L1 and spill to L2.  The saved
 // activations are 4 layers x 4 streams x 100 x 4 B = 6,400 B a point,
-// 128 MB at N_f = 20,000, more than the 50 MB L2, so they stream from
-// HBM; and the per-warp gradient partials are 625 x 31,003 floats
-// (77.6 MB).  A later design would give a point's neurons to several
-// lanes (streams in registers, the layer products as warp-level
-// matrix products on the tensor cores) and reduce the weight gradients
-// across a block before they leave the SM.
+// 128 MB at N_f = 20,000 (64 MB with bf16 streams), more than the 50 MB
+// L2, so they stream from HBM; and the per-warp gradient partials are
+// 625 x 31,003 floats (77.6 MB).  A later design would give a point's
+// neurons to several lanes (streams in registers, the layer products
+// as warp-level matrix products on the tensor cores) and reduce the
+// weight gradients across a block before they leave the SM.  The bf16
+// entry points share these bounds: the same per-thread f32 FMAs on
+// rounded operands, with half the workspace traffic.
 //
 // Every entry returns cudaGetLastError().
 
@@ -53,6 +59,7 @@ namespace {
 struct SchrodingerHead {
   static constexpr int kOut = 2;
   static constexpr int kExtra = 0;
+  static constexpr bool kRoundedBias = false;
   struct Args {};
   struct Point {
     float m;  // 1 on live points, 0 past the ragged edge
@@ -99,25 +106,44 @@ int schrodinger_train_sizes(const int* widths, int n_layers, int* n_weights,
                   ws_rows);
 }
 
-// SSE and all gradients.  ws: ws_rows * (n_tiles * 32) floats;
-// partials: n_tiles * (1 + n_weights); out: 1 + n_weights, where
-// n_tiles = ceil(n_pts / 32).
+// SSE and all gradients.  ws: ws_rows * (n_tiles * 32) floats (bf16
+// values for the _bf16 entry); partials: n_tiles * (1 + n_weights);
+// out: 1 + n_weights, where n_tiles = ceil(n_pts / 32).
 int schrodinger_sse_grad(const float* a0, const float* wpack,
                          const int* widths, int n_layers, int n_pts,
                          float* ws, float* partials, float* out,
                          void* stream) {
-  return pt_launch_loss_grad<SchrodingerHead, SCHRODINGER_MAX_WIDTH>(
+  return pt_launch_loss_grad<SchrodingerHead, SCHRODINGER_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, SchrodingerHead::Args{}, ws,
       partials, out, stream);
+}
+
+int schrodinger_sse_grad_bf16(const float* a0, const float* wpack,
+                              const int* widths, int n_layers, int n_pts,
+                              __nv_bfloat16* ws, float* partials, float* out,
+                              void* stream) {
+  return pt_launch_loss_grad<SchrodingerHead, SCHRODINGER_MAX_WIDTH,
+                             __nv_bfloat16>(widths, n_layers, a0, wpack,
+                                            n_pts, SchrodingerHead::Args{},
+                                            ws, partials, out, stream);
 }
 
 // SSE only.  partials: n_tiles floats; out: 1 float.
 int schrodinger_sse(const float* a0, const float* wpack, const int* widths,
                     int n_layers, int n_pts, float* partials, float* out,
                     void* stream) {
-  return pt_launch_loss<SchrodingerHead, SCHRODINGER_MAX_WIDTH>(
+  return pt_launch_loss<SchrodingerHead, SCHRODINGER_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, SchrodingerHead::Args{}, partials,
       out, stream);
+}
+
+int schrodinger_sse_bf16(const float* a0, const float* wpack,
+                         const int* widths, int n_layers, int n_pts,
+                         float* partials, float* out, void* stream) {
+  return pt_launch_loss<SchrodingerHead, SCHRODINGER_MAX_WIDTH,
+                        __nv_bfloat16>(widths, n_layers, a0, wpack, n_pts,
+                                       SchrodingerHead::Args{}, partials, out,
+                                       stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
 """Device resolution: the caller names the device, this module checks it.
 
-``resolve_device("cuda")`` raises when no CUDA device is present — a run
-asked to use the card never continues on the CPU.  ``None`` picks the
-card when there is one and the CPU otherwise; the Logger prints which
-one was taken.
+The port runs on the card.  ``resolve_device(None)`` and
+``resolve_device("cuda")`` give a CUDA device and raise when there is
+none, so an entry point left without a device never carries on on the
+CPU.  The CPU is taken only when the caller names it (``"cpu"``).
 """
 
 from __future__ import annotations
@@ -16,15 +16,15 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
+            what = "the default device 'cuda'" if device is None else \
+                f"device {str(dev)!r}"
             raise RuntimeError(
-                f"device {str(dev)!r} was requested but torch reports no "
-                f"CUDA device (torch {torch.__version__}, "
-                f"built for CUDA {torch.version.cuda})")
+                f"{what} was requested but torch reports no CUDA device "
+                f"(torch {torch.__version__}, built for CUDA "
+                f"{torch.version.cuda}); pass device='cpu' for the CPU")
         if dev.index is not None and dev.index >= torch.cuda.device_count():
             raise RuntimeError(
                 f"device {str(dev)!r} was requested but only "

@@ -33,6 +33,12 @@ def resolve_dtype(hp) -> torch.dtype:
     return getattr(torch, name)
 
 
+def wants_bf16(value) -> bool:
+    """Whether an hp value (``fused_residual``, ``tf_net_dtype``) names
+    bf16, as the JAX experiments read it."""
+    return str(value).lower() in ("bf16", "bfloat16")
+
+
 def setup(hp, not_ported: Sequence[str] = ()) -> Tuple[int, torch.dtype,
                                                         torch.device]:
     """Validate ``hp``, refuse keys the port lacks, seed numpy (the data

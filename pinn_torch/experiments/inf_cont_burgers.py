@@ -9,10 +9,17 @@ nu = 0.01/pi, Adam then L-BFGS, rel-L2 error on the full grid.
 - ``fused_residual: True`` trains on the fused loss
   (``pinn_torch.ops.fused_train``): the CUDA kernels on a CUDA device,
   their plain PyTorch version on the CPU.  float32 only.
+  ``fused_residual: "bf16"`` takes the bf16-stream kernels in both
+  phases.
+- ``tf_net_dtype: "bfloat16"`` (the bf16 warmup): on the fused path
+  the Adam phase trains on the bf16-stream kernels and L-BFGS on the
+  f32 ones, and the key leaves hp before it is logged, as in the JAX
+  experiment; on the eager path the Trainer casts the Adam phase's loss
+  (``pinn_torch.optim.adam.net_dtype_cast``).
 - ``dtype: "float64"`` trains on the eager loss; ``net_impl: "df32"``
   (the JAX package's double-f32 engine) runs as native float64.
-- ``device`` picks the device ("cuda", "cpu"; absent: the card if
-  there is one).  Asking for "cuda" without one raises.
+- ``device`` picks the device ("cuda", "cpu"; absent: "cuda").  Without
+  a card, "cuda" raises: the CPU runs only when asked for.
 
 Not yet ported: RAR (``rar_pool``/``rar_init``), the device mesh and
 the plots.
@@ -29,7 +36,8 @@ import torch
 
 from pinn_torch.data import burgers_cont_inference, lhs
 from pinn_torch.experiments._common import (maybe_load_params,
-                                            maybe_save_params, setup)
+                                            maybe_save_params, setup,
+                                            wants_bf16)
 from pinn_torch.models import mlp
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
@@ -71,14 +79,21 @@ def run(hp=None):
 
     batch = {"X_u": X_u, "u": u, "X_f": X_f}
 
+    adam_loss_fn = None  # the Adam phase's loss, when it differs
     if hp.get("fused_residual"):
         if dtype != torch.float32:
             raise ValueError("fused_residual requires dtype=float32 "
                              "(the eager loss covers float64)")
         from pinn_torch.ops.fused_train import make_burgers_loss
-        sdt = ("bfloat16" if str(hp["fused_residual"]).lower()
-               in ("bf16", "bfloat16") else None)
+        sdt = "bfloat16" if wants_bf16(hp["fused_residual"]) else None
         loss_fn = make_burgers_loss(data.lb, data.ub, nu, stream_dtype=sdt)
+        if wants_bf16(hp.get("tf_net_dtype")):
+            # bf16 warmup on the fused path: Adam on the bf16-stream
+            # kernels (float32 weights and gradients, so no cast on
+            # top), L-BFGS on loss_fn; the key is not logged.
+            adam_loss_fn = make_burgers_loss(data.lb, data.ub, nu,
+                                             stream_dtype="bfloat16")
+            hp = {k: v for k, v in hp.items() if k != "tf_net_dtype"}
     else:
         def loss_fn(p, b):
             return burgers.loss_cont_inference(p, b["X_u"], b["u"], b["X_f"],
@@ -114,7 +129,8 @@ def run(hp=None):
 
     logger = Logger(hp, device=device)
     trainer = Trainer(loss_fn, net, batch, hp, logger,
-                      resample_fn=resample_fn, val_fn=val_fn)
+                      resample_fn=resample_fn, val_fn=val_fn,
+                      adam_loss_fn=adam_loss_fn)
 
     def error():
         u_pred = predict_u(trainer.params, X_star).cpu().numpy()

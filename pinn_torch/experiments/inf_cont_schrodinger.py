@@ -11,14 +11,19 @@ grid.  Each log line carries the three loss terms.
 - ``fused_residual: True`` puts the residual term on the fused loss
   (``pinn_torch.ops.fused_schrodinger.make_schrodinger_loss``): the
   CUDA kernels on a CUDA device, their plain version on the CPU; the
-  IC/BC terms stay eager.  float32 only.
+  IC/BC terms stay eager.  float32 only.  ``fused_residual: "bf16"``
+  takes the bf16-stream kernels in both phases.
+- ``tf_net_dtype: "bfloat16"``: on the fused path the Adam phase takes
+  the bf16-stream kernels, L-BFGS the f32 ones, and the key leaves hp
+  before it is logged (as in the JAX experiment); on the eager path
+  the Trainer casts the Adam phase's loss.
 - ``dtype: "float64"`` trains on the eager loss; ``net_impl: "df32"``
   runs as native float64.
 - ``nt_resample``/``tf_resample`` draw fresh collocation points;
   ``nt_val_every`` selects the best L-BFGS iterate on a held-out draw.
 
 Not yet ported: ``tpu_mesh``, ``print_loss_terms`` (per-evaluation
-term prints), the bf16 warmup (``tf_net_dtype``) and the plots.
+term prints) and the plots.
 
 Usage: ``python -m pinn_torch.experiments.inf_cont_schrodinger [hp.json]``
 """
@@ -32,7 +37,8 @@ import torch
 
 from pinn_torch.data import lhs, schrodinger_inference
 from pinn_torch.experiments._common import (maybe_load_params,
-                                            maybe_save_params, setup)
+                                            maybe_save_params, setup,
+                                            wants_bf16)
 from pinn_torch.models import mlp
 from pinn_torch.problems import schrodinger
 from pinn_torch.train import Trainer
@@ -79,14 +85,20 @@ def run(hp=None):
     gen = torch.Generator().manual_seed(int(hp.get("init_seed") or seed))
     net = maybe_load_params(hp, mlp.init_mlp(hp["layers"], gen, dtype, device))
 
+    adam_loss_fn = None  # the Adam phase's loss, when it differs
     if hp.get("fused_residual"):
         if dtype != torch.float32:
             raise ValueError("fused_residual requires dtype=float32 "
                              "(the eager loss covers float64)")
         from pinn_torch.ops.fused_schrodinger import make_schrodinger_loss
-        sdt = ("bfloat16" if str(hp["fused_residual"]).lower()
-               in ("bf16", "bfloat16") else None)
+        sdt = "bfloat16" if wants_bf16(hp["fused_residual"]) else None
         loss_fn = make_schrodinger_loss(data.lb, data.ub, stream_dtype=sdt)
+        if wants_bf16(hp.get("tf_net_dtype")):
+            # bf16 warmup on the fused path: Adam on the bf16-stream
+            # residual kernels, L-BFGS on loss_fn; the key is not logged.
+            adam_loss_fn = make_schrodinger_loss(data.lb, data.ub,
+                                                 stream_dtype="bfloat16")
+            hp = {k: v for k, v in hp.items() if k != "tf_net_dtype"}
     else:
         def loss_fn(p, b):
             return schrodinger.loss(p, b["X0"], b["H0"], b["X_lb"],
@@ -130,7 +142,7 @@ def run(hp=None):
     logger = Logger(hp, device=device)
     trainer = Trainer(loss_fn, net, batch, hp, logger,
                       epoch_extra=epoch_extra, resample_fn=resample_fn,
-                      val_fn=val_fn)
+                      val_fn=val_fn, adam_loss_fn=adam_loss_fn)
 
     def error(H=None):
         H = predict_h(trainer.params) if H is None else H

@@ -47,6 +47,15 @@ def init_mlp(layers: Sequence[int], generator: torch.Generator,
     return params
 
 
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the promoted dtype, as JAX's matmul promotes: a
+    bf16 weight against float32 streams is cast in each product, so its
+    gradient is rounded per product (the bf16 warmup,
+    ``pinn_torch.optim.adam.net_dtype_cast``).  Equal dtypes: ``a @ w``."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
 def normalize(X: torch.Tensor, lb, ub) -> torch.Tensor:
     """Affine map of the domain onto [-1, 1]^din."""
     return 2.0 * (X - lb) / (ub - lb) - 1.0
@@ -56,9 +65,9 @@ def apply(params: Params, X: torch.Tensor, lb, ub) -> torch.Tensor:
     """Plain forward pass: (N, din) -> (N, dout)."""
     a = normalize(X, lb, ub)
     for w, b in params[:-1]:
-        a = torch.tanh(a @ w + b)
+        a = torch.tanh(_mm(a, w) + b)
     w, b = params[-1]
-    return a @ w + b
+    return _mm(a, w) + b
 
 
 class TaylorOut(NamedTuple):
@@ -90,9 +99,9 @@ def taylor_apply(params: Params, X: torch.Tensor, lb, ub,
     a = normalize(X, lb, ub)
 
     w, b = params[0]
-    z = a @ w + b
-    z1 = ((v1 * scale) @ w).expand_as(z)
-    z2 = ((v2 * scale) @ w).expand_as(z) if v2 is not None else None
+    z = _mm(a, w) + b
+    z1 = _mm(v1 * scale, w).expand_as(z)
+    z2 = _mm(v2 * scale, w).expand_as(z) if v2 is not None else None
 
     if len(params) == 1:  # single linear layer
         return TaylorOut(
@@ -117,11 +126,11 @@ def taylor_apply(params: Params, X: torch.Tensor, lb, ub,
     a2 = sp * z2 if z2 is not None else None
 
     for w, b in params[1:-1]:
-        z = a @ w + b
-        z1 = a1 @ w
-        z11 = a11 @ w if order >= 2 else None
-        z111 = a111 @ w if order >= 3 else None
-        z2 = a2 @ w if a2 is not None else None
+        z = _mm(a, w) + b
+        z1 = _mm(a1, w)
+        z11 = _mm(a11, w) if order >= 2 else None
+        z111 = _mm(a111, w) if order >= 3 else None
+        z2 = _mm(a2, w) if a2 is not None else None
         a = torch.tanh(z)
         sp = 1.0 - a * a
         a1 = sp * z1
@@ -138,11 +147,11 @@ def taylor_apply(params: Params, X: torch.Tensor, lb, ub,
 
     w, b = params[-1]
     return TaylorOut(
-        value=a @ w + b,
-        d1=a1 @ w,
-        d11=(a11 @ w) if order >= 2 else None,
-        d2=(a2 @ w) if a2 is not None else None,
-        d111=(a111 @ w) if order >= 3 else None,
+        value=_mm(a, w) + b,
+        d1=_mm(a1, w),
+        d11=_mm(a11, w) if order >= 2 else None,
+        d2=_mm(a2, w) if a2 is not None else None,
+        d111=_mm(a111, w) if order >= 3 else None,
     )
 
 

@@ -42,16 +42,20 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _F = ctypes.c_float
 
 # C signatures of the entry points (pinn_torch/csrc/burgers_train.cu,
-# schrodinger_train.cu).
-SIGNATURES = {
-    "burgers_train_sizes": [_IP, _I, _IP, _IP],
+# schrodinger_train.cu); each kernel's ``_bf16`` entry takes the same.
+_KERNEL_SIGNATURES = {
     "burgers_loss_grad": [_P, _P, _P, _IP, _I, _I, _F, _P, _P, _P, _P],
     "burgers_loss": [_P, _P, _P, _IP, _I, _I, _F, _P, _P, _P],
     "burgers_ide_loss_grad": [_P, _P, _P, _P, _IP, _I, _I, _P, _P, _P, _P],
     "burgers_ide_loss": [_P, _P, _P, _P, _IP, _I, _I, _P, _P, _P],
-    "schrodinger_train_sizes": [_IP, _I, _IP, _IP],
     "schrodinger_sse_grad": [_P, _P, _IP, _I, _I, _P, _P, _P, _P],
     "schrodinger_sse": [_P, _P, _IP, _I, _I, _P, _P, _P],
+}
+SIGNATURES = {
+    "burgers_train_sizes": [_IP, _I, _IP, _IP],
+    "schrodinger_train_sizes": [_IP, _I, _IP, _IP],
+    **{name + sfx: sig for name, sig in _KERNEL_SIGNATURES.items()
+       for sfx in ("", "_bf16")},
 }
 
 

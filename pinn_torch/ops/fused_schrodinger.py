@@ -18,12 +18,19 @@ Kernels (``pinn_torch/csrc/schrodinger_train.cu``, built by ``_build``):
   SSE, every weight gradient and the first layer's tangent-row adjoints
   in one launch, plus a fixed-order reduction of the per-tile partials.
 - ``schrodinger_sse`` replaces ``_fwd_kernel`` (:70): the SSE alone.
+- ``schrodinger_sse_grad_bf16`` and ``schrodinger_sse_bf16`` replace
+  the same two with ``stream_dtype="bfloat16"`` (bf16 streams and saved
+  activations, f32 accumulation; the rounding points are
+  pallas_schrodinger.py:95-190's).
 
 Each has a plain PyTorch version with the same signature
 (``schrodinger_sse_grad_plain(a0, z1row, z2row, wt_args) -> (sse, gwt,
 gz1row, gz2row)``), taken only for tensors on the CPU; for CUDA tensors
-the wrappers launch the kernel or raise.  Host-side prep and
-reassembly are ``fused_train``'s.  The multi-device variant
+the wrappers launch the kernel or raise.  The f32 ones differentiate by
+autograd, the bf16 ones run ``fused_train``'s explicit backward with
+the bf16 rounding; as in the TPU kernel, the output bias gradient sums
+the unrounded value adjoints.  Host-side prep and reassembly are
+``fused_train``'s.  The multi-device variant
 (``make_schrodinger_loss_dp``) waits for the port's ``parallel``
 package.
 """
@@ -36,22 +43,37 @@ import torch
 from pinn_torch.ops import fused_train as ft
 from pinn_torch.params import Params, leaves
 
-# Launch counts of the kernels (CUDA launches only).
-n_launch_sse_grad = 0
-n_launch_sse = 0
+# Launch counts of the kernels by entry point (CUDA launches only).
+launches = {name + sfx: 0
+            for name in ("schrodinger_sse_grad", "schrodinger_sse")
+            for sfx in ("", "_bf16")}
 
 _LIMITS = "input 2, output 2, at most 15 hidden layers of width <= 128"
 
 
-def schrodinger_sse_plain(a0, z1row, z2row, wt_args) -> torch.Tensor:
-    """The SSE in plain torch ops, streams stacked as the TPU kernel
-    stacks them."""
-    V, _, Dxx, Dt = ft.streams_plain(a0, z1row, z2row, wt_args)
+def _head(U):
+    """The residual misfit on the output streams: (sse, gU, ()).  The
+    d/dx streams get a zero adjoint."""
+    n = U.shape[1] // 4
+    V, Dxx, Dt = U[:, :n], U[:, 2 * n:3 * n], U[:, 3 * n:]
     u, v = V[0:1], V[1:2]
     h2 = u * u + v * v
     f_u = Dt[0:1] + 0.5 * Dxx[1:2] + h2 * v
     f_v = Dt[1:2] - 0.5 * Dxx[0:1] - h2 * u
-    return torch.sum(f_u * f_u) + torch.sum(f_v * f_v)
+    g_fu, g_fv = 2.0 * f_u, 2.0 * f_v
+    gV = torch.cat([g_fu * (2.0 * u * v) - g_fv * (3.0 * u * u + v * v),
+                    g_fu * (u * u + 3.0 * v * v) - g_fv * (2.0 * u * v)])
+    gU = torch.cat([gV, torch.zeros_like(gV),
+                    torch.cat([-0.5 * g_fv, 0.5 * g_fu]),
+                    torch.cat([g_fu, g_fv])], dim=1)
+    return torch.sum(f_u * f_u) + torch.sum(f_v * f_v), gU, ()
+
+
+def schrodinger_sse_plain(a0, z1row, z2row, wt_args) -> torch.Tensor:
+    """The SSE in plain torch ops, streams stacked as the TPU kernel
+    stacks them (differentiable)."""
+    U, _, _ = ft._forward(a0, z1row, z2row, wt_args, ft._identity, save=False)
+    return _head(U)[0]
 
 
 def schrodinger_sse_grad_plain(a0, z1row, z2row, wt_args):
@@ -62,28 +84,45 @@ def schrodinger_sse_grad_plain(a0, z1row, z2row, wt_args):
     return loss, g[:-2], g[-2], g[-1]
 
 
-def schrodinger_sse_grad(a0, z1row, z2row, wt_args):
+def schrodinger_sse_grad_bf16_plain(a0, z1row, z2row, wt_args):
+    """Plain version of ``schrodinger_sse_grad_bf16``."""
+    return ft.explicit_loss_grad(_head, a0, z1row, z2row, wt_args,
+                                 ft.round_bf16, rounded_bias=False)
+
+
+def schrodinger_sse_bf16_plain(a0, z1row, z2row, wt_args) -> torch.Tensor:
+    """Plain version of ``schrodinger_sse_bf16``."""
+    return ft.explicit_loss_grad(_head, a0, z1row, z2row, wt_args,
+                                 ft.round_bf16, grads=False)
+
+
+def schrodinger_sse_grad(a0, z1row, z2row, wt_args, bf16: bool = False):
     """SSE and gradients ``(sse, gwt, gz1row, gz2row)``: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    global n_launch_sse_grad
+    kernel (``schrodinger_sse_grad[_bf16]``) for CUDA tensors, its plain
+    version for CPU tensors."""
     if not ft._on_cuda(a0):
-        return schrodinger_sse_grad_plain(a0, z1row, z2row, wt_args)
+        plain = (schrodinger_sse_grad_bf16_plain if bf16
+                 else schrodinger_sse_grad_plain)
+        return plain(a0, z1row, z2row, wt_args)
     ft._check_inputs(a0, None, z1row, z2row, wt_args, n_out=2)
-    out = ft.launch("schrodinger_sse_grad", "schrodinger_train_sizes",
-                    _LIMITS, a0, [], z1row, z2row, wt_args)
-    n_launch_sse_grad += 1
+    name = ft._entry("schrodinger_sse_grad", bf16)
+    out = ft.launch(name, "schrodinger_train_sizes", _LIMITS, a0, [], z1row,
+                    z2row, wt_args, bf16=bf16)
+    launches[name] += 1
     return ft._unpack(out, z1row, z2row, wt_args)
 
 
-def schrodinger_sse(a0, z1row, z2row, wt_args) -> torch.Tensor:
+def schrodinger_sse(a0, z1row, z2row, wt_args,
+                    bf16: bool = False) -> torch.Tensor:
     """The SSE alone (0-d)."""
-    global n_launch_sse
     if not ft._on_cuda(a0):
-        return schrodinger_sse_plain(a0, z1row, z2row, wt_args)
+        plain = schrodinger_sse_bf16_plain if bf16 else schrodinger_sse_plain
+        return plain(a0, z1row, z2row, wt_args)
     ft._check_inputs(a0, None, z1row, z2row, wt_args, n_out=2)
-    out = ft.launch("schrodinger_sse", "schrodinger_train_sizes", _LIMITS,
-                    a0, [], z1row, z2row, wt_args, grads=False)
-    n_launch_sse += 1
+    name = ft._entry("schrodinger_sse", bf16)
+    out = ft.launch(name, "schrodinger_train_sizes", _LIMITS, a0, [], z1row,
+                    z2row, wt_args, grads=False)
+    launches[name] += 1
     return out[0]
 
 
@@ -92,18 +131,18 @@ class _FusedSchrodingerSse(torch.autograd.Function):
     backward is a scalar rescale by ``grad_output``."""
 
     @staticmethod
-    def forward(ctx, a0, vx, vt, *net):
+    def forward(ctx, a0, vx, vt, bf16, *net):
         params = ft._pairs(net)
         z1row, z2row, wt_args = ft._prep(params, vx, vt)
         sse, gwt, gz1row, gz2row = schrodinger_sse_grad(a0, z1row, z2row,
-                                                        wt_args)
+                                                        wt_args, bf16)
         ctx.save_for_backward(*ft._assemble_net_grads(params, gwt, gz1row,
                                                       gz2row, vx, vt))
         return sse
 
     @staticmethod
     def backward(ctx, g):
-        return (None,) * 3 + tuple(g * gr for gr in ctx.saved_tensors)
+        return (None,) * 4 + tuple(g * gr for gr in ctx.saved_tensors)
 
 
 def make_schrodinger_sse(lb, ub, stream_dtype=None):
@@ -111,9 +150,11 @@ def make_schrodinger_sse(lb, ub, stream_dtype=None):
 
     With gradients wanted one ``schrodinger_sse_grad`` launch gives the
     SSE and every gradient; otherwise one ``schrodinger_sse`` launch
-    gives the SSE.  float32 only.  ``X_f`` gets no gradient.
+    gives the SSE.  ``stream_dtype="bfloat16"`` takes the ``_bf16``
+    kernels; parameters and gradients stay float32.  ``X_f`` gets no
+    gradient.
     """
-    ft._check_stream_dtype(stream_dtype)
+    bf16 = ft._check_stream_dtype(stream_dtype)
     lb_np = np.asarray(lb, np.float32)
     ub_np = np.asarray(ub, np.float32)
     consts = {}
@@ -126,9 +167,9 @@ def make_schrodinger_sse(lb, ub, stream_dtype=None):
         a0 = ft._normalise(X_f, lb_t, ub_t)
         net = leaves(params)
         if ft._wants_grad(net):
-            return _FusedSchrodingerSse.apply(a0, vx, vt, *net)
+            return _FusedSchrodingerSse.apply(a0, vx, vt, bf16, *net)
         z1row, z2row, wt_args = ft._prep(params, vx, vt)
-        return schrodinger_sse(a0, z1row, z2row, wt_args)
+        return schrodinger_sse(a0, z1row, z2row, wt_args, bf16)
 
     return sse
 
@@ -136,7 +177,9 @@ def make_schrodinger_sse(lb, ub, stream_dtype=None):
 def make_schrodinger_loss(lb, ub, stream_dtype=None):
     """The full loss with the fused kernel on the residual term:
     ``mse_0 + mse_b + sse_f / N_f``, the IC/BC terms eager.  Batch
-    keys: X0, H0, X_lb, X_ub, X_f."""
+    keys: X0, H0, X_lb, X_ub, X_f.  With ``stream_dtype="bfloat16"``
+    only the residual SSE takes bf16 streams; the IC/BC terms stay
+    float32 on the float32 parameters (pallas_schrodinger.py:344-349)."""
     from pinn_torch.problems import schrodinger as sprob
 
     fused = make_schrodinger_sse(lb, ub, stream_dtype=stream_dtype)

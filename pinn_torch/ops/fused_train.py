@@ -35,8 +35,13 @@ Kernels (``pinn_torch/csrc/burgers_train.cu``, built by ``_build``):
 - ``burgers_ide_loss_grad`` replaces ``_make_ide_kernel`` (:847): as
   ``burgers_loss_grad``, plus A1 and A2.
 - ``burgers_ide_loss`` replaces ``_fwd_ide_kernel`` (:906).
+- ``burgers_loss_grad_bf16``, ``burgers_loss_bf16``,
+  ``burgers_ide_loss_grad_bf16`` and ``burgers_ide_loss_bf16`` replace
+  the same four with ``stream_dtype="bfloat16"``: bf16 streams and saved
+  activations, f32 products and sums (the Adam warmup of the
+  ``tf_net_dtype`` and ``fused_residual: "bf16"`` recipes).
 
-All four are bound by latency (a few hundred warps on 132 SMs); the
+All eight are bound by latency (a few hundred warps on 132 SMs); the
 source notes in ``pinn_torch/csrc/`` say what the design does about
 the saved activations and the cross-block sum.
 
@@ -44,11 +49,22 @@ Each kernel has a plain PyTorch version with the same signature
 (``burgers_loss_grad_plain(a0, aux, z1row, z2row, wt_args, nu) ->
 (loss, gwt, gz1row, gz2row)``; the ide pair takes ``lam`` after
 ``aux`` and returns ``glam`` = (A1, A2) last; the loss-only versions
-return the loss).  The wrappers take the plain version only for
-tensors on the CPU; for CUDA tensors they launch the kernel or raise.
-The host-side prep (:func:`_prep`, :func:`_prep_points`) and
-reassembly (:func:`_assemble_net_grads`) wrap both, so the CPU tests
-exercise everything but the kernel body.
+return the loss).  The f32 ones differentiate the forward by autograd.
+The bf16 ones cannot: autograd rounds an adjoint where the forward
+rounded (at the activations), the TPU kernel at the pre-activation
+adjoints gZ and the output adjoints gU, and it reads the saved,
+rounded activations.  So they run the TPU kernel's explicit backward
+(``_layer_bwd``, ``_run_backward``, pallas_train.py:170-274) on the
+stacked (h, 4N) layout, with a rounding ``rnd`` applied at the TPU
+kernel's points (:func:`round_bf16`; the identity gives the f32
+result).  Every product takes rounded operands in float32.  The
+wrappers take the plain version only for tensors on the CPU; for CUDA
+tensors they launch the kernel or raise.  The host-side prep
+(:func:`_prep`, :func:`_prep_points`) and reassembly
+(:func:`_assemble_net_grads`) wrap both, so the CPU tests exercise
+everything but the kernel body.  Both kinds of kernel take the same
+float32 inputs; the bf16 ones round them as they load them, and hand
+back float32 gradients, as the JAX custom_vjp does.
 
 Layouts follow the TPU kernel: a0 (2, N) normalised points
 (features-major), aux (3, N), per layer Wt (h_out, h_in) and b
@@ -59,7 +75,7 @@ The CUDA kernel masks the ragged edge itself, so nothing is padded.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,12 +84,12 @@ from pinn_torch.models.mlp import normalize
 from pinn_torch.ops import _build
 from pinn_torch.params import Params, leaves
 
-# Launch counts of the kernels (CUDA launches only; the plain versions
-# do not count).
-n_launch_loss_grad = 0
-n_launch_loss = 0
-n_launch_ide_loss_grad = 0
-n_launch_ide_loss = 0
+# Launch counts of the kernels by entry point (CUDA launches only; the
+# plain versions do not count).
+launches = {name + sfx: 0
+            for name in ("burgers_loss_grad", "burgers_loss",
+                         "burgers_ide_loss_grad", "burgers_ide_loss")
+            for sfx in ("", "_bf16")}
 
 TILE = 32  # points per partials row: one warp (pt_mlp.cuh PT_TILE)
 
@@ -149,51 +165,182 @@ def _tangents(lb_np, ub_np, dev):
     return lb_t, ub_t, torch.stack([scale[0], zero]), torch.stack([zero, scale[1]])
 
 
-def _check_stream_dtype(stream_dtype) -> None:
-    if stream_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(
-            "stream_dtype other than float32 (the bf16-stream variant) "
-            "is not ported yet")
+def _check_stream_dtype(stream_dtype) -> bool:
+    """True for bf16 streams, False for float32; raises on any other."""
+    if stream_dtype in (None, "float32", torch.float32):
+        return False
+    if stream_dtype in ("bfloat16", "bf16", torch.bfloat16):
+        return True
+    raise ValueError(f"stream_dtype must be float32 or bfloat16, got "
+                     f"{stream_dtype!r}")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest, ties to even, as JAX's
+    ``astype``) and brought back to its dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the on-card reference)
 # ---------------------------------------------------------------------------
 
-def streams_plain(a0, z1row, z2row, wt_args):
-    """The network's four output streams (value, d/dx, d2/dx2, d/dt),
-    each (h_out, N), streams stacked as the TPU kernel stacks them:
-    each layer is one (h, 4N) product."""
-    n = a0.shape[1]
-    n_hidden = len(wt_args) // 2 - 1
-    zv = wt_args[0] @ a0 + wt_args[1]
+def _layer_fwd(wt, b, a_cat, n: int, rnd: Callable, z1row=None, z2row=None):
+    """One stacked-stream layer (``_layer_fwd``, pallas_train.py:137):
+    returns the layer's four output streams ``rnd``-rounded, (h, 4N),
+    and its (t | z1 | z11 | z2) block, unrounded, for the backward.
+    The first layer (``z1row`` given) takes the normalised points and
+    the constant tangent rows."""
+    if z1row is not None:
+        zv = wt @ a_cat + b
+        z1 = z1row.expand_as(zv)
+        z11 = torch.zeros_like(zv)
+        z2 = z2row.expand_as(zv)
+    else:
+        Z = wt @ a_cat
+        zv = Z[:, :n] + b
+        z1, z11, z2 = Z[:, n:2 * n], Z[:, 2 * n:3 * n], Z[:, 3 * n:]
     t = torch.tanh(zv)
     sp = 1.0 - t * t
     spp = -2.0 * t * sp
-    z1 = z1row.expand_as(zv)
-    z2 = z2row.expand_as(zv)
-    a_cat = torch.cat([t, sp * z1, spp * z1 * z1, sp * z2], dim=1)
+    a_out = torch.cat([t, sp * z1, spp * z1 * z1 + sp * z11, sp * z2], dim=1)
+    return rnd(a_out), torch.cat([t, z1, z11, z2], dim=1)
+
+
+def _forward(a0, z1row, z2row, wt, rnd: Callable, save: bool):
+    """The hidden stack and output layer (``_run_forward``,
+    pallas_train.py:203): returns the output streams U (n_out, 4N),
+    bias on the value columns, the last hidden layer's output streams,
+    and with ``save`` each hidden layer's ``rnd``-rounded saved block."""
+    n = a0.shape[1]
+    n_hidden = len(wt) // 2 - 1
+    a_cat, blk = _layer_fwd(wt[0], wt[1], a0, n, rnd, z1row, z2row)
+    saved = [rnd(blk)] if save else None
     for l in range(1, n_hidden):
-        Z = wt_args[2 * l] @ a_cat
-        zv = Z[:, :n] + wt_args[2 * l + 1]
-        z1, z11, z2 = Z[:, n:2 * n], Z[:, 2 * n:3 * n], Z[:, 3 * n:]
-        t = torch.tanh(zv)
-        sp = 1.0 - t * t
-        spp = -2.0 * t * sp
-        a_cat = torch.cat([t, sp * z1, spp * z1 * z1 + sp * z11, sp * z2],
-                          dim=1)
-    U = wt_args[-2] @ a_cat
-    return (U[:, :n] + wt_args[-1], U[:, n:2 * n], U[:, 2 * n:3 * n],
-            U[:, 3 * n:])
+        a_cat, blk = _layer_fwd(wt[2 * l], wt[2 * l + 1], a_cat, n, rnd)
+        if save:
+            saved.append(rnd(blk))
+    U = wt[-2] @ a_cat
+    U = torch.cat([U[:, :n] + wt[-1], U[:, n:]], dim=1)
+    return U, a_cat, saved
+
+
+def _layer_bwd(wt, blk, g_cat, n: int, rnd: Callable, inputs: bool = True):
+    """Backward of one layer's recombination (``_layer_bwd``,
+    pallas_train.py:170) from its saved block and its output adjoints
+    ``g_cat``: the ``rnd``-rounded pre-activation adjoints gZ (h, 4N)
+    and, with ``inputs``, the adjoints of the layer's inputs."""
+    t, z1, z11, z2 = (blk[:, k * n:(k + 1) * n] for k in range(4))
+    g0, g1, g2, g3 = (g_cat[:, k * n:(k + 1) * n] for k in range(4))
+    sp = 1.0 - t * t
+    spp = -2.0 * t * sp
+    gt = (g0 + g1 * (-2.0 * t * z1)
+          + g2 * ((6.0 * t * t - 2.0) * z1 * z1 - 2.0 * t * z11)
+          + g3 * (-2.0 * t * z2))
+    gZ = rnd(torch.cat([sp * gt, g1 * sp + g2 * (2.0 * spp * z1), g2 * sp,
+                        g3 * sp], dim=1))
+    return gZ, (wt.t() @ gZ if inputs else None)
+
+
+def _remat(blk, n: int, rnd: Callable):
+    """A layer's output streams rebuilt from its saved block."""
+    t, z1, z11, z2 = (blk[:, k * n:(k + 1) * n] for k in range(4))
+    sp = 1.0 - t * t
+    spp = -2.0 * t * sp
+    return rnd(torch.cat([t, sp * z1, spp * z1 * z1 + sp * z11, sp * z2],
+                         dim=1))
+
+
+def _backward(wt, saved, a0, a_cat, gU, gb_out, rnd: Callable):
+    """From the output adjoints ``gU`` (n_out, 4N) back through every
+    layer (``_run_backward``, pallas_train.py:224): ``(gwt, gz1row,
+    gz2row)``.  ``gb_out`` are the value adjoints the output bias sums."""
+    n = a0.shape[1]
+    L = len(wt) // 2 - 1
+    g = [None] * len(wt)
+    g[2 * L] = gU @ a_cat.t()
+    g[2 * L + 1] = gb_out.sum(dim=1, keepdim=True)
+    g_cat = wt[2 * L].t() @ gU
+    for l in range(L - 1, 0, -1):
+        gZ, g_cat = _layer_bwd(wt[2 * l], saved[l], g_cat, n, rnd)
+        g[2 * l] = gZ @ _remat(saved[l - 1], n, rnd).t()
+        g[2 * l + 1] = gZ[:, :n].sum(dim=1, keepdim=True)
+    gZ, _ = _layer_bwd(wt[0], saved[0], g_cat, n, rnd, inputs=False)
+    g[0] = gZ[:, :n] @ a0.t()
+    g[1] = gZ[:, :n].sum(dim=1, keepdim=True)
+    return (g, gZ[:, n:2 * n].sum(dim=1, keepdim=True),
+            gZ[:, 3 * n:].sum(dim=1, keepdim=True))
+
+
+def explicit_loss_grad(head: Callable, a0, z1row, z2row, wt_args,
+                       rnd: Callable = _identity, grads: bool = True,
+                       rounded_bias: bool = True):
+    """A fused loss with the TPU kernel's explicit backward.  The inputs
+    are ``rnd``-rounded once, as the TPU wrappers cast them
+    (pallas_train.py:747-752).  ``head(U) -> (loss, gU, extras)`` is the
+    misfit on the output streams, in float32; gU is rounded before the
+    backward, and the output bias sums the rounded value adjoints
+    (``rounded_bias``, the Burgers kernels) or the unrounded ones (the
+    Schrödinger kernel).  Returns the loss alone without ``grads``,
+    else ``(loss, gwt, gz1row, gz2row, *extras)``."""
+    a0, z1row, z2row = rnd(a0), rnd(z1row), rnd(z2row)
+    wt = [rnd(w) for w in wt_args]
+    U, a_cat, saved = _forward(a0, z1row, z2row, wt, rnd, save=grads)
+    loss, gU, extras = head(U)
+    if not grads:
+        return loss
+    n = a0.shape[1]
+    gUr = rnd(gU)
+    gb = gUr[:, :n] if rounded_bias else gU[:, :n]
+    gwt, gz1row, gz2row = _backward(wt, saved, a0, a_cat, gUr, gb, rnd)
+    return (loss, gwt, gz1row, gz2row, *extras)
+
+
+def _burgers_head(aux, nu):
+    """The inference misfit: U -> (loss, gU, ())."""
+    target, w, d = aux[0:1], aux[1:2], aux[2:3]
+    e = 1.0 - d
+
+    def head(U):
+        n = U.shape[1] // 4
+        u, u_x, u_xx, u_t = (U[:, k * n:(k + 1) * n] for k in range(4))
+        f = d * (u - target) + e * (u_t + u * u_x - nu * u_xx)
+        g_f = 2.0 * w * f
+        gU = torch.cat([g_f * (d + e * u_x), g_f * e * u, -nu * g_f * e,
+                        g_f * e], dim=1)
+        return torch.sum(w * f * f), gU, ()
+
+    return head
+
+
+def _burgers_ide_head(aux, lam):
+    """The identification misfit: U -> (loss, gU, (glam,)), glam =
+    (A1, A2)."""
+    target, w_d, w_f = aux[0:1], aux[1:2], aux[2:3]
+
+    def head(U):
+        n = U.shape[1] // 4
+        u, u_x, u_xx, u_t = (U[:, k * n:(k + 1) * n] for k in range(4))
+        f = u_t + lam[0] * u * u_x - lam[1] * u_xx
+        e = u - target
+        g_f = 2.0 * w_f * f
+        g_d = 2.0 * w_d * e
+        glam = torch.stack([torch.sum(g_f * u * u_x), torch.sum(g_f * u_xx)])
+        gU = torch.cat([g_d + g_f * lam[0] * u_x, g_f * lam[0] * u,
+                        -lam[1] * g_f, g_f], dim=1)
+        return torch.sum(w_d * e * e + w_f * f * f), gU, (glam,)
+
+    return head
 
 
 def burgers_loss_plain(a0, aux, z1row, z2row, wt_args, nu) -> torch.Tensor:
-    """The fused inference loss in plain torch ops."""
-    u, u_x, u_xx, u_t = streams_plain(a0, z1row, z2row, wt_args)
-    target, w, d = aux[0:1], aux[1:2], aux[2:3]
-    e = 1.0 - d
-    f = d * (u - target) + e * (u_t + u * u_x - nu * u_xx)
-    return torch.sum(w * f * f)
+    """The fused inference loss in plain torch ops (differentiable)."""
+    U, _, _ = _forward(a0, z1row, z2row, wt_args, _identity, save=False)
+    return _burgers_head(aux, nu)(U)[0]
 
 
 def _value_and_grads(fn, xs):
@@ -213,14 +360,23 @@ def burgers_loss_grad_plain(a0, aux, z1row, z2row, wt_args, nu):
     return loss, g[:-2], g[-2], g[-1]
 
 
+def burgers_loss_grad_bf16_plain(a0, aux, z1row, z2row, wt_args, nu):
+    """Plain version of ``burgers_loss_grad_bf16``."""
+    return explicit_loss_grad(_burgers_head(aux, nu), a0, z1row, z2row,
+                              wt_args, round_bf16)
+
+
+def burgers_loss_bf16_plain(a0, aux, z1row, z2row, wt_args, nu):
+    """Plain version of ``burgers_loss_bf16``."""
+    return explicit_loss_grad(_burgers_head(aux, nu), a0, z1row, z2row,
+                              wt_args, round_bf16, grads=False)
+
+
 def burgers_ide_loss_plain(a0, aux, lam, z1row, z2row, wt_args) -> torch.Tensor:
     """The fused identification loss in plain torch ops; ``lam`` =
     (lambda1, exp(log_lambda2))."""
-    u, u_x, u_xx, u_t = streams_plain(a0, z1row, z2row, wt_args)
-    target, w_d, w_f = aux[0:1], aux[1:2], aux[2:3]
-    f = u_t + lam[0] * u * u_x - lam[1] * u_xx
-    e = u - target
-    return torch.sum(w_d * e * e + w_f * f * f)
+    U, _, _ = _forward(a0, z1row, z2row, wt_args, _identity, save=False)
+    return _burgers_ide_head(aux, lam)(U)[0]
 
 
 def burgers_ide_loss_grad_plain(a0, aux, lam, z1row, z2row, wt_args):
@@ -233,6 +389,19 @@ def burgers_ide_loss_grad_plain(a0, aux, lam, z1row, z2row, wt_args):
         [*wt_args, z1row, z2row, lam])
     glam = g[-1] * torch.tensor([1.0, -1.0], dtype=lam.dtype, device=lam.device)
     return loss, g[:-3], g[-3], g[-2], glam
+
+
+def burgers_ide_loss_grad_bf16_plain(a0, aux, lam, z1row, z2row, wt_args):
+    """Plain version of ``burgers_ide_loss_grad_bf16`` (``lam`` stays
+    float32, as on the TPU)."""
+    return explicit_loss_grad(_burgers_ide_head(aux, lam), a0, z1row, z2row,
+                              wt_args, round_bf16)
+
+
+def burgers_ide_loss_bf16_plain(a0, aux, lam, z1row, z2row, wt_args):
+    """Plain version of ``burgers_ide_loss_bf16``."""
+    return explicit_loss_grad(_burgers_ide_head(aux, lam), a0, z1row, z2row,
+                              wt_args, round_bf16, grads=False)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +417,9 @@ def _check_inputs(a0, aux, z1row, z2row, wt_args, n_out: int = 1,
                   extra=()) -> None:
     """What the CUDA launch checks before it touches the card.  ``aux``
     may be None (kernels without aux rows); ``extra`` are further
-    float32 inputs on the same device (the ide kernels' ``lam``)."""
+    float32 inputs on the same device (the ide kernels' ``lam``).  The
+    bf16-stream kernels take the same float32 inputs (they round them
+    as they load them), so there is no second packing to check."""
     dev = a0.device
     n = a0.shape[1] if a0.dim() == 2 else -1
     if a0.dim() != 2 or a0.shape[0] != 2 or n < 1:
@@ -316,13 +487,20 @@ def _on_cuda(a0) -> bool:
     return True
 
 
+def _entry(name: str, bf16: bool) -> str:
+    """The C entry point of kernel ``name`` for the stream type."""
+    return name + "_bf16" if bf16 else name
+
+
 def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
-           wt_args, scalars=(), grads: bool = True, n_extra: int = 0):
+           wt_args, scalars=(), grads: bool = True, n_extra: int = 0,
+           bf16: bool = False):
     """Allocate scratch and output with ``torch.empty`` and launch the
     C entry point ``name`` on the current stream of ``a0``'s device; no
     synchronisation.  The call is ``name(a0, *lead, wpack, widths,
-    n_layers, n_pts, *scalars, [ws,] partials, out, stream)``.  Returns
-    the output buffer: [loss, grad of wpack, n_extra extras] with
+    n_layers, n_pts, *scalars, [ws,] partials, out, stream)``; ``bf16``
+    gives ws bf16 elements (the ``_bf16`` entry points).  Returns the
+    output buffer: [loss, grad of wpack, n_extra extras] with
     ``grads``, else [loss].  The caller has run :func:`_check_inputs`."""
     lib = _build.library().lib
     widths = _widths(a0, wt_args)
@@ -331,12 +509,14 @@ def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
     rows = -(-n // TILE)
     wpack = _pack(z1row, z2row, wt_args)
 
-    def buf(size):
-        return torch.empty(size, dtype=torch.float32, device=a0.device)
+    def buf(size, dtype=torch.float32):
+        return torch.empty(size, dtype=dtype, device=a0.device)
 
     cols = 1 + n_weights + n_extra
     if grads:   # saved activations, per-tile partials, their sums
-        bufs = (buf(ws_rows * rows * TILE), buf(rows * cols), buf(cols))
+        ws_dtype = torch.bfloat16 if bf16 else torch.float32
+        bufs = (buf(ws_rows * rows * TILE, ws_dtype), buf(rows * cols),
+                buf(cols))
     else:       # per-tile partial losses, their sum
         bufs = (buf(rows), buf(1))
     with torch.cuda.device(a0.device):
@@ -352,56 +532,64 @@ def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
 _BURGERS_LIMITS = "input 2, output 1, at most 15 hidden layers of width <= 64"
 
 
-def burgers_loss_grad(a0, aux, z1row, z2row, wt_args, nu):
+def burgers_loss_grad(a0, aux, z1row, z2row, wt_args, nu, bf16: bool = False):
     """Loss and gradients ``(loss, gwt, gz1row, gz2row)``: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    global n_launch_loss_grad
+    kernel (``burgers_loss_grad``, or ``burgers_loss_grad_bf16`` with
+    ``bf16``) for CUDA tensors, its plain version for CPU tensors."""
     if not _on_cuda(a0):
-        return burgers_loss_grad_plain(a0, aux, z1row, z2row, wt_args, nu)
+        plain = burgers_loss_grad_bf16_plain if bf16 else burgers_loss_grad_plain
+        return plain(a0, aux, z1row, z2row, wt_args, nu)
     _check_inputs(a0, aux, z1row, z2row, wt_args)
-    out = launch("burgers_loss_grad", "burgers_train_sizes", _BURGERS_LIMITS,
-                 a0, [aux], z1row, z2row, wt_args, [float(nu)])
-    n_launch_loss_grad += 1
+    name = _entry("burgers_loss_grad", bf16)
+    out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0, [aux],
+                 z1row, z2row, wt_args, [float(nu)], bf16=bf16)
+    launches[name] += 1
     return _unpack(out, z1row, z2row, wt_args)
 
 
-def burgers_loss(a0, aux, z1row, z2row, wt_args, nu) -> torch.Tensor:
-    """The loss alone (0-d): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    global n_launch_loss
+def burgers_loss(a0, aux, z1row, z2row, wt_args, nu,
+                 bf16: bool = False) -> torch.Tensor:
+    """The loss alone (0-d): the CUDA kernel (``burgers_loss[_bf16]``)
+    for CUDA tensors, its plain version for CPU tensors."""
     if not _on_cuda(a0):
-        return burgers_loss_plain(a0, aux, z1row, z2row, wt_args, nu)
+        plain = burgers_loss_bf16_plain if bf16 else burgers_loss_plain
+        return plain(a0, aux, z1row, z2row, wt_args, nu)
     _check_inputs(a0, aux, z1row, z2row, wt_args)
-    out = launch("burgers_loss", "burgers_train_sizes", _BURGERS_LIMITS,
-                 a0, [aux], z1row, z2row, wt_args, [float(nu)], grads=False)
-    n_launch_loss += 1
+    name = _entry("burgers_loss", bf16)
+    out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0, [aux],
+                 z1row, z2row, wt_args, [float(nu)], grads=False)
+    launches[name] += 1
     return out[0]
 
 
-def burgers_ide_loss_grad(a0, aux, lam, z1row, z2row, wt_args):
+def burgers_ide_loss_grad(a0, aux, lam, z1row, z2row, wt_args,
+                          bf16: bool = False):
     """Loss, gradients and (A1, A2): ``(loss, gwt, gz1row, gz2row,
-    glam)``; the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
-    global n_launch_ide_loss_grad
+    glam)``; the CUDA kernel (``burgers_ide_loss_grad[_bf16]``) for
+    CUDA tensors, its plain version for CPU tensors."""
     if not _on_cuda(a0):
-        return burgers_ide_loss_grad_plain(a0, aux, lam, z1row, z2row, wt_args)
+        plain = (burgers_ide_loss_grad_bf16_plain if bf16
+                 else burgers_ide_loss_grad_plain)
+        return plain(a0, aux, lam, z1row, z2row, wt_args)
     _check_inputs(a0, aux, z1row, z2row, wt_args, extra=(lam,))
-    out = launch("burgers_ide_loss_grad", "burgers_train_sizes",
-                 _BURGERS_LIMITS, a0, [aux, lam], z1row, z2row, wt_args,
-                 n_extra=2)
-    n_launch_ide_loss_grad += 1
+    name = _entry("burgers_ide_loss_grad", bf16)
+    out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0,
+                 [aux, lam], z1row, z2row, wt_args, n_extra=2, bf16=bf16)
+    launches[name] += 1
     return _unpack(out, z1row, z2row, wt_args, n_extra=2)
 
 
-def burgers_ide_loss(a0, aux, lam, z1row, z2row, wt_args) -> torch.Tensor:
+def burgers_ide_loss(a0, aux, lam, z1row, z2row, wt_args,
+                     bf16: bool = False) -> torch.Tensor:
     """The identification loss alone (0-d)."""
-    global n_launch_ide_loss
     if not _on_cuda(a0):
-        return burgers_ide_loss_plain(a0, aux, lam, z1row, z2row, wt_args)
+        plain = burgers_ide_loss_bf16_plain if bf16 else burgers_ide_loss_plain
+        return plain(a0, aux, lam, z1row, z2row, wt_args)
     _check_inputs(a0, aux, z1row, z2row, wt_args, extra=(lam,))
-    out = launch("burgers_ide_loss", "burgers_train_sizes", _BURGERS_LIMITS,
-                 a0, [aux, lam], z1row, z2row, wt_args, grads=False)
-    n_launch_ide_loss += 1
+    name = _entry("burgers_ide_loss", bf16)
+    out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0,
+                 [aux, lam], z1row, z2row, wt_args, grads=False)
+    launches[name] += 1
     return out[0]
 
 
@@ -423,18 +611,18 @@ class _FusedBurgersLoss(torch.autograd.Function):
     in the JAX package)."""
 
     @staticmethod
-    def forward(ctx, a0, aux, vx, vt, nu, *net):
+    def forward(ctx, a0, aux, vx, vt, nu, bf16, *net):
         params = _pairs(net)
         z1row, z2row, wt_args = _prep(params, vx, vt)
         loss, gwt, gz1row, gz2row = burgers_loss_grad(a0, aux, z1row, z2row,
-                                                      wt_args, nu)
+                                                      wt_args, nu, bf16)
         ctx.save_for_backward(*_assemble_net_grads(params, gwt, gz1row,
                                                    gz2row, vx, vt))
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        return (None,) * 5 + tuple(g * gr for gr in ctx.saved_tensors)
+        return (None,) * 6 + tuple(g * gr for gr in ctx.saved_tensors)
 
 
 def make_burgers_loss(lb, ub, nu: float, stream_dtype=None):
@@ -444,10 +632,12 @@ def make_burgers_loss(lb, ub, nu: float, stream_dtype=None):
     With gradients wanted (grad mode on and a parameter that requires
     grad) one ``burgers_loss_grad`` launch gives the loss and every
     gradient; otherwise (``torch.no_grad()``, line-search trials, log
-    evaluations) one ``burgers_loss`` launch gives the loss.  float32
-    only, as the JAX kernel's exact path.
+    evaluations) one ``burgers_loss`` launch gives the loss.
+    ``stream_dtype="bfloat16"`` takes the ``_bf16`` kernels (bf16
+    streams, f32 accumulation: warmup-grade precision); the parameters,
+    batch and gradients stay float32.
     """
-    _check_stream_dtype(stream_dtype)
+    bf16 = _check_stream_dtype(stream_dtype)
     nu = float(nu)
     lb_np = np.asarray(lb, np.float32)
     ub_np = np.asarray(ub, np.float32)
@@ -461,9 +651,9 @@ def make_burgers_loss(lb, ub, nu: float, stream_dtype=None):
         a0, aux = _prep_points(batch, lb_t, ub_t)
         net = leaves(params)
         if _wants_grad(net):
-            return _FusedBurgersLoss.apply(a0, aux, vx, vt, nu, *net)
+            return _FusedBurgersLoss.apply(a0, aux, vx, vt, nu, bf16, *net)
         z1row, z2row, wt_args = _prep(params, vx, vt)
-        return burgers_loss(a0, aux, z1row, z2row, wt_args, nu)
+        return burgers_loss(a0, aux, z1row, z2row, wt_args, nu, bf16)
 
     return loss
 
@@ -474,12 +664,12 @@ class _FusedBurgersIdeLoss(torch.autograd.Function):
     adjoints chained through the exp reparameterisation."""
 
     @staticmethod
-    def forward(ctx, a0, aux, vx, vt, lambda1, log_lambda2, *net):
+    def forward(ctx, a0, aux, vx, vt, bf16, lambda1, log_lambda2, *net):
         params = _pairs(net)
         lam = _lam(lambda1, log_lambda2)
         z1row, z2row, wt_args = _prep(params, vx, vt)
         loss, gwt, gz1row, gz2row, glam = burgers_ide_loss_grad(
-            a0, aux, lam, z1row, z2row, wt_args)
+            a0, aux, lam, z1row, z2row, wt_args, bf16)
         g_l1 = glam[0:1].reshape(lambda1.shape)
         g_logl2 = (-glam[1:2] * lam[1:2]).reshape(log_lambda2.shape)
         ctx.save_for_backward(g_l1, g_logl2,
@@ -489,7 +679,7 @@ class _FusedBurgersIdeLoss(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (None,) * 4 + tuple(g * gr for gr in ctx.saved_tensors)
+        return (None,) * 5 + tuple(g * gr for gr in ctx.saved_tensors)
 
 
 def make_burgers_ide_loss(lb, ub, stream_dtype=None):
@@ -500,9 +690,11 @@ def make_burgers_ide_loss(lb, ub, stream_dtype=None):
 
     With gradients wanted, one ``burgers_ide_loss_grad`` launch gives
     the loss, every net gradient and both lambda adjoints; otherwise
-    one ``burgers_ide_loss`` launch gives the loss.  float32 only.
+    one ``burgers_ide_loss`` launch gives the loss.
+    ``stream_dtype="bfloat16"`` takes the ``_bf16`` kernels; the lambda
+    buffer, the parameters and the gradients stay float32.
     """
-    _check_stream_dtype(stream_dtype)
+    bf16 = _check_stream_dtype(stream_dtype)
     lb_np = np.asarray(lb, np.float32)
     ub_np = np.asarray(ub, np.float32)
     consts = {}
@@ -515,10 +707,11 @@ def make_burgers_ide_loss(lb, ub, stream_dtype=None):
         a0, aux = _prep_ide_points(batch, lb_t, ub_t)
         net = leaves(params.net)
         if _wants_grad(leaves(params)):
-            return _FusedBurgersIdeLoss.apply(a0, aux, vx, vt, params.lambda1,
+            return _FusedBurgersIdeLoss.apply(a0, aux, vx, vt, bf16,
+                                              params.lambda1,
                                               params.log_lambda2, *net)
         z1row, z2row, wt_args = _prep(params.net, vx, vt)
         return burgers_ide_loss(a0, aux, _lam(params.lambda1, params.log_lambda2),
-                                z1row, z2row, wt_args)
+                                z1row, z2row, wt_args, bf16)
 
     return loss

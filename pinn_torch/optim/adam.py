@@ -6,13 +6,34 @@ epsilon from hp["tf_lr"]/["tf_b1"]/["tf_eps"], beta2 = 0.999, and
 ``torch.optim.Adam``'s, which is optax.adam's rule
 ``p -= lr * m_hat / (sqrt(v_hat) + eps)`` (tests/test_torch_optim.py
 holds the two to a float64 trajectory).
+
+``net_dtype_cast`` is the counterpart of ``AdamRunner``'s
+hp["tf_net_dtype"] wrap (pinn/optim/adam.py:52-78), with what that wrap
+computes rather than what its name suggests.  The JAX loss casts every
+floating leaf of the parameters and the batch to bf16, but the loss's
+float32 closure constants (bounds, viscosity) promote each operation
+back to float32: the loss runs in float32 arithmetic on bf16-rounded
+weights and inputs (an operation on bf16 values alone, such as
+``exp(log_lambda2)``, stays bf16).  Each promotion converts its bf16
+operand anew, so on the way back each product's gradient of a weight
+is rounded to bf16 and the products' gradients are summed in bf16
+(``add_any``); the sum reaches the master weight as float32, and the
+loss comes back in the master dtype.  Here the leaves reach the loss
+as bf16 tensors and the port's eager model promotes per product as JAX
+does (``pinn_torch.models.mlp._mm``; elementwise operations promote by
+themselves): autograd casts each product's gradient to the bf16 leaf's
+dtype and accumulates them in bf16.  Rounding the float32 gradient
+once instead moves elements by up to 2% at [2, 20, 20, 1] (the
+per-product roundings cancel), so the per-product form is what matches.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Any, Callable, Iterable
 
 import torch
+
+from pinn_torch import params as pcodec
 
 KERAS_DEFAULT_EPS = 1e-7
 
@@ -24,3 +45,33 @@ def adam_from_hp(params: Iterable[torch.Tensor], hp: dict) -> torch.optim.Adam:
         eps = KERAS_DEFAULT_EPS
     return torch.optim.Adam(params, lr=hp["tf_lr"],
                             betas=(hp.get("tf_b1", 0.9), 0.999), eps=eps)
+
+
+def _cast_leaves(tree, dtype: torch.dtype):
+    """Every floating tensor of ``tree`` (a dict of tensors, or a
+    parameter structure) cast to ``dtype`` inside the autograd graph."""
+    def cast(a):
+        return a.to(dtype) if a.is_floating_point() else a
+    if isinstance(tree, dict):
+        return {k: cast(v) for k, v in tree.items()}
+    return pcodec.tree_map(cast, tree)
+
+
+def net_dtype_cast(loss_fn: Callable[[Any, Any], torch.Tensor],
+                   net_dtype: str) -> Callable[[Any, Any], torch.Tensor]:
+    """``loss_fn`` evaluated on the parameters and batch cast to
+    ``net_dtype`` (hp["tf_net_dtype"], e.g. "bfloat16"), with its value
+    in the master dtype (that of the first parameter).  ``loss_fn``
+    must promote as JAX does where its leaves meet float32 constants:
+    the eager losses of ``pinn_torch.problems`` do."""
+    dtype = getattr(torch, str(net_dtype), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"tf_net_dtype must be a floating dtype, got "
+                         f"{net_dtype!r}")
+
+    def loss(params, batch):
+        master = pcodec.leaves(params)[0].dtype
+        return loss_fn(_cast_leaves(params, dtype),
+                       _cast_leaves(batch, dtype)).to(master)
+
+    return loss

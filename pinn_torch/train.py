@@ -11,7 +11,11 @@ iterate and L-BFGS algebra around a network (and fused kernel) that
 runs in float32.  Parameters may be any structure the codec takes
 (``pinn_torch.params``): ``(W, b)`` pairs or ``IdeParams``.
 ``epoch_extra(params) -> str`` is appended to each epoch log line (the
-logger's ``custom`` field) and to the end line.
+logger's ``custom`` field) and to the end line.  ``adam_loss_fn``, when
+given, is the loss the Adam phase optimises (a cheaper warmup loss,
+such as the bf16-stream fused kernel); L-BFGS always refines on
+``loss_fn``.  hp["tf_net_dtype"] wraps the Adam phase's loss in
+``pinn_torch.optim.adam.net_dtype_cast``, as ``AdamRunner`` does.
 
 PyTorch runs eagerly, so both phases step one iteration at a time.
 The L-BFGS phase keeps the JAX Trainer's chunk boundaries (at most
@@ -20,9 +24,8 @@ logs, resamples, probes and revives a stalled run, so keeping them
 keeps the trajectory, and the resampling draws, equal to the JAX
 package's.
 
-Not yet ported: ``trace_dir`` (profiling), the device mesh,
-``params_callback`` and ``tf_net_dtype`` (the bf16 warmup); the
-Trainer raises on the hp keys.
+Not yet ported: ``trace_dir`` (profiling), the device mesh and
+``params_callback``; the Trainer raises on ``trace_dir``.
 """
 
 from __future__ import annotations
@@ -35,11 +38,11 @@ import torch
 
 from pinn_torch import params as pcodec
 from pinn_torch.optim import lbfgs as lb
-from pinn_torch.optim.adam import adam_from_hp
+from pinn_torch.optim.adam import adam_from_hp, net_dtype_cast
 from pinn_torch.utils import checkpoint
 from pinn_torch.utils.logger import Logger
 
-NOT_PORTED_KEYS = ("trace_dir", "tf_net_dtype")
+NOT_PORTED_KEYS = ("trace_dir",)
 
 
 def lbfgs_config_from_hp(hp: dict) -> lb.LbfgsConfig:
@@ -64,8 +67,9 @@ class Trainer:
 
     ``params0`` is a parameter structure (``(W, b)`` pairs,
     ``IdeParams``); ``batch`` a dict of tensors.  ``epoch_extra(params)
-    -> str``, ``resample_fn(round) -> batch`` and ``val_fn(params) ->
-    float`` are optional, as in the JAX Trainer.
+    -> str``, ``resample_fn(round) -> batch``, ``val_fn(params) ->
+    float`` and ``adam_loss_fn(params, batch)`` are optional, as in the
+    JAX Trainer.
     """
 
     CHUNK_CAP = 10  # iterations between host checks in the L-BFGS phase
@@ -74,12 +78,19 @@ class Trainer:
                  batch: Any, hp: dict, logger: Optional[Logger] = None,
                  epoch_extra: Optional[Callable[[Any], str]] = None,
                  resample_fn: Optional[Callable[[int], Any]] = None,
-                 val_fn: Optional[Callable[[Any], float]] = None):
+                 val_fn: Optional[Callable[[Any], float]] = None,
+                 adam_loss_fn: Optional[Callable[[Any, Any],
+                                                 torch.Tensor]] = None):
         bad = [k for k in NOT_PORTED_KEYS if hp.get(k)]
         if bad:
             raise NotImplementedError(
                 f"hp key(s) {bad} are not ported to pinn_torch yet")
         self.loss_fn = loss_fn
+        # The loss the Adam phase optimises (AdamRunner's loss_fn).
+        self.adam_loss_fn = adam_loss_fn or loss_fn
+        if hp.get("tf_net_dtype") is not None:
+            self.adam_loss_fn = net_dtype_cast(self.adam_loss_fn,
+                                               hp["tf_net_dtype"])
         self.epoch_extra = epoch_extra
         self.val_fn = val_fn
         self.resample_fn = resample_fn
@@ -145,7 +156,7 @@ class Trainer:
             if every and done and done % every == 0:
                 self._resample(done)
             opt.zero_grad(set_to_none=True)
-            loss = self.loss_fn(params, self.batch)
+            loss = self.adam_loss_fn(params, self.batch)
             loss.backward()
             opt.step()
             if done % self.frequency == 0:

@@ -57,7 +57,7 @@ KNOWN_KEYS = {
     "fused_residual", "rar_pool", "rar_init", "log_file", "init_seed",
     "nt_dir_impl", "print_loss_terms", "save_every", "net_impl",
     "nt_val_every",
-    # pinn_torch: the device a run uses ("cuda", "cpu"; absent = auto)
+    # pinn_torch: the device a run uses ("cuda", "cpu"; absent = "cuda")
     "device",
     # Navier-Stokes dataset selection/geometry
     # (experiments/ide_cont_navierstokes)

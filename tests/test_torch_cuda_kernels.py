@@ -7,7 +7,10 @@ run
 
 Bars as in tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol
 5e-4 with atol 5e-6 * max|g|, identification lambda adjoints rtol 1e-4;
-two launches are bitwise equal.
+two launches are bitwise equal.  The bf16-stream kernels against their
+plain bf16 versions (the same roundings, summed in another order, which
+can move a rounding): loss rtol 2e-3, gradient rel-L2 <= 1e-2 and
+cosine >= 0.9999 (the net gradients and the lambda adjoints each).
 """
 
 import numpy as np
@@ -58,6 +61,12 @@ def _flat(out):
     return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)]
 
 
+def _launched(module, before, *names):
+    """Launches of each named kernel since ``before`` (a copy of
+    ``module.launches``)."""
+    return tuple(module.launches[n] - before[n] for n in names)
+
+
 @pytest.mark.parametrize("layers,n_u,n_f", [
     ([2, 20, 20, 20, 1], 32, 300),
     ([2] + [20] * 8 + [1], 100, 2048),
@@ -68,13 +77,13 @@ def _flat(out):
 def test_kernels_match_plain(layers, n_u, n_f):
     params, batch = _case(layers, n_u, n_f, seed=len(layers) + n_f, device="cuda")
     args = _kernel_args(params, batch)
-    n0, n1 = ft.n_launch_loss_grad, ft.n_launch_loss
+    n0 = dict(ft.launches)
     got = _flat(ft.burgers_loss_grad(*args, NU))
     again = _flat(ft.burgers_loss_grad(*args, NU))
     loss_only = ft.burgers_loss(*args, NU)
     want = _flat(ft.burgers_loss_grad_plain(*args, NU))
     torch.cuda.synchronize()
-    assert (ft.n_launch_loss_grad - n0, ft.n_launch_loss - n1) == (2, 1)
+    assert _launched(ft, n0, "burgers_loss_grad", "burgers_loss") == (2, 1)
 
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
     gmax = max(float(w.abs().max()) for w in want[1:])
@@ -153,13 +162,13 @@ def test_ide_kernels_match_plain(layers, n, l1, logl2):
         loss, gwt, gz1, gz2, glam = out
         return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)] + [glam]
 
-    n0, n1 = ft.n_launch_ide_loss_grad, ft.n_launch_ide_loss
+    n0 = dict(ft.launches)
     got = flat(ft.burgers_ide_loss_grad(*args))
     again = flat(ft.burgers_ide_loss_grad(*args))
     loss_only = ft.burgers_ide_loss(*args)
     want = flat(ft.burgers_ide_loss_grad_plain(*args))
     torch.cuda.synchronize()
-    assert (ft.n_launch_ide_loss_grad - n0, ft.n_launch_ide_loss - n1) == (2, 1)
+    assert _launched(ft, n0, "burgers_ide_loss_grad", "burgers_ide_loss") == (2, 1)
     _check_against_plain(got, again, want, loss_only, n_lam=1)
 
 
@@ -180,13 +189,13 @@ def test_schrodinger_kernels_match_plain(layers, n):
     lb, ub, vx, vt = ft._tangents(lbs, ubs, "cuda")
     args = (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
 
-    n0, n1 = fs.n_launch_sse_grad, fs.n_launch_sse
+    n0 = dict(fs.launches)
     got = _flat(fs.schrodinger_sse_grad(*args))
     again = _flat(fs.schrodinger_sse_grad(*args))
     loss_only = fs.schrodinger_sse(*args)
     want = _flat(fs.schrodinger_sse_grad_plain(*args))
     torch.cuda.synchronize()
-    assert (fs.n_launch_sse_grad - n0, fs.n_launch_sse - n1) == (2, 1)
+    assert _launched(fs, n0, "schrodinger_sse_grad", "schrodinger_sse") == (2, 1)
     _check_against_plain(got, again, want, loss_only)
 
 
@@ -197,3 +206,93 @@ def test_schrodinger_wrapper_refuses_wide_nets():
     z = torch.zeros(129, 1, device="cuda")
     with pytest.raises(ValueError, match="widths"):
         fs.schrodinger_sse(a0, z, z, wide)
+
+
+# ---------------------------------------------------------------------------
+# bf16 streams
+# ---------------------------------------------------------------------------
+
+def _check_bf16(got, again, want, loss_only, want_loss, n_lam=0):
+    """Flat outputs of a bf16 kernel, a second launch and the plain bf16
+    version; the bf16 loss-only kernel's value and its plain version's."""
+    torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=0.0)
+    torch.testing.assert_close(loss_only, want_loss, rtol=2e-3, atol=0.0)
+    k = len(want) - n_lam
+    for part in (slice(1, k), slice(k, len(want))):
+        if not want[part]:
+            continue
+        g, w = torch.cat(got[part]), torch.cat(want[part])
+        assert float(torch.linalg.norm(g - w)) <= 1e-2 * float(torch.linalg.norm(w))
+        assert float(g @ w) >= 0.9999 * float(torch.linalg.norm(g) * torch.linalg.norm(w))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("layers,n_u,n_f", [
+    ([2] + [20] * 8 + [1], 100, 10000),
+    ([2] + [40] * 8 + [1], 100, 1024),
+    ([2, 16, 1], 7, 1017),
+])
+def test_bf16_kernels_match_plain(layers, n_u, n_f):
+    params, batch = _case(layers, n_u, n_f, seed=n_f, device="cuda")
+    args = _kernel_args(params, batch)
+    n0 = dict(ft.launches)
+    got = _flat(ft.burgers_loss_grad(*args, NU, bf16=True))
+    again = _flat(ft.burgers_loss_grad(*args, NU, bf16=True))
+    loss_only = ft.burgers_loss(*args, NU, bf16=True)
+    want = _flat(ft.burgers_loss_grad_bf16_plain(*args, NU))
+    want_loss = ft.burgers_loss_bf16_plain(*args, NU)
+    torch.cuda.synchronize()
+    assert _launched(ft, n0, "burgers_loss_grad_bf16", "burgers_loss_bf16",
+                     "burgers_loss_grad", "burgers_loss") == (2, 1, 0, 0)
+    _check_bf16(got, again, want, loss_only, want_loss)
+
+
+@pytest.mark.parametrize("layers,n", [([2] + [20] * 8 + [1], 2000),
+                                      ([2, 16, 1], 1017)])
+def test_bf16_ide_kernels_match_plain(layers, n):
+    params, batch = _case(layers, n, 1, seed=n + 1, device="cuda")
+    lb, ub, vx, vt = ft._tangents(LB, UB, "cuda")
+    a0, aux = ft._prep_ide_points(batch, lb, ub)
+    lam = ft._lam(torch.tensor([1.3], device="cuda"),
+                  torch.tensor([-4.0], device="cuda"))
+    args = (a0, aux, lam, *ft._prep(params, vx, vt))
+
+    def flat(out):
+        loss, gwt, gz1, gz2, glam = out
+        return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)] + [glam]
+
+    n0 = dict(ft.launches)
+    got = flat(ft.burgers_ide_loss_grad(*args, bf16=True))
+    again = flat(ft.burgers_ide_loss_grad(*args, bf16=True))
+    loss_only = ft.burgers_ide_loss(*args, bf16=True)
+    want = flat(ft.burgers_ide_loss_grad_bf16_plain(*args))
+    want_loss = ft.burgers_ide_loss_bf16_plain(*args)
+    torch.cuda.synchronize()
+    assert _launched(ft, n0, "burgers_ide_loss_grad_bf16",
+                     "burgers_ide_loss_bf16") == (2, 1)
+    _check_bf16(got, again, want, loss_only, want_loss, n_lam=1)
+
+
+@pytest.mark.parametrize("layers,n", [([2, 100, 100, 100, 100, 2], 20000),
+                                      ([2, 32, 2], 512)])
+def test_bf16_schrodinger_kernels_match_plain(layers, n):
+    rng = np.random.RandomState(n + 1)
+    pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
+             for a, b in zip(layers[:-1], layers[1:])]
+    params = params_from_numpy(pairs, "cuda", torch.float32)
+    lbs, ubs = np.array([-5.0, 0.0], np.float32), np.array([5.0, np.pi / 2], np.float32)
+    X_f = torch.as_tensor(lbs + (ubs - lbs) * rng.rand(n, 2), dtype=torch.float32,
+                          device="cuda")
+    lb, ub, vx, vt = ft._tangents(lbs, ubs, "cuda")
+    args = (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
+
+    n0 = dict(fs.launches)
+    got = _flat(fs.schrodinger_sse_grad(*args, bf16=True))
+    again = _flat(fs.schrodinger_sse_grad(*args, bf16=True))
+    loss_only = fs.schrodinger_sse(*args, bf16=True)
+    want = _flat(fs.schrodinger_sse_grad_bf16_plain(*args))
+    want_loss = fs.schrodinger_sse_bf16_plain(*args)
+    torch.cuda.synchronize()
+    assert _launched(fs, n0, "schrodinger_sse_grad_bf16",
+                     "schrodinger_sse_bf16") == (2, 1)
+    _check_bf16(got, again, want, loss_only, want_loss)

@@ -3,9 +3,15 @@ JAX package's fused loss (pinn.ops.pallas_train, interpret mode).
 
 On the CPU the port's wrapper takes the kernel's plain PyTorch version
 through the same host-side prep and reassembly as the CUDA kernel, so
-these tests check everything but the kernel body.  Bars are those of
-tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol 5e-4 with
-atol 5e-6 * max|g| (float32 summed in another order on each side).
+these tests check everything but the kernel body.  float32 bars are
+those of tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol
+5e-4 with atol 5e-6 * max|g| (float32 summed in another order on each
+side).  bf16-stream bars (both sides round at the same points, so only
+the summation order differs, and it can move a rounding): against the
+JAX bf16 kernel, loss rtol 2e-3, gradient rel-L2 <= 1e-2 and cosine >=
+0.9999; against the float32 result, the reference's own bar
+(tests/test_pallas_train.py:137-165): loss rtol 3e-2, cosine > 0.999,
+norm ratio within 5%.
 """
 
 import jax
@@ -14,8 +20,13 @@ import numpy as np
 import pytest
 import torch
 
+from pinn.models import mlp as jax_mlp
 from pinn.ops import pallas_train
-from pinn_torch.ops import fused_train
+from pinn.utils import checkpoint as jax_checkpoint
+from pinn_torch.data import burgers_cont_inference
+from pinn_torch.models import mlp
+from pinn_torch.ops import fused_schrodinger, fused_train
+from pinn_torch.utils import checkpoint
 from pinn_torch.utils.checkpoint import params_from_numpy
 
 torch.set_num_threads(1)
@@ -41,8 +52,9 @@ def _case(layers, n_u, n_f, seed=0):
     return pairs, batch
 
 
-def _jax_value_and_grad(pairs, batch):
-    loss = pallas_train.make_burgers_loss(LB, UB, NU, interpret=True)
+def _jax_value_and_grad(pairs, batch, stream_dtype=None):
+    loss = pallas_train.make_burgers_loss(LB, UB, NU, interpret=True,
+                                          stream_dtype=stream_dtype)
     params = tuple((jnp.asarray(w), jnp.asarray(b)) for w, b in pairs)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     val, grads = jax.value_and_grad(loss)(params, jb)
@@ -51,6 +63,28 @@ def _jax_value_and_grad(pairs, batch):
 
 def _torch_batch(batch):
     return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def _torch_value_and_grad(pairs, batch, stream_dtype=None):
+    params = params_from_numpy(pairs, "cpu", torch.float32)
+    leaves = [a.requires_grad_(True) for wb in params for a in wb]
+    val = fused_train.make_burgers_loss(LB, UB, NU, stream_dtype)(
+        params, _torch_batch(batch))
+    grads = torch.autograd.grad(val, leaves)
+    return float(val.detach()), [g.numpy() for g in grads]
+
+
+def assert_bf16_parity(val, grads, want_val, want_grads, val32, grads32):
+    """The bf16 bars of the module docstring: (val, grads) against the
+    JAX bf16 kernel's (want_*) and against the float32 result (*32)."""
+    g, w, o = (np.concatenate([np.ravel(a) for a in x])
+               for x in (grads, want_grads, grads32))
+    np.testing.assert_allclose(val, want_val, rtol=2e-3)
+    assert np.linalg.norm(g - w) <= 1e-2 * np.linalg.norm(w)
+    assert g @ w >= 0.9999 * np.linalg.norm(g) * np.linalg.norm(w)
+    np.testing.assert_allclose(val, val32, rtol=3e-2)
+    assert g @ o > 0.999 * np.linalg.norm(g) * np.linalg.norm(o)
+    assert abs(np.linalg.norm(g) / np.linalg.norm(o) - 1) < 0.05
 
 
 CASES = [
@@ -162,5 +196,104 @@ def test_kernel_input_checks():
     with pytest.raises(ValueError, match="contiguous"):
         fused_train._check_inputs(a0.t().contiguous().t(), aux, z1row,
                                   z2row, wt_args)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_train.make_burgers_loss(LB, UB, NU, stream_dtype="bfloat16")
+    # float32 and bf16 streams take the same float32 inputs; other
+    # stream types are refused.
+    assert [fused_train._check_stream_dtype(d) for d in
+            (None, "float32", "bfloat16", "bf16")] == [False, False, True, True]
+    with pytest.raises(ValueError, match="float16"):
+        fused_train.make_burgers_loss(LB, UB, NU, stream_dtype="float16")
+
+
+def test_bf16_streams_match_jax():
+    """bf16 streams at the shape of tests/test_pallas_train.py's bf16
+    test: the plain bf16 version (the explicit backward, rounded where
+    the TPU kernel rounds) against the JAX kernel in interpret mode; the
+    loss-only branch gives the loss+grad branch's value."""
+    pairs, batch = _case([2, 20, 20, 20, 20, 1], 64, 1024, seed=5)
+    want_val, want_grads = _jax_value_and_grad(pairs, batch, "bfloat16")
+    val, grads = _torch_value_and_grad(pairs, batch, "bfloat16")
+    val32, grads32 = _torch_value_and_grad(pairs, batch)
+    assert_bf16_parity(val, grads, want_val, want_grads, val32, grads32)
+    with torch.no_grad():
+        v_only = fused_train.make_burgers_loss(LB, UB, NU, "bfloat16")(
+            params_from_numpy(pairs, "cpu", torch.float32),
+            _torch_batch(batch))
+    np.testing.assert_allclose(float(v_only), val, rtol=1e-6)
+
+
+def _explicit_case(head):
+    """(autograd plain version, the explicit backward without rounding,
+    their inputs) of one kernel head, float32 on the CPU."""
+    rng = np.random.RandomState(6)
+    lb, ub = torch.as_tensor(LB), torch.as_tensor(UB)
+    if head == "schrodinger":
+        pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
+                 for a, b in zip([2, 32, 32], [32, 32, 2])]
+        X = torch.as_tensor(LB + (UB - LB) * rng.rand(300, 2), dtype=torch.float32)
+        _, _, vx, vt = fused_train._tangents(LB, UB, "cpu")
+        params = params_from_numpy(pairs, "cpu", torch.float32)
+        args = (fused_train._normalise(X, lb, ub),
+                *fused_train._prep(params, vx, vt))
+        return (fused_schrodinger.schrodinger_sse_grad_plain,
+                lambda *a: fused_train.explicit_loss_grad(
+                    fused_schrodinger._head, *a, rounded_bias=False), args)
+    pairs, batch = _case([2, 20, 20, 20, 1], 32, 300, seed=6)
+    params = params_from_numpy(pairs, "cpu", torch.float32)
+    _, _, vx, vt = fused_train._tangents(LB, UB, "cpu")
+    rest = fused_train._prep(params, vx, vt)
+    if head == "inference":
+        a0, aux = fused_train._prep_points(_torch_batch(batch), lb, ub)
+        return (lambda *a: fused_train.burgers_loss_grad_plain(a0, aux, *a, NU),
+                lambda *a: fused_train.explicit_loss_grad(
+                    fused_train._burgers_head(aux, NU), a0, *a),
+                rest)
+    a0, aux = fused_train._prep_ide_points(_torch_batch(batch), lb, ub)
+    lam = fused_train._lam(torch.tensor([1.3]), torch.tensor([-4.0]))
+    return (lambda *a: fused_train.burgers_ide_loss_grad_plain(a0, aux, lam, *a),
+            lambda *a: fused_train.explicit_loss_grad(
+                fused_train._burgers_ide_head(aux, lam), a0, *a),
+            rest)
+
+
+@pytest.mark.parametrize("head", ["inference", "identification", "schrodinger"])
+def test_explicit_backward_matches_autograd(head):
+    """The explicit backward that the bf16 plain versions run, with no
+    rounding, is the autograd plain version (float32 bars)."""
+    plain, explicit, args = _explicit_case(head)
+    want, got = plain(*args), explicit(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    flat_g = [g for part in got[1:] for g in (part if isinstance(part, list) else [part])]
+    flat_w = [w for part in want[1:] for w in (part if isinstance(part, list) else [part])]
+    assert len(flat_g) == len(flat_w)
+    gmax = max(float(w.abs().max()) for w in flat_w)
+    for g, w in zip(flat_g, flat_w):
+        torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-6 * gmax)
+
+
+FLAGSHIP = [2] + [20] * 8 + [1]
+
+
+@pytest.mark.parametrize("stream_dtype,step0_loss", [
+    ("bfloat16", 3.8662e-1),
+    (None, 3.8490e-1),
+])
+def test_flagship_step0_loss_fingerprint(stream_dtype, step0_loss, tmp_path):
+    """The Burgers flagship's seed-1234 init and data, built as the JAX
+    experiment builds them (experiments/inf_cont_burgers.py:49-72) and
+    carried over through the npz codec: the fused loss at step 0 is the
+    basin fingerprint recorded on the TPU for each stream type
+    (experiments/df32_ab.py:50-52), within rtol 2e-4."""
+    path = str(tmp_path / "init.npz")
+    jax_checkpoint.save_npz(path, jax_mlp.init_mlp(jax.random.PRNGKey(1234),
+                                                   FLAGSHIP, jnp.float32))
+    params, _ = checkpoint.load_npz(path, like=mlp.init_mlp(
+        FLAGSHIP, torch.Generator().manual_seed(0), torch.float32, "cpu"))
+    np.random.seed(1234)
+    data = burgers_cont_inference(100, 10000)
+    batch = {"X_u": data.X_u_train, "u": data.u_train, "X_f": data.X_f}
+    batch = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in batch.items()}
+    leaves = [a.requires_grad_(True) for wb in params for a in wb]
+    loss = fused_train.make_burgers_loss(data.lb, data.ub, 0.01 / np.pi,
+                                         stream_dtype)(params, batch)
+    torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), step0_loss, rtol=2e-4)

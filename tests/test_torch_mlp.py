@@ -78,7 +78,7 @@ def test_init_mlp_glorot_statistics():
     """torch cannot draw JAX's threefry bits; the init is checked by its
     law: truncated at 2 sigma, glorot std, zero biases, seeded."""
     gen = torch.Generator().manual_seed(0)
-    params = mlp.init_mlp([2, 200, 300, 1], gen, torch.float64)
+    params = mlp.init_mlp([2, 200, 300, 1], gen, torch.float64, "cpu")
     w = params[1][0]
     std = (2.0 / 500) ** 0.5
     assert w.shape == (200, 300)
@@ -86,14 +86,14 @@ def test_init_mlp_glorot_statistics():
     assert float(w.abs().max()) <= 2 * std / 0.87962566103423978 + 1e-12
     assert all(not b.any() for _, b in params)
     again = mlp.init_mlp([2, 200, 300, 1], torch.Generator().manual_seed(0),
-                         torch.float64)
+                         torch.float64, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(pcodec.leaves(params),
                                                  pcodec.leaves(again)))
 
 
 def test_mlp_module_predicts_with_apply():
     gen = torch.Generator().manual_seed(3)
-    net = mlp.MLP([2, 8, 8, 1], LB, UB, gen, torch.float64)
+    net = mlp.MLP([2, 8, 8, 1], LB, UB, gen, torch.float64, "cpu")
     X = _t(np.random.RandomState(3).rand(5, 2))
     torch.testing.assert_close(net(X), mlp.apply(net.params(), X, net.lb, net.ub))
     assert len(list(net.parameters())) == 6

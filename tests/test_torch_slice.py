@@ -8,6 +8,7 @@ and rel-L2 to rtol 1e-5.  The fused float32 path is held to rtol 1e-3,
 the bar tests/test_pallas_train.py sets between its fused and XLA runs.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -66,6 +67,48 @@ def test_fused_float32_run_matches_jax(ckpt, jax_exp):
     got = torch_exp.run({**hp, "device": "cpu"})
     np.testing.assert_allclose(got["loss"], _jax_final_loss(want), rtol=1e-3)
     np.testing.assert_allclose(got["error"], want["error"], rtol=1e-3)
+
+
+def test_fused_bf16_warmup_run_matches_jax(ckpt, jax_exp, tmp_path):
+    """The campaign's bf16 warmup, ``fused_residual: True, tf_net_dtype:
+    "bfloat16"``: Adam on the bf16-stream kernels (their plain versions
+    here), L-BFGS on the float32 ones, and the key gone from the logged
+    hp in both packages.  Logged losses rtol 1e-2, rel-L2 rtol 5e-2.
+    N_f = 1,000 gives the JAX kernel two 1,024-point tiles: with one,
+    XLA's CPU backend refuses the JAX run's bf16 dot."""
+    hp = {**HP, "N_f": 1000, "fused_residual": True,
+          "tf_net_dtype": "bfloat16", "init_checkpoint": ckpt}
+    want = jax_exp.run({**hp, "log_file": str(tmp_path / "jax.jsonl")})
+    got = torch_exp.run({**hp, "device": "cpu",
+                         "log_file": str(tmp_path / "port.jsonl")})
+    logs = []
+    for name in ("port.jsonl", "jax.jsonl"):
+        with open(tmp_path / name) as fh:
+            recs = [json.loads(line) for line in fh]
+        hp_logged = {k: v for k, v in recs[0]["hp"].items()
+                     if k not in ("device", "log_file")}
+        logs.append((hp_logged, [r["loss"] for r in recs
+                                 if r["event"] == "epoch"]))
+    (got_hp, got_l), (want_hp, want_l) = logs
+    assert got_hp == want_hp and "tf_net_dtype" not in got_hp
+    assert "tf_net_dtype" not in got["hp"] and "tf_net_dtype" not in want["hp"]
+    assert len(got_l) == len(want_l) == 4
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-2)
+    np.testing.assert_allclose(got["error"], want["error"], rtol=5e-2)
+
+
+@pytest.mark.parametrize("available", [False, True])
+def test_default_device_is_the_card(monkeypatch, available):
+    """With no device named the port takes the card, and raises where
+    there is none; the CPU runs only when asked for."""
+    from pinn_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: available)
+    if available:
+        assert resolve_device(None) == torch.device("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_port_never_imports_jax():

@@ -1,13 +1,20 @@
 """The port's Trainer on the CPU: ``epoch_extra`` strings reach the log
-lines, and a non-pair parameter structure (IdeParams) trains through
-both phases and its checkpoints."""
+lines, a non-pair parameter structure (IdeParams) trains through both
+phases and its checkpoints, and hp["tf_net_dtype"] computes what the JAX
+Trainer's cast computes."""
 
 import json
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from pinn.optim.adam import AdamRunner
+from pinn.problems import burgers as jax_burgers
 from pinn_torch import params as pcodec
+from pinn_torch.optim.adam import net_dtype_cast
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
 from pinn_torch.utils import Logger, checkpoint
@@ -81,3 +88,73 @@ def test_ide_params_train_through_both_phases(tmp_path):
     assert meta["extra"]["phase"] == "lbfgs"
     np.testing.assert_array_equal(pcodec.ravel(saved).numpy(),
                                   pcodec.ravel(out).numpy())
+
+
+def _cast_case(problem):
+    """(JAX loss, port loss, JAX params, port params, batch as numpy) of
+    a small eager problem, float32."""
+    rng = np.random.RandomState(8)
+    layers = [2, 20, 20, 1]
+    pairs = [((rng.randn(a, b) * np.sqrt(2.0 / (a + b))).astype(np.float32),
+              (0.1 * rng.randn(b)).astype(np.float32))
+             for a, b in zip(layers[:-1], layers[1:])]
+    lb, ub = np.array([-1.0, 0.0], np.float32), np.array([1.0, 1.0], np.float32)
+    lb_t, ub_t = torch.as_tensor(lb), torch.as_tensor(ub)
+    jnet = tuple((jnp.asarray(w), jnp.asarray(b)) for w, b in pairs)
+    tnet = params_from_numpy(pairs, "cpu", torch.float32)
+    if problem == "inference":
+        batch = {"X_u": lb + (ub - lb) * rng.rand(32, 2), "u": rng.rand(32, 1),
+                 "X_f": lb + (ub - lb) * rng.rand(200, 2)}
+        nu = 0.01 / np.pi
+
+        def jloss(p, b):
+            return jax_burgers.loss_cont_inference(
+                p, b["X_u"], b["u"], b["X_f"], jnp.asarray(lb), jnp.asarray(ub), nu)
+
+        def tloss(p, b):
+            return burgers.loss_cont_inference(p, b["X_u"], b["u"], b["X_f"],
+                                               lb_t, ub_t, nu)
+        jparams, tparams = jnet, tnet
+    else:
+        batch = {"X_u": lb + (ub - lb) * rng.rand(200, 2), "u": rng.randn(200, 1)}
+
+        def jloss(p, b):
+            return jax_burgers.loss_cont_identification(
+                p, b["X_u"], b["u"], jnp.asarray(lb), jnp.asarray(ub))
+
+        def tloss(p, b):
+            return burgers.loss_cont_identification(p, b["X_u"], b["u"], lb_t, ub_t)
+        jparams = jax_burgers.IdeParams(net=jnet, lambda1=jnp.array([0.7], jnp.float32),
+                                        log_lambda2=jnp.array([-4.5], jnp.float32))
+        tparams = burgers.IdeParams(net=tnet, lambda1=torch.tensor([0.7]),
+                                    log_lambda2=torch.tensor([-4.5]))
+    batch = {k: v.astype(np.float32) for k, v in batch.items()}
+    return jloss, tloss, jparams, tparams, batch
+
+
+@pytest.mark.parametrize("problem", ["inference", "identification"])
+def test_tf_net_dtype_cast_matches_jax(problem):
+    """hp["tf_net_dtype"] = "bfloat16" around the eager losses: float32
+    arithmetic on bf16-rounded parameters and batch (``exp(log
+    lambda2)`` in bf16, as JAX computes it), each product's weight
+    gradient rounded to bf16 and summed in bf16.  The loss equals the
+    JAX Trainer's wrapped loss (AdamRunner.loss_fn) to rtol 1e-6; every
+    gradient element is bf16-representable and within one bf16 ulp of
+    JAX's."""
+    jloss, tloss, jparams, tparams, batch = _cast_case(problem)
+    runner = AdamRunner(jloss, {"tf_lr": 1e-3, "tf_net_dtype": "bfloat16"})
+    want, want_g = jax.value_and_grad(runner.loss_fn)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    want_g = [np.asarray(a) for a in jax.tree_util.tree_leaves(want_g)]
+
+    leaves = [a.requires_grad_(True) for a in pcodec.leaves(tparams)]
+    got = net_dtype_cast(tloss, "bfloat16")(
+        tparams, {k: torch.as_tensor(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(got, leaves)
+    assert got.dtype == torch.float32 and len(grads) == len(want_g)
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    for g, w in zip(grads, want_g):
+        torch.testing.assert_close(g, g.to(torch.bfloat16).float(), rtol=0,
+                                   atol=0)
+        ulp = np.spacing(np.abs(w).astype(np.float32)) * 2.0 ** 16
+        assert np.all(np.abs(g.numpy() - w) <= ulp)
