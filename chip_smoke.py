@@ -26,6 +26,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    [2, 20x8, 1] (N = 2,000) and [2, 16, 1] (N = 1,017), the
    Schrödinger pair at [2, 100x4, 2] (N = 20,000) and [2, 32, 2]
    (N = 512); bitwise repeatability; times at each flagship.
+3e. The v1 SSE pair and the three residual-evaluation kernels vs their
+   plain versions: the SSE pair at [2, 20x8, 1] (N = 10,000), [2, 40x8,
+   1] (N = 1,124) and [2, 16, 1] (N = 1,024); both Burgers residual
+   layouts at [2, 20x8, 1] on the flagship grid (25,600 points) and on
+   a 200,000-point pool, and at [2, 20, 20, 1] (N = 700); the
+   Schrödinger residual at [2, 100x4, 2] on its grid (51,456 points)
+   and [2, 32, 32, 2] (N = 600); bitwise repeatability; times at the
+   first shape of each (the residuals at the pool and the grid).
 4. Burgers inference main path: ``pinn_torch.experiments
    .inf_cont_burgers.run`` twice at the flagship width, a fused float32
    stage (Adam, then mixed-precision L-BFGS with a Wolfe search and
@@ -46,6 +54,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 4f. Schrödinger with ``fused_residual: True, tf_net_dtype: "bfloat16"``
    (Adam on the bf16 kernel), then a short ``fused_residual: "bf16"``
    run (Adam at lr 0.005).
+4g. RAR on the inference flagship: a fused float32 stage with
+   ``rar_pool: 200000`` (every resampling scores the pool with the
+   residual kernel, at least 3 draws), the same stage without RAR as
+   the control of its rates, then a float64 ``rar_init`` stage from its
+   checkpoint, scored by the eager residual; and the top-k set of one
+   pool from the kernel's residuals against the plain version's.
+4h. The facade on the v1 loss: a ``PhysicsInformedNN`` subclass whose
+   loss is data MSE + ``make_burgers_sse`` / N_f at the flagship, Adam
+   then L-BFGS; ``predict`` and ``export_serving`` round trip.
+4i. The serving example: two members at the flagship width, scored by
+   the residual kernel, exported as one artifact and served.
+4j. Residual diagnostics: the features-major Burgers residual on the
+   flagship grid and the Schrödinger residual on its grid, under the
+   nets trained in 4 and 4c, against the eager residuals.
 Each main path runs with every launch count set to 0 just before its
 fused stage; every kernel of the path must have launched by its end,
 the logged loss must fall and every reported number must be finite.
@@ -55,9 +77,10 @@ read once, outputs written once) over the card's 3.35 TB/s and its
 operations over the card's peak: for the float32 kernels all of them
 at the 67 TFLOP/s float32 rate; for the bf16 ones the layer products
 (bf16 operands, float32 sums) at the 989 TFLOP/s bf16 tensor-core rate
-and the elementwise work at 67 TFLOP/s.  No single PyTorch call
-computes a fused loss with all its gradients, so ``library_ms`` is
-null.
+and the elementwise work at 67 TFLOP/s; the residual kernels read each
+point once and write its residual once.  No single PyTorch call
+computes a fused loss with all its gradients, or a residual with its
+Taylor streams, so ``library_ms`` is null.
 
 The last three lines are the nvidia-smi line, a JSON object describing
 each kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -92,23 +115,36 @@ KERNEL_SHAPES = [           # (layers, N_u, N_f)
 IDE_SHAPES = [(FLAGSHIP, 2000), ([2, 20, 20, 20, 1], 300), ([2, 16, 1], 1017)]
 IDE_LAMBDAS = [(0.0, -6.0), (1.3, -4.0)]
 SCHRODINGER_SHAPES = [(S_FLAGSHIP, 20000), (S_FLAGSHIP, 300), ([2, 32, 2], 512)]
+SSE_SHAPES = [(FLAGSHIP, 10000), (WIDE, 1124), ([2, 16, 1], 1024)]
+RAR_POOL = 200000            # the P9 probe's candidate pool
+RESIDUAL_SHAPES = [(FLAGSHIP, RAR_POOL), (FLAGSHIP, "grid"),
+                   ([2, 20, 20, 1], 700)]
+S_RESIDUAL_SHAPES = [(S_FLAGSHIP, "grid"), ([2, 32, 32, 2], 600)]
 WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke")
 BURGERS_SRC = "pinn_torch/csrc/burgers_train.cu"
 SCHRODINGER_SRC = "pinn_torch/csrc/schrodinger_train.cu"
+RESIDUAL_SRC = "pinn_torch/csrc/residual_eval.cu"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
-    name + sfx: entry
-    for name, entry in {
-        "burgers_loss_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:524"),
-        "burgers_loss": (BURGERS_SRC, "pinn/ops/pallas_train.py:576"),
-        "burgers_ide_loss_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:847"),
-        "burgers_ide_loss": (BURGERS_SRC, "pinn/ops/pallas_train.py:906"),
-        "schrodinger_sse_grad": (SCHRODINGER_SRC,
-                                 "pinn/ops/pallas_schrodinger.py:95"),
-        "schrodinger_sse": (SCHRODINGER_SRC,
-                            "pinn/ops/pallas_schrodinger.py:70"),
-    }.items()
-    for sfx in ("", "_bf16")
+    **{name + sfx: entry
+       for name, entry in {
+           "burgers_loss_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:524"),
+           "burgers_loss": (BURGERS_SRC, "pinn/ops/pallas_train.py:576"),
+           "burgers_ide_loss_grad": (BURGERS_SRC,
+                                     "pinn/ops/pallas_train.py:847"),
+           "burgers_ide_loss": (BURGERS_SRC, "pinn/ops/pallas_train.py:906"),
+           "schrodinger_sse_grad": (SCHRODINGER_SRC,
+                                    "pinn/ops/pallas_schrodinger.py:95"),
+           "schrodinger_sse": (SCHRODINGER_SRC,
+                               "pinn/ops/pallas_schrodinger.py:70"),
+       }.items()
+       for sfx in ("", "_bf16")},
+    "burgers_sse_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:305"),
+    "burgers_sse": (BURGERS_SRC, "pinn/ops/pallas_train.py:277"),
+    "burgers_residual": (RESIDUAL_SRC, "pinn/ops/pallas_residual.py:55"),
+    "burgers_residual_fmajor": (RESIDUAL_SRC,
+                                "pinn/ops/pallas_residual.py:107"),
+    "schrodinger_residual": (RESIDUAL_SRC, "pinn/ops/pallas_residual.py:248"),
 }
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12             # float32 outside the tensor cores
@@ -116,6 +152,7 @@ BF16_TC_FLOPS = 989e12        # bf16 tensor cores, dense
 FWD_EW, BWD_EW = 12, 40       # elementwise operations per hidden neuron
                               # and point (tanh and stream recombination;
                               # its adjoint and the rematerialisation)
+TRAINED = {}                  # nets trained by phases 4 and 4c, for 4j
 
 
 def log(msg: str) -> None:
@@ -401,6 +438,118 @@ def phase_bf16_kernels(stats: dict) -> None:
                                       SCHRODINGER_SHAPES[2]])
 
 
+def _bound_residual(layers, n):
+    """(bound_ms, bound_by) of one residual-evaluation call: the forward
+    of :func:`_bound` plus the head's few operations a point; bytes are
+    the points read once, the weights once and the residuals written
+    once."""
+    hidden, n_out = layers[1:-1], layers[-1]
+    pairs = list(zip(hidden[:-1], hidden[1:])) + [(hidden[-1], n_out)]
+    ops = n * (4 * hidden[0] + sum(8 * a * b for a, b in pairs)
+               + FWD_EW * sum(hidden) + 8 * n_out)
+    n_weights = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+    n_bytes = 4 * (2 * n + n_weights + n_out * n)
+    t_ops, t_bytes = ops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _sse_inputs(layers, n, seed):
+    """Seeded weights and collocation points, prepared for the v1 SSE
+    kernels on the card: (a0, z1row, z2row, wt_args)."""
+    import torch
+    from pinn_torch.ops import fused_train as ft
+
+    rng = np.random.RandomState(seed)
+    params = _weights(layers, rng)
+    X_f = torch.as_tensor(LB + (UB - LB) * rng.rand(n, 2),
+                          dtype=torch.float32, device="cuda")
+    lb, ub, vx, vt = ft._tangents(LB, UB, "cuda")
+    return (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
+
+
+def _grid(problem):
+    """(X_star, lb, ub) of a problem's full grid, as numpy float32."""
+    from pinn_torch.data import burgers_cont_inference, schrodinger_inference
+    data = (burgers_cont_inference(100, 100) if problem == "burgers"
+            else schrodinger_inference(50, 50, 100))
+    return (data.X_star.astype(np.float32), data.lb.astype(np.float32),
+            data.ub.astype(np.float32))
+
+
+def _check_residual(stats, tag, name, kernel, plain, params, X, layers, rtol,
+                    atol, time_it=False):
+    """A residual kernel against its plain version on the same inputs
+    (outputs to ``rtol``/``atol``), two launches bitwise equal; with
+    ``time_it`` the times and the bound at this shape."""
+    import torch
+
+    def flat(out):
+        return torch.cat(out, dim=1) if isinstance(out, tuple) else out
+
+    got, again = flat(kernel(params, X)), flat(kernel(params, X))
+    want = flat(plain(params, X))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: two launches differ bitwise")
+    err = float((got - want).abs().max())
+    stats.setdefault(name, {"max_abs_err": 0.0})
+    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    log(f"[kernels] {tag}: max|err| {err:.3e} of max|f| "
+        f"{float(want.abs().max()):.3e} (rtol {rtol:g}, atol {atol:g}), "
+        f"bitwise repeatable")
+    if time_it:
+        ms = _median_ms(lambda: kernel(params, X))
+        plain_ms = _median_ms(lambda: plain(params, X))
+        bound_ms, bound_by = _bound_residual(layers, X.shape[0])
+        stats[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+        log(f"[kernels] {tag} {name}: median {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+
+
+def phase_v1_kernels(stats: dict) -> None:
+    """3e: the v1 SSE pair and the residual-evaluation kernels against
+    their plain versions."""
+    import torch
+    from pinn_torch.ops import fused_train as ft
+    from pinn_torch.ops import residual as rs
+
+    for i, (layers, n) in enumerate(SSE_SHAPES):
+        args = _sse_inputs(layers, n, seed=400 + i)
+        _check_pair(stats, "sse " + _shape_tag(layers, n), "burgers_sse_grad",
+                    "burgers_sse", lambda *a: ft.burgers_sse_grad(*a, NU),
+                    lambda *a: ft.burgers_sse(*a, NU),
+                    lambda *a: ft.burgers_sse_grad_plain(*a, NU),
+                    lambda *a: ft.burgers_sse_plain(*a, NU),
+                    args, layers, n_aux=0, time_it=i == 0)
+
+    X_grid, lb, ub = _grid("burgers")
+    for i, (layers, n) in enumerate(RESIDUAL_SHAPES):
+        rng = np.random.RandomState(500 + i)
+        params = _weights(layers, rng)
+        X = X_grid if n == "grid" else lb + (ub - lb) * rng.rand(n, 2)
+        X = torch.as_tensor(X, dtype=torch.float32, device="cuda")
+        for name in ("burgers_residual", "burgers_residual_fmajor"):
+            kernel, plain = getattr(rs, name), getattr(rs, name + "_plain")
+            _check_residual(stats, f"{name} {_shape_tag(layers, X.shape[0])}",
+                            name, lambda p, x: kernel(p, x, lb, ub, NU),
+                            lambda p, x: plain(p, x, lb, ub, NU), params, X,
+                            layers, rtol=2e-5, atol=1e-6, time_it=i == 0)
+
+    X_grid, lb, ub = _grid("schrodinger")
+    for i, (layers, n) in enumerate(S_RESIDUAL_SHAPES):
+        rng = np.random.RandomState(600 + i)
+        params = _weights(layers, rng)
+        X = X_grid if n == "grid" else lb + (ub - lb) * rng.rand(n, 2)
+        X = torch.as_tensor(X, dtype=torch.float32, device="cuda")
+        _check_residual(stats, "schrodinger_residual "
+                        + _shape_tag(layers, X.shape[0]), "schrodinger_residual",
+                        lambda p, x: rs.schrodinger_residual(p, x, lb, ub),
+                        lambda p, x: rs.schrodinger_residual_plain(p, x, lb, ub),
+                        params, X, layers, rtol=2e-4, atol=2e-6, time_it=i == 0)
+
+
 def _logged_runs(path):
     """The epoch losses of each Trainer run in a log file, as lists of
     (phase, epoch, loss); a run ends at its "end" record."""
@@ -428,7 +577,8 @@ def _check_falls(tag, losses):
 def _counters():
     from pinn_torch.ops import fused_schrodinger as fs
     from pinn_torch.ops import fused_train as ft
-    return ft.launches, fs.launches
+    from pinn_torch.ops import residual as rs
+    return ft.launches, fs.launches, rs.launches
 
 
 def _reset_counts():
@@ -438,8 +588,7 @@ def _reset_counts():
 
 
 def _counts() -> dict:
-    ft_counts, fs_counts = _counters()
-    return {**ft_counts, **fs_counts}
+    return {name: n for counts in _counters() for name, n in counts.items()}
 
 
 def _read_counts(names):
@@ -501,6 +650,7 @@ def phase_main_path() -> dict:
     launches = _read_counts(["burgers_loss_grad", "burgers_loss"])
     log(f"[main] stage 1 launches: {launches}")
 
+    TRAINED["burgers"] = r1["params"]
     losses1, = _logged_runs(stage1["log_file"])
     log(f"[main] stage 1 logged losses: {_fmt(losses1)}")
     _check_falls("stage 1", losses1)
@@ -607,6 +757,7 @@ def phase_schrodinger_main_path() -> dict:
     s1_seconds = time.perf_counter() - t0
     launches = _read_counts(["schrodinger_sse_grad", "schrodinger_sse"])
     log(f"[schrodinger] stage 1 launches: {launches}")
+    TRAINED["schrodinger"] = r1["params"]
 
     losses1, = _logged_runs(stage1["log_file"])
     log(f"[schrodinger] stage 1 logged losses: {_fmt(losses1)}")
@@ -773,6 +924,250 @@ def phase_schrodinger_bf16_main_path() -> dict:
     return launches
 
 
+def phase_rar_main_path() -> dict:
+    """4g: RAR on the inference flagship (a float32 stage scored by the
+    residual kernel, its control without RAR, a float64 rar_init
+    stage), and one pool's top-k set from the kernel against the plain
+    version's."""
+    import torch
+    from pinn_torch.data import lhs
+    from pinn_torch.experiments import inf_cont_burgers
+    from pinn_torch.ops import residual as rs
+
+    ckpt = os.path.join(WORK_DIR, "rar_stage1.npz")
+    stage1 = {"device": "cuda", "layers": FLAGSHIP, "N_u": 100,
+              "N_f": 10000, "fused_residual": True,
+              "nt_vector_dtype": "float64", "nt_line_search": "wolfe",
+              "tf_epochs": 100, "nt_epochs": 100, "nt_resample": 25,
+              "log_frequency": 25, "rar_pool": RAR_POOL,
+              "save_checkpoint": ckpt,
+              "log_file": os.path.join(WORK_DIR, "rar_stage1.jsonl")}
+    control = {**{k: v for k, v in stage1.items()
+                  if k not in ("rar_pool", "save_checkpoint")},
+               "log_file": os.path.join(WORK_DIR, "rar_control.jsonl")}
+    # The P9 probe's refinement shape, cut to 25 iterations.
+    stage2 = {"device": "cuda", "layers": FLAGSHIP, "N_u": 100,
+              "N_f": 10000, "dtype": "float64", "nt_dir_impl": "matrix",
+              "init_checkpoint": ckpt, "tf_epochs": 0, "nt_epochs": 25,
+              "nt_line_search": "wolfe", "log_frequency": 5,
+              "rar_init": True, "rar_pool": RAR_POOL,
+              "log_file": os.path.join(WORK_DIR, "rar_stage2.jsonl")}
+
+    _reset_counts()
+    r1, s1, (losses1,) = _run_stage("rar", inf_cont_burgers.run, stage1)
+    draws = r1["rar_draws"]
+    if draws < 3:
+        raise AssertionError(f"rar stage 1 made {draws} draws, expected >= 3")
+    # One launch per float32 draw, one for f_pred.
+    _expect_counts("rar stage 1", {"burgers_residual": draws + 1})
+    launches = _read_counts(["burgers_residual"])
+    adam_rate, lbfgs_rate = _rates(r1["timing"], stage1["tf_epochs"])
+    log(f"[rar] stage 1: {draws} draws of {RAR_POOL} candidates, launches "
+        f"{launches}; rel-L2 {r1['error']:.6e}, {s1:.2f} s, Adam "
+        f"{adam_rate:.2f} steps/s, L-BFGS {lbfgs_rate:.2f} iters/s "
+        f"({r1['timing']['lbfgs_iters']} iterations)")
+
+    rc, sc, (losses_c,) = _run_stage("rar control", inf_cont_burgers.run,
+                                     control)
+    after = {"burgers_residual": draws + 2}   # + the control's f_pred
+    _expect_counts("rar control", after)
+    adam_c, lbfgs_c = _rates(rc["timing"], control["tf_epochs"])
+    log(f"[rar] control without RAR: rel-L2 {rc['error']:.6e}, {sc:.2f} s, "
+        f"Adam {adam_c:.2f} steps/s, L-BFGS {lbfgs_c:.2f} iters/s "
+        f"({rc['timing']['lbfgs_iters']} iterations)")
+
+    r2, s2, (losses2,) = _run_stage("rar stage 2", inf_cont_burgers.run,
+                                    stage2)
+    if r2["rar_draws"] != 1:
+        raise AssertionError(f"rar_init made {r2['rar_draws']} draws")
+    _expect_counts("rar stage 2 (float64, eager scoring)", after)
+    log(f"[rar] stage 2 (float64, rar_init): rel-L2 {r2['error']:.6e}, "
+        f"{s2:.2f} s; residual-kernel launches unchanged")
+
+    # The top-k set of one pool, from the kernel and from the plain
+    # version: only near-ties at the k-th value may swap.
+    data = r1["data"]
+    cand = data.lb + (data.ub - data.lb) * lhs(2, RAR_POOL,
+                                               np.random.RandomState(77))
+    X = torch.as_tensor(cand, dtype=torch.float32, device="cuda")
+    k = stage1["N_f"] // 2
+    tops = []
+    for fn in (rs.burgers_residual, rs.burgers_residual_plain):
+        f = np.abs(fn(r1["params"], X, data.lb, data.ub, NU).cpu().numpy())[:, 0]
+        tops.append(set(np.argsort(-f)[:k].tolist()))
+    sym = len(tops[0] ^ tops[1])
+    log(f"[rar] top-{k} of {RAR_POOL}: kernel vs plain symmetric "
+        f"difference {sym} ({sym / k:.2e} of k; bar 1e-3)")
+    if sym > 1e-3 * k:
+        raise AssertionError(f"top-k sets differ in {sym} points")
+    _check_finite([r1["error"], r2["error"], rc["error"], adam_rate,
+                   lbfgs_rate, adam_c, lbfgs_c,
+                   *[l for _, _, l in losses1 + losses2 + losses_c],
+                   *_param_maxes(r1["params"]), *_param_maxes(r2["params"])])
+    return launches
+
+
+def phase_facade_main_path() -> dict:
+    """4h: the facade, a user's subclass on the v1 fused SSE."""
+    import torch
+    from pinn_torch import export as pexport
+    from pinn_torch.api import PhysicsInformedNN
+    from pinn_torch.data import burgers_cont_inference
+    from pinn_torch.ops import fused_train as ft
+    from pinn_torch.params import leaves
+    from pinn_torch.utils import Logger
+
+    np.random.seed(1234)
+    data = burgers_cont_inference(100, 10000)
+
+    class V1BurgersPINN(PhysicsInformedNN):
+        """mse(u - u_pred) + SSE(f) / N_f, the SSE on the v1 kernels."""
+
+        def __init__(self, hp, logger):
+            super().__init__(hp, logger, data.ub, data.lb,
+                             dtype=torch.float32, seed=1234, device="cuda")
+            self.X_f = self.tensor(data.X_f)
+            self.sse = ft.make_burgers_sse(data.lb, data.ub, NU)
+            self.grad_evals = 0
+
+        def extra_batch(self):
+            return {"X_f": self.X_f}
+
+        def loss(self, params, batch):
+            if torch.is_grad_enabled() and any(a.requires_grad
+                                               for a in leaves(params)):
+                self.grad_evals += 1
+            u_pred = self.apply(params, batch["X_u"])
+            return (torch.mean(torch.square(batch["u"] - u_pred))
+                    + self.sse(params, batch["X_f"]) / batch["X_f"].shape[0])
+
+    hp = {"layers": FLAGSHIP, "tf_epochs": 100, "tf_lr": 0.03, "tf_b1": 0.9,
+          "tf_eps": None, "nt_epochs": 100, "nt_lr": 0.8, "nt_ncorr": 50,
+          "nt_line_search": "wolfe", "nt_vector_dtype": "float64",
+          "log_frequency": 25,
+          "log_file": os.path.join(WORK_DIR, "facade.jsonl")}
+    model = V1BurgersPINN(hp, Logger(hp, device="cuda"))
+    batch = {"X_u": model.tensor(data.X_u_train), "u": model.tensor(data.u_train),
+             "X_f": model.X_f}
+    with torch.no_grad():   # both are mse_u + mse_f at the first iterate
+        v1 = float(model.loss(model.params, batch))
+        fused = float(ft.make_burgers_loss(data.lb, data.ub, NU)(model.params,
+                                                                 batch))
+    if not math.isclose(v1, fused, rel_tol=1e-5):
+        raise AssertionError(f"facade loss {v1} vs make_burgers_loss {fused}")
+    log(f"[facade] first iterate: v1 loss {v1:.7e}, make_burgers_loss "
+        f"{fused:.7e}")
+
+    _reset_counts()
+    model.grad_evals = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(data.X_u_train, data.u_train)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _expect_counts("facade", {"burgers_sse_grad": model.grad_evals,
+                              "burgers_loss_grad": 0, "burgers_loss": 0})
+    launches = _read_counts(["burgers_sse_grad", "burgers_sse"])
+    if launches["burgers_sse"] < model.grad_evals:
+        raise AssertionError(f"facade: {launches} for {model.grad_evals} "
+                             "gradient evaluations")
+    losses, = _logged_runs(hp["log_file"])
+    log(f"[facade] logged losses: {_fmt(losses)}")
+    _check_falls("facade", losses)
+    u_pred = model.predict(data.X_star)
+    err = float(np.linalg.norm(data.u_star - u_pred) / np.linalg.norm(data.u_star))
+    adam_rate, lbfgs_rate = _rates(model.trainer.timing, hp["tf_epochs"])
+    log(f"[facade] launches {launches} for {model.grad_evals} gradient "
+        f"evaluations; rel-L2 {err:.6e}, {seconds:.2f} s, Adam "
+        f"{adam_rate:.2f} steps/s, L-BFGS {lbfgs_rate:.2f} iters/s "
+        f"({model.trainer.timing['lbfgs_iters']} iterations)")
+
+    path = model.export_serving(os.path.join(WORK_DIR, "facade"))
+    served = pexport.load(path)
+    u_served = served.predict(data.X_star).cpu().numpy()
+    if not np.allclose(u_served, u_pred, rtol=1e-5, atol=1e-6):
+        raise AssertionError("the served facade deviates from predict")
+    for n in (1, 7):
+        out = served(data.X_star[:n])
+        if tuple(out.shape) != (n, 1) or out.device.type != "cuda":
+            raise AssertionError(f"served batch {n}: {tuple(out.shape)} on "
+                                 f"{out.device}")
+    log(f"[facade] export_serving: {os.path.basename(path)}, "
+        f"{os.path.getsize(path)} bytes, served = predict on the grid, "
+        f"batches 1 and 7 served on the card")
+    _check_finite([err, adam_rate, lbfgs_rate, *[l for _, _, l in losses],
+                   *_param_maxes(model.params)])
+    return launches
+
+
+def phase_serving_main_path() -> dict:
+    """4i: the serving example at the flagship width."""
+    from pinn_torch.experiments import serving_example
+
+    members = 2
+    hp = {"device": "cuda", "members": members, "layers": FLAGSHIP,
+          "N_u": 100, "N_f": 10000, "fused_residual": True,
+          "nt_vector_dtype": "float64", "tf_epochs": 100, "nt_epochs": 100,
+          "log_frequency": 50,
+          "artifact": os.path.join(WORK_DIR, "serving.pt2"),
+          "log_file": os.path.join(WORK_DIR, "serving.jsonl")}
+    _reset_counts()
+    r, seconds, runs = _run_stage("serving", serving_example.run, hp)
+    # Per member: f_pred at the end of its run, and its scoring.
+    _expect_counts("serving", {"burgers_residual": 2 * members})
+    launches = _read_counts(["burgers_residual"])
+    w = r["weights"]
+    if not (len(runs) == members and math.isclose(float(np.sum(w)), 1.0,
+                                                  rel_tol=1e-12)):
+        raise AssertionError(f"serving: {len(runs)} member runs, weights {w}")
+    log(f"[serving] {seconds:.2f} s; member rel-L2 {r['member_errors']}, "
+        f"validation metrics {r['vals']}, weights {w.tolist()}, served "
+        f"ensemble rel-L2 {r['error']:.6e}, artifact {r['bytes']} bytes; "
+        f"launches {launches}")
+    _check_finite([r["error"], *r["member_errors"], *r["vals"], *w.tolist()])
+    return launches
+
+
+def phase_residual_diagnostics() -> dict:
+    """4j: the features-major Burgers residual and the Schrödinger
+    residual on their grids under the nets of 4 and 4c, against the
+    eager residuals (mean squared residual within 1%: after training
+    f is a small difference of large terms, so pointwise relative bars
+    do not apply)."""
+    import torch
+    from pinn_torch.ops import residual as rs
+    from pinn_torch.problems import burgers, schrodinger
+
+    values = []
+    _reset_counts()
+    X, lb, ub = _grid("burgers")
+    X = torch.as_tensor(X, device="cuda")
+    f = rs.burgers_residual_fmajor(TRAINED["burgers"], X, lb, ub, NU)
+    fs = [f]
+    lb_t, ub_t = torch.as_tensor(lb, device="cuda"), torch.as_tensor(ub, device="cuda")
+    with torch.no_grad():
+        f_eager = [burgers.residual_cont(TRAINED["burgers"], X, lb_t, ub_t, nu=NU)]
+    Xs, slb, sub = _grid("schrodinger")
+    Xs = torch.as_tensor(Xs, device="cuda")
+    fs += rs.schrodinger_residual(TRAINED["schrodinger"], Xs, slb, sub)
+    slb_t, sub_t = (torch.as_tensor(a, device="cuda") for a in (slb, sub))
+    with torch.no_grad():
+        f_eager += schrodinger.residual(TRAINED["schrodinger"], Xs, slb_t, sub_t)
+    launches = _read_counts(["burgers_residual_fmajor", "schrodinger_residual"])
+    for name, got, want in zip(("burgers f", "schrodinger f_u",
+                                "schrodinger f_v"), fs, f_eager):
+        m_got = float(torch.mean(torch.square(got)))
+        m_want = float(torch.mean(torch.square(want)))
+        log(f"[diagnostics] {name} on the grid ({got.shape[0]} points): mean "
+            f"f^2 {m_got:.6e} (eager {m_want:.6e})")
+        if not math.isclose(m_got, m_want, rel_tol=1e-2):
+            raise AssertionError(f"{name}: kernel {m_got} vs eager {m_want}")
+        values += [m_got, m_want]
+    _check_finite(values)
+    log(f"[diagnostics] launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -780,9 +1175,11 @@ def main() -> int:
         return 2
     # The port itself, before anything is printed: a copy of this script
     # without the repository stops here.
+    import pinn_torch.api  # noqa: F401
     import pinn_torch.experiments.ide_cont_burgers  # noqa: F401
     import pinn_torch.experiments.inf_cont_burgers  # noqa: F401
     import pinn_torch.experiments.inf_cont_schrodinger  # noqa: F401
+    import pinn_torch.experiments.serving_example  # noqa: F401
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -796,11 +1193,14 @@ def main() -> int:
     phase_ide_kernels(stats)
     phase_schrodinger_kernels(stats)
     phase_bf16_kernels(stats)
+    phase_v1_kernels(stats)
     t1 = time.perf_counter()
     launches = {**phase_main_path(), **phase_ide_main_path(),
                 **phase_schrodinger_main_path(), **phase_bf16_main_path(),
                 **phase_ide_bf16_main_path(),
-                **phase_schrodinger_bf16_main_path()}
+                **phase_schrodinger_bf16_main_path(),
+                **phase_rar_main_path(), **phase_facade_main_path(),
+                **phase_serving_main_path(), **phase_residual_diagnostics()}
     log(f"[time] kernel checks {t1 - t0:.1f} s, main paths "
         f"{time.perf_counter() - t1:.1f} s")
     if "jax" in sys.modules:
@@ -814,6 +1214,10 @@ def main() -> int:
         missing = [key for key in keys if key not in k]
         if missing:
             raise AssertionError(f"{k['name']}: no {missing}")
+    # The redesign order: time lost on the main paths over the bound.
+    for k in sorted(kernels, key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"])):
+        log(f"[rank] {k['name']}: launches x (ms - bound_ms) = "
+            f"{k['launches'] * (k['ms'] - k['bound_ms']):.1f} ms")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

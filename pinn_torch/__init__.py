@@ -9,10 +9,12 @@ Importing the package is cheap: it imports ``torch`` and ``numpy``
 only (never ``jax``), and no kernel is built until a CUDA tensor first
 reaches one (``pinn_torch.ops._build``).
 
-Ported so far: the continuous-time Burgers inference slice — data prep,
-the tanh MLP with Taylor-mode streams, the eager loss, the fused
-loss+gradient kernels in CUDA C++ (``pinn_torch/csrc/``), Adam, the
-repo's own L-BFGS, the Trainer and ``experiments.inf_cont_burgers``.
+Ported so far: data prep, the tanh MLP with Taylor-mode streams, the
+continuous-time Burgers (inference with RAR, identification) and
+Schrödinger families with their eager and fused losses, a counterpart of
+every TPU kernel in CUDA C++ (``pinn_torch/csrc/``), Adam, the repo's
+own L-BFGS, the Trainer, the facade (``api``), ensembling, serving
+export and the experiments under ``pinn_torch.experiments``.
 """
 
 __version__ = "0.1.0"

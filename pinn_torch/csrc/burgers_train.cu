@@ -31,6 +31,22 @@
 // accumulation (pt_mlp.cuh says where they round).  They take the
 // same f32 inputs and round them as they load them; ws holds bf16.
 //
+// The v1 residual SSE (make_burgers_sse; collocation points only, no
+// aux rows, f32 streams only):
+//
+//     SSE = sum_i f_i^2,   f = u_t + u u_x - nu u_xx,
+//
+//   burgers_sse_grad  <- _make_fwd_bwd_kernel (:305), launched by
+//                        _sse_fwd_bwd_call (:430)
+//   burgers_sse       <- _fwd_kernel (:277), launched by
+//                        _sse_fwd_call (:388)
+//
+// A point past the ragged edge carries the mask 0, so it adds exactly
+// 0 to the sum and to every gradient, as the TPU kernel's
+// where(i*T + col < n_real, f, 0) does.  The pair has its own head
+// rather than being burgers_loss_grad with w = 1, d = 0: it reads no
+// aux rows and sums f^2, not a weighted mean.
+//
 // The forward, backward, layout and reductions are pt_mlp.cuh's; this
 // file holds the two loss heads and the entry points, instantiated at
 // hidden width <= 64.  The weights sit in shared memory (12.2 KB at
@@ -134,6 +150,36 @@ struct BurgersIdeHead {
   }
 };
 
+struct BurgersSseHead {
+  static constexpr int kOut = 1;
+  static constexpr int kExtra = 0;
+  static constexpr bool kRoundedBias = true;  // f32 streams: no rounding
+  struct Args {
+    float nu;
+  };
+  struct Point {
+    float m;  // 1 on live points, 0 past the ragged edge
+  };
+  static __device__ __forceinline__ Point load(const Args&, int, int,
+                                               bool live) {
+    Point p;
+    p.m = live ? 1.0f : 0.0f;
+    return p;
+  }
+  // f^2 and the adjoints (2f u_x, 2f u, -2 nu f, 2f) (pallas_train.py:345-347).
+  static __device__ __forceinline__ float eval(const Args& a, const Point& p,
+                                               float U[][4], float gU[][4],
+                                               float*) {
+    const float f = p.m * (U[0][3] + U[0][0] * U[0][1] - a.nu * U[0][2]);
+    const float g_f = 2.0f * f;
+    gU[0][0] = g_f * U[0][1];
+    gU[0][1] = g_f * U[0][0];
+    gU[0][2] = -a.nu * g_f;
+    gU[0][3] = g_f;
+    return f * f;
+  }
+};
+
 }  // namespace
 
 // ---- host entry points (plain C interface, loaded with ctypes) ----
@@ -231,6 +277,25 @@ int burgers_ide_loss_bf16(const float* a0, const float* aux, const float* lam,
                           void* stream) {
   const BurgersIdeHead::Args args = {aux, lam};
   return pt_launch_loss<BurgersIdeHead, BURGERS_MAX_WIDTH, __nv_bfloat16>(
+      widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
+}
+
+// v1 residual SSE and all gradients.  ws: ws_rows * (n_tiles * 32)
+// floats; partials: n_tiles * (1 + n_weights); out: 1 + n_weights.
+int burgers_sse_grad(const float* a0, const float* wpack, const int* widths,
+                     int n_layers, int n_pts, float nu, float* ws,
+                     float* partials, float* out, void* stream) {
+  const BurgersSseHead::Args args = {nu};
+  return pt_launch_loss_grad<BurgersSseHead, BURGERS_MAX_WIDTH, float>(
+      widths, n_layers, a0, wpack, n_pts, args, ws, partials, out, stream);
+}
+
+// v1 residual SSE only.  partials: n_tiles floats; out: 1 float.
+int burgers_sse(const float* a0, const float* wpack, const int* widths,
+                int n_layers, int n_pts, float nu, float* partials,
+                float* out, void* stream) {
+  const BurgersSseHead::Args args = {nu};
+  return pt_launch_loss<BurgersSseHead, BURGERS_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
 }
 

@@ -1,5 +1,6 @@
 """Shared experiment scaffolding of the port: hp checks, seeding, dtype
-and device resolution, and the per-case checkpoint paths.
+and device resolution, the per-case checkpoint paths, and the residual
+the experiments score points with.
 
 Counterpart of ``experiments/_common.py``.  The identification
 experiments train a clean and a noisy case inside one ``run``; each
@@ -76,6 +77,30 @@ def maybe_load_params(hp, params, case=None):
         params, _ = checkpoint.load_npz(path, like=params)
         print(f"Loaded initial parameters from {path}")
     return params
+
+
+def residual_fn(lb, ub, nu: float, dtype: torch.dtype):
+    """``f(params, X) -> (N, 1)``, the Burgers residual without
+    gradients, as the experiments score points (RAR's candidate pool,
+    ``f_pred``, the serving example's members).  float32: the
+    residual-evaluation kernel (``pinn_torch.ops.residual
+    .burgers_residual``; its plain version on the CPU).  float64: the
+    eager ``residual_cont``, because the kernel is float32 only and a
+    float64 stage scored in float32 would rank its points differently.
+    """
+    from pinn_torch.problems import burgers
+
+    if dtype == torch.float32:
+        from pinn_torch.ops.residual import _box, burgers_residual
+        box = _box(lb, ub)   # host copies, read once
+
+        def f(params, X):
+            return burgers_residual(params, X, *box, nu)
+    else:
+        @torch.no_grad()
+        def f(params, X):
+            return burgers.residual_cont(params, X, lb, ub, nu=nu)
+    return f
 
 
 def maybe_save_params(hp, params, case=None) -> None:

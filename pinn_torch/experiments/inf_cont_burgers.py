@@ -20,9 +20,17 @@ nu = 0.01/pi, Adam then L-BFGS, rel-L2 error on the full grid.
   (the JAX package's double-f32 engine) runs as native float64.
 - ``device`` picks the device ("cuda", "cpu"; absent: "cuda").  Without
   a card, "cuda" raises: the CPU runs only when asked for.
+- ``rar_pool: M`` (residual-based adaptive refinement): every
+  resampling (``tf_resample``/``nt_resample``) draws M LHS candidates,
+  keeps the N_f // 2 with the largest |f| under the current iterate and
+  fills the rest uniformly from the others; ``rar_init: true`` with
+  ``rar_pool`` makes one such draw from the starting net before
+  training (a warm-started refinement stage).  The numpy streams are
+  the JAX experiment's, so the draws are the same.  Points are scored
+  by ``_common.residual_fn``: in float32 the residual-evaluation kernel,
+  in float64 the eager residual.
 
-Not yet ported: RAR (``rar_pool``/``rar_init``), the device mesh and
-the plots.
+Not yet ported: the device mesh and the plots.
 
 Usage: ``python -m pinn_torch.experiments.inf_cont_burgers [hp.json]``
 """
@@ -36,8 +44,8 @@ import torch
 
 from pinn_torch.data import burgers_cont_inference, lhs
 from pinn_torch.experiments._common import (maybe_load_params,
-                                            maybe_save_params, setup,
-                                            wants_bf16)
+                                            maybe_save_params, residual_fn,
+                                            setup, wants_bf16)
 from pinn_torch.models import mlp
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
@@ -58,12 +66,16 @@ DEFAULT_HP = {
     "log_frequency": 10,
 }
 
-NOT_PORTED = ("rar_pool", "rar_init", "tpu_mesh")
+NOT_PORTED = ("tpu_mesh",)
 
 
 def run(hp=None):
     hp = {**DEFAULT_HP, **(hp or {})}
     seed, dtype, device = setup(hp, NOT_PORTED)
+    if hp.get("rar_pool") and int(hp["rar_pool"]) < hp["N_f"]:
+        raise ValueError(
+            f"rar_pool ({hp['rar_pool']}) must be >= N_f ({hp['N_f']}): "
+            "the RAR draw keeps N_f points out of the candidate pool")
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -104,16 +116,37 @@ def run(hp=None):
     def predict_u(p, X):
         return mlp.apply(p, X, lb, ub)
 
-    @torch.no_grad()
-    def residual_f(p, X):
-        return burgers.residual_cont(p, X, lb, ub, nu=nu)
+    residual_f = residual_fn(lb, ub, nu, dtype)
+    holder = {"rar_draws": 0}  # + the live Trainer, whose params RAR scores
+
+    def rar_draw(params, rng):
+        # Residual-based adaptive refinement: a candidate pool, the half
+        # of N_f with the largest |f| under `params`, the rest uniform
+        # from the others (pure top-k collapses onto the shock line).
+        M = int(hp["rar_pool"])
+        cand = data.lb + (data.ub - data.lb) * lhs(2, M, rng)
+        f = np.abs(residual_f(params, tensor(cand)).cpu().numpy())[:, 0]
+        k = hp["N_f"] // 2
+        top = np.argsort(-f)[:k]
+        rest = rng.choice(np.setdiff1d(np.arange(M), top), hp["N_f"] - k,
+                          replace=False)
+        holder["rar_draws"] += 1
+        return cand[np.concatenate([top, rest])]
 
     def resample_fn(i):
-        # Fresh LHS collocation draw (new stream); data points stay fixed.
+        # Fresh collocation draw (new stream); data points stay fixed.
         rng = np.random.RandomState(seed + i)
         b = dict(batch)
-        b["X_f"] = tensor(data.lb + (data.ub - data.lb) * lhs(2, hp["N_f"], rng))
+        if hp.get("rar_pool"):
+            b["X_f"] = tensor(rar_draw(holder["trainer"].params, rng))
+        else:
+            b["X_f"] = tensor(data.lb + (data.ub - data.lb)
+                              * lhs(2, hp["N_f"], rng))
         return b
+
+    if hp.get("rar_init") and hp.get("rar_pool"):
+        # One RAR draw from the starting net (a warm-started stage).
+        batch["X_f"] = tensor(rar_draw(net, np.random.RandomState(seed + 999)))
 
     val_fn = None
     if hp.get("nt_val_every"):
@@ -131,6 +164,7 @@ def run(hp=None):
     trainer = Trainer(loss_fn, net, batch, hp, logger,
                       resample_fn=resample_fn, val_fn=val_fn,
                       adam_loss_fn=adam_loss_fn)
+    holder["trainer"] = trainer
 
     def error():
         u_pred = predict_u(trainer.params, X_star).cpu().numpy()
@@ -148,7 +182,7 @@ def run(hp=None):
     return {"params": params, "u_pred": u_pred, "f_pred": f_pred,
             "error": error(), "loss": loss, "data": data, "hp": hp,
             "loss_fn": loss_fn, "batch": batch, "predict_u": predict_u,
-            "timing": dict(trainer.timing)}
+            "timing": dict(trainer.timing), "rar_draws": holder["rar_draws"]}
 
 
 if __name__ == "__main__":

@@ -51,11 +51,23 @@ _KERNEL_SIGNATURES = {
     "schrodinger_sse_grad": [_P, _P, _IP, _I, _I, _P, _P, _P, _P],
     "schrodinger_sse": [_P, _P, _IP, _I, _I, _P, _P, _P],
 }
+# float32-only entry points: the v1 SSE pair (burgers_train.cu) and the
+# residual evaluation (residual_eval.cu; X, wpack, widths, n_layers,
+# n_pts, lb0, lb1, ub0, ub1, [nu,] out, stream).
+_F32_SIGNATURES = {
+    "burgers_sse_grad": [_P, _P, _IP, _I, _I, _F, _P, _P, _P, _P],
+    "burgers_sse": [_P, _P, _IP, _I, _I, _F, _P, _P, _P],
+    "burgers_residual": [_P, _P, _IP, _I, _I, _F, _F, _F, _F, _F, _P, _P],
+    "burgers_residual_fmajor": [_P, _P, _IP, _I, _I, _F, _F, _F, _F, _F,
+                                _P, _P],
+    "schrodinger_residual": [_P, _P, _IP, _I, _I, _F, _F, _F, _F, _P, _P],
+}
 SIGNATURES = {
     "burgers_train_sizes": [_IP, _I, _IP, _IP],
     "schrodinger_train_sizes": [_IP, _I, _IP, _IP],
     **{name + sfx: sig for name, sig in _KERNEL_SIGNATURES.items()
        for sfx in ("", "_bf16")},
+    **_F32_SIGNATURES,
 }
 
 

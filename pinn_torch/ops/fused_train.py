@@ -1,8 +1,8 @@
 """Fused Burgers training losses: one CUDA launch for the loss and every
 parameter gradient.
 
-Counterpart of ``pinn.ops.pallas_train.make_burgers_loss`` and
-``make_burgers_ide_loss``.
+Counterpart of ``pinn.ops.pallas_train.make_burgers_loss``,
+``make_burgers_ide_loss`` and ``make_burgers_sse``.
 
 Inference.  Data and collocation points ride one stream with three aux
 rows (target, w, d):
@@ -25,6 +25,12 @@ reparameterisation: dL/dlambda1 = A1, dL/dlog_lambda2 = -A2 e^lambda2.
 (lambda1, e^lambda2) reach the kernel as a 2-float device buffer built
 on the card, so a step needs no device-to-host copy.
 
+The v1 residual SSE (``make_burgers_sse``, the building block of a
+facade user's own loss): ``sse = sum_i f_i^2`` over the collocation
+points alone, f32 streams.  As in the JAX ``custom_vjp`` its forward
+launches the loss-only kernel and its backward the forward+backward
+one, so a training step is two launches.
+
 Kernels (``pinn_torch/csrc/burgers_train.cu``, built by ``_build``):
 
 - ``burgers_loss_grad`` replaces ``_make_train_kernel``
@@ -40,8 +46,11 @@ Kernels (``pinn_torch/csrc/burgers_train.cu``, built by ``_build``):
   the same four with ``stream_dtype="bfloat16"``: bf16 streams and saved
   activations, f32 products and sums (the Adam warmup of the
   ``tf_net_dtype`` and ``fused_residual: "bf16"`` recipes).
+- ``burgers_sse_grad`` replaces ``_make_fwd_bwd_kernel`` (:305) and
+  ``burgers_sse`` replaces ``_fwd_kernel`` (:277): the v1 SSE with and
+  without its gradients.
 
-All eight are bound by latency (a few hundred warps on 132 SMs); the
+All ten are bound by latency (a few hundred warps on 132 SMs); the
 source notes in ``pinn_torch/csrc/`` say what the design does about
 the saved activations and the cross-block sum.
 
@@ -90,6 +99,7 @@ launches = {name + sfx: 0
             for name in ("burgers_loss_grad", "burgers_loss",
                          "burgers_ide_loss_grad", "burgers_ide_loss")
             for sfx in ("", "_bf16")}
+launches.update(burgers_sse_grad=0, burgers_sse=0)
 
 TILE = 32  # points per partials row: one warp (pt_mlp.cuh PT_TILE)
 
@@ -404,6 +414,24 @@ def burgers_ide_loss_bf16_plain(a0, aux, lam, z1row, z2row, wt_args):
                               wt_args, round_bf16, grads=False)
 
 
+def burgers_sse_plain(a0, z1row, z2row, wt_args, nu) -> torch.Tensor:
+    """The v1 residual SSE, sum of f^2 over the points, in plain torch
+    ops (differentiable)."""
+    U, _, _ = _forward(a0, z1row, z2row, wt_args, _identity, save=False)
+    n = a0.shape[1]
+    u, u_x, u_xx, u_t = (U[:, k * n:(k + 1) * n] for k in range(4))
+    f = u_t + u * u_x - nu * u_xx
+    return torch.sum(f * f)
+
+
+def burgers_sse_grad_plain(a0, z1row, z2row, wt_args, nu):
+    """SSE and gradients of :func:`burgers_sse_plain` by autograd."""
+    loss, g = _value_and_grads(
+        lambda *x: burgers_sse_plain(a0, x[-2], x[-1], x[:-2], nu),
+        [*wt_args, z1row, z2row])
+    return loss, g[:-2], g[-2], g[-1]
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches (shared with pinn_torch.ops.fused_schrodinger)
 # ---------------------------------------------------------------------------
@@ -593,6 +621,31 @@ def burgers_ide_loss(a0, aux, lam, z1row, z2row, wt_args,
     return out[0]
 
 
+def burgers_sse_grad(a0, z1row, z2row, wt_args, nu):
+    """v1 SSE and gradients ``(sse, gwt, gz1row, gz2row)``: the CUDA
+    kernel ``burgers_sse_grad`` for CUDA tensors, its plain version for
+    CPU tensors."""
+    if not _on_cuda(a0):
+        return burgers_sse_grad_plain(a0, z1row, z2row, wt_args, nu)
+    _check_inputs(a0, None, z1row, z2row, wt_args)
+    out = launch("burgers_sse_grad", "burgers_train_sizes", _BURGERS_LIMITS,
+                 a0, [], z1row, z2row, wt_args, [float(nu)])
+    launches["burgers_sse_grad"] += 1
+    return _unpack(out, z1row, z2row, wt_args)
+
+
+def burgers_sse(a0, z1row, z2row, wt_args, nu) -> torch.Tensor:
+    """The v1 SSE alone (0-d): the CUDA kernel ``burgers_sse`` for CUDA
+    tensors, its plain version for CPU tensors."""
+    if not _on_cuda(a0):
+        return burgers_sse_plain(a0, z1row, z2row, wt_args, nu)
+    _check_inputs(a0, None, z1row, z2row, wt_args)
+    out = launch("burgers_sse", "burgers_train_sizes", _BURGERS_LIMITS, a0,
+                 [], z1row, z2row, wt_args, [float(nu)], grads=False)
+    launches["burgers_sse"] += 1
+    return out[0]
+
+
 # ---------------------------------------------------------------------------
 # The differentiable losses
 # ---------------------------------------------------------------------------
@@ -715,3 +768,56 @@ def make_burgers_ide_loss(lb, ub, stream_dtype=None):
                                 z1row, z2row, wt_args, bf16)
 
     return loss
+
+
+class _FusedBurgersSse(torch.autograd.Function):
+    """Forward launches the SSE kernel; backward launches the
+    SSE+grad kernel and scales its gradients by ``grad_output`` (the
+    JAX ``sse_fwd``/``sse_bwd``, pallas_train.py:472-494).  The points
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, a0, vx, vt, nu, *net):
+        ctx.nu = nu
+        ctx.save_for_backward(a0, vx, vt, *net)
+        z1row, z2row, wt_args = _prep(_pairs(net), vx, vt)
+        return burgers_sse(a0, z1row, z2row, wt_args, nu)
+
+    @staticmethod
+    def backward(ctx, g):
+        a0, vx, vt, *net = ctx.saved_tensors
+        params = _pairs(net)
+        z1row, z2row, wt_args = _prep(params, vx, vt)
+        _, gwt, gz1row, gz2row = burgers_sse_grad(a0, z1row, z2row, wt_args,
+                                                  ctx.nu)
+        grads = _assemble_net_grads(params, gwt, gz1row, gz2row, vx, vt)
+        return (None,) * 4 + tuple(g * gr for gr in grads)
+
+
+def make_burgers_sse(lb, ub, nu: float):
+    """Differentiable v1 ``sse(params, X_f) -> sum_i f_i^2`` with
+    ``f = u_t + u u_x - nu u_xx`` at the collocation points ``X_f``.
+
+    The forward launches ``burgers_sse``; when autograd asks for the
+    gradient, the backward launches ``burgers_sse_grad``, which runs the
+    forward again with the backward, as the JAX ``custom_vjp`` does.
+    float32 streams only (the TPU pair takes no ``stream_dtype``).
+    """
+    nu = float(nu)
+    lb_np = np.asarray(lb, np.float32)
+    ub_np = np.asarray(ub, np.float32)
+    consts = {}
+
+    def sse(params: Params, X_f: torch.Tensor) -> torch.Tensor:
+        dev = X_f.device
+        if dev not in consts:
+            consts[dev] = _tangents(lb_np, ub_np, dev)
+        lb_t, ub_t, vx, vt = consts[dev]
+        a0 = _normalise(X_f, lb_t, ub_t)
+        net = leaves(params)
+        if _wants_grad(net):
+            return _FusedBurgersSse.apply(a0, vx, vt, nu, *net)
+        z1row, z2row, wt_args = _prep(params, vx, vt)
+        return burgers_sse(a0, z1row, z2row, wt_args, nu)
+
+    return sse

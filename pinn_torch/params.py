@@ -1,13 +1,14 @@
 """Flat-parameter codec over nested parameter structures.
 
 Counterpart of ``pinn/params.py``.  Parameters are any nesting of
-lists, tuples and ``NamedTuple``s whose leaves are tensors: the
+lists, tuples, ``NamedTuple``s and dicts whose leaves are tensors: the
 inference nets are a list of ``(W, b)`` pairs in the JAX layout —
 ``W`` of shape (fan_in, fan_out), not ``nn.Linear``'s (out, in) — and
 the identification experiments wrap such a list in an ``IdeParams``
 with the PDE coefficients at its tail.  The flat order is that of
 ``jax.tree_util.tree_leaves`` on the JAX pytree: depth-first, sequence
-items in order, NamedTuple fields in declaration order, each leaf
+items in order, NamedTuple fields in declaration order, dict entries in
+sorted key order (the facade's ``wrap_training_variables``), each leaf
 row-major.  So for ``(W, b)`` pairs it is W0, b0, W1, b1, ..., and for
 ``IdeParams`` the net's leaves then ``lambda1``, ``log_lambda2``.  A
 flat vector or an npz checkpoint is therefore the same bytes on both
@@ -31,10 +32,12 @@ def leaves(tree) -> List[torch.Tensor]:
     """The tensors of ``tree`` in flat (``tree_leaves``) order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        return [a for key in sorted(tree) for a in leaves(tree[key])]
     if isinstance(tree, (list, tuple)):
         return [a for child in tree for a in leaves(child)]
-    raise TypeError(f"parameter structures hold lists, tuples, NamedTuples "
-                    f"and tensors; got {type(tree).__name__}")
+    raise TypeError(f"parameter structures hold lists, tuples, NamedTuples, "
+                    f"dicts and tensors; got {type(tree).__name__}")
 
 
 def rebuild(like, new_leaves: Sequence[Any]):
@@ -45,6 +48,8 @@ def rebuild(like, new_leaves: Sequence[Any]):
     def build(node):
         if isinstance(node, torch.Tensor):
             return next(it)
+        if isinstance(node, dict):
+            return {key: build(node[key]) for key in sorted(node)}
         children = [build(child) for child in node]
         if _is_namedtuple(node):
             return type(node)(*children)
@@ -63,9 +68,12 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree):
 
 def paths(tree, prefix: str = "") -> List[str]:
     """A name per leaf in flat order, as ``jax.tree_util.keystr`` gives
-    it (``[0][1]``, ``.net[0][0]``, ``.lambda1``)."""
+    it (``[0][1]``, ``.net[0][0]``, ``.lambda1``, ``['net'][0][0]``)."""
     if isinstance(tree, torch.Tensor):
         return [prefix]
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree)
+                for p in paths(tree[key], f"{prefix}[{key!r}]")]
     if _is_namedtuple(tree):
         return [p for name, child in zip(tree._fields, tree)
                 for p in paths(child, f"{prefix}.{name}")]

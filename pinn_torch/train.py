@@ -16,6 +16,9 @@ given, is the loss the Adam phase optimises (a cheaper warmup loss,
 such as the bf16-stream fused kernel); L-BFGS always refines on
 ``loss_fn``.  hp["tf_net_dtype"] wraps the Adam phase's loss in
 ``pinn_torch.optim.adam.net_dtype_cast``, as ``AdamRunner`` does.
+``params_callback(params)``, when given, is called with the current
+parameters right before every log line and at the end (the facade
+keeps its ``params`` live with it).
 
 PyTorch runs eagerly, so both phases step one iteration at a time.
 The L-BFGS phase keeps the JAX Trainer's chunk boundaries (at most
@@ -24,8 +27,8 @@ logs, resamples, probes and revives a stalled run, so keeping them
 keeps the trajectory, and the resampling draws, equal to the JAX
 package's.
 
-Not yet ported: ``trace_dir`` (profiling), the device mesh and
-``params_callback``; the Trainer raises on ``trace_dir``.
+Not yet ported: ``trace_dir`` (profiling) and the device mesh; the
+Trainer raises on ``trace_dir``.
 """
 
 from __future__ import annotations
@@ -66,10 +69,10 @@ class Trainer:
     """Drives ``loss_fn(params, batch) -> scalar`` through both phases.
 
     ``params0`` is a parameter structure (``(W, b)`` pairs,
-    ``IdeParams``); ``batch`` a dict of tensors.  ``epoch_extra(params)
-    -> str``, ``resample_fn(round) -> batch``, ``val_fn(params) ->
-    float`` and ``adam_loss_fn(params, batch)`` are optional, as in the
-    JAX Trainer.
+    ``IdeParams``, dicts); ``batch`` a dict of tensors.
+    ``epoch_extra(params) -> str``, ``resample_fn(round) -> batch``,
+    ``val_fn(params) -> float``, ``adam_loss_fn(params, batch)`` and
+    ``params_callback(params)`` are optional, as in the JAX Trainer.
     """
 
     CHUNK_CAP = 10  # iterations between host checks in the L-BFGS phase
@@ -80,7 +83,8 @@ class Trainer:
                  resample_fn: Optional[Callable[[int], Any]] = None,
                  val_fn: Optional[Callable[[Any], float]] = None,
                  adam_loss_fn: Optional[Callable[[Any, Any],
-                                                 torch.Tensor]] = None):
+                                                 torch.Tensor]] = None,
+                 params_callback: Optional[Callable[[Any], None]] = None):
         bad = [k for k in NOT_PORTED_KEYS if hp.get(k)]
         if bad:
             raise NotImplementedError(
@@ -92,6 +96,7 @@ class Trainer:
             self.adam_loss_fn = net_dtype_cast(self.adam_loss_fn,
                                                hp["tf_net_dtype"])
         self.epoch_extra = epoch_extra
+        self.params_callback = params_callback
         self.val_fn = val_fn
         self.resample_fn = resample_fn
         self.batch = batch
@@ -112,6 +117,8 @@ class Trainer:
 
     # -- logging helpers ---------------------------------------------------
     def _log(self, method: str, *args, **kw):
+        if self.params_callback is not None:
+            self.params_callback(self.params)
         if self.logger is not None:
             getattr(self.logger, method)(*args, **kw)
 

@@ -10,7 +10,10 @@ Bars as in tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol
 two launches are bitwise equal.  The bf16-stream kernels against their
 plain bf16 versions (the same roundings, summed in another order, which
 can move a rounding): loss rtol 2e-3, gradient rel-L2 <= 1e-2 and
-cosine >= 0.9999 (the net gradients and the lambda adjoints each).
+cosine >= 0.9999 (the net gradients and the lambda adjoints each).  The
+residual-evaluation kernels against theirs at the bars of
+tests/test_pallas.py: Burgers rtol 2e-5 / atol 1e-6, Schrödinger rtol
+2e-4 / atol 2e-6.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import torch
 
 from pinn_torch.ops import fused_schrodinger as fs
 from pinn_torch.ops import fused_train as ft
+from pinn_torch.ops import residual as rs
 from pinn_torch.utils.checkpoint import params_from_numpy
 
 pytestmark = [
@@ -296,3 +300,113 @@ def test_bf16_schrodinger_kernels_match_plain(layers, n):
     assert _launched(fs, n0, "schrodinger_sse_grad_bf16",
                      "schrodinger_sse_bf16") == (2, 1)
     _check_bf16(got, again, want, loss_only, want_loss)
+
+
+# ---------------------------------------------------------------------------
+# The v1 SSE pair and the residual-evaluation kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layers,n", [
+    ([2] + [20] * 8 + [1], 10000),
+    ([2] + [40] * 8 + [1], 1124),    # ragged edge inside a 32-point tile
+    ([2, 16, 1], 1024),
+    ([2, 5, 1], 1),
+])
+def test_sse_kernels_match_plain(layers, n):
+    rng = np.random.RandomState(n)
+    pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
+             for a, b in zip(layers[:-1], layers[1:])]
+    params = params_from_numpy(pairs, "cuda", torch.float32)
+    X_f = torch.as_tensor(LB + (UB - LB) * rng.rand(n, 2), dtype=torch.float32,
+                          device="cuda")
+    lb, ub, vx, vt = ft._tangents(LB, UB, "cuda")
+    args = (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
+
+    n0 = dict(ft.launches)
+    got = _flat(ft.burgers_sse_grad(*args, NU))
+    again = _flat(ft.burgers_sse_grad(*args, NU))
+    loss_only = ft.burgers_sse(*args, NU)
+    want = _flat(ft.burgers_sse_grad_plain(*args, NU))
+    torch.cuda.synchronize()
+    assert _launched(ft, n0, "burgers_sse_grad", "burgers_sse",
+                     "burgers_loss_grad", "burgers_loss") == (2, 1, 0, 0)
+    _check_against_plain(got, again, want, loss_only)
+
+
+def test_fused_sse_on_card_matches_cpu():
+    """make_burgers_sse on CUDA against the same call on the CPU: the
+    forward launches burgers_sse, the backward burgers_sse_grad."""
+    layers = [2, 20, 20, 20, 1]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.RandomState(9)
+        pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
+                 for a, b in zip(layers[:-1], layers[1:])]
+        params = params_from_numpy(pairs, dev, torch.float32)
+        X_f = torch.as_tensor(LB + (UB - LB) * rng.rand(500, 2),
+                              dtype=torch.float32, device=dev)
+        leaves = [a.requires_grad_(True) for wb in params for a in wb]
+        n0 = dict(ft.launches)
+        val = ft.make_burgers_sse(LB, UB, NU)(params, X_f)
+        grads = torch.autograd.grad(val, leaves)
+        if dev == "cuda":
+            assert _launched(ft, n0, "burgers_sse", "burgers_sse_grad") == (1, 1)
+        outs[dev] = [val.detach().cpu()] + [g.cpu() for g in grads]
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-5, atol=0.0)
+    gmax = max(float(g.abs().max()) for g in outs["cpu"][1:])
+    for a, b in zip(outs["cuda"][1:], outs["cpu"][1:]):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-6 * gmax)
+
+
+def _residual_case(layers, n, lb, ub, seed):
+    rng = np.random.RandomState(seed)
+    pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
+             for a, b in zip(layers[:-1], layers[1:])]
+    X = torch.as_tensor(lb + (ub - lb) * rng.rand(n, 2), dtype=torch.float32,
+                        device="cuda")
+    return params_from_numpy(pairs, "cuda", torch.float32), X
+
+
+@pytest.mark.parametrize("layers,n", [
+    ([2] + [20] * 8 + [1], 25600),
+    ([2, 20, 20, 1], 700),
+    ([2, 20, 1], 2048),
+    ([2, 5, 1], 1),
+])
+@pytest.mark.parametrize("name", ["burgers_residual", "burgers_residual_fmajor"])
+def test_burgers_residual_kernels_match_plain(layers, n, name):
+    params, X = _residual_case(layers, n, LB, UB, seed=n)
+    n0 = dict(rs.launches)
+    got = getattr(rs, name)(params, X, LB, UB, NU)
+    again = getattr(rs, name)(params, X, LB, UB, NU)
+    want = getattr(rs, name + "_plain")(params, X, LB, UB, NU)
+    torch.cuda.synchronize()
+    assert _launched(rs, n0, name) == (2,)
+    assert tuple(got.shape) == (n, 1)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("layers,n", [([2, 100, 100, 100, 100, 2], 51456),
+                                      ([2, 32, 32, 2], 600)])
+def test_schrodinger_residual_kernel_matches_plain(layers, n):
+    lbs, ubs = np.array([-5.0, 0.0], np.float32), np.array([5.0, np.pi / 2], np.float32)
+    params, X = _residual_case(layers, n, lbs, ubs, seed=n)
+    n0 = dict(rs.launches)
+    got = torch.cat(rs.schrodinger_residual(params, X, lbs, ubs), dim=1)
+    again = torch.cat(rs.schrodinger_residual(params, X, lbs, ubs), dim=1)
+    want = torch.cat(rs.schrodinger_residual_plain(params, X, lbs, ubs), dim=1)
+    torch.cuda.synchronize()
+    assert _launched(rs, n0, "schrodinger_residual") == (2,)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-6)
+    assert torch.equal(got, again)
+
+
+def test_residual_wrappers_raise_instead_of_falling_back():
+    params, X = _residual_case([2, 8, 1], 40, LB, UB, seed=1)
+    with pytest.raises(TypeError, match="float32"):
+        rs.burgers_residual([(w.double(), b.double()) for w, b in params],
+                            X.double(), LB, UB, NU)
+    wide, Xw = _residual_case([2, 65, 1], 40, LB, UB, seed=2)
+    with pytest.raises(ValueError, match="widths"):
+        rs.burgers_residual_fmajor(wide, Xw, LB, UB, NU)

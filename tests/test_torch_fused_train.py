@@ -297,3 +297,82 @@ def test_flagship_step0_loss_fingerprint(stream_dtype, step0_loss, tmp_path):
                                          stream_dtype)(params, batch)
     torch.autograd.grad(loss, leaves)
     np.testing.assert_allclose(float(loss.detach()), step0_loss, rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The v1 residual SSE (make_burgers_sse)
+# ---------------------------------------------------------------------------
+
+SSE_CASES = [
+    ([2, 20, 20, 20, 1], 300),       # ragged: the TPU kernel's pad mask
+    (FLAGSHIP, 2048),                # flagship depth
+    ([2, 16, 1], 1024),              # single hidden layer
+]
+
+
+def _sse_case(layers, n, seed=0):
+    rng = np.random.RandomState(seed)
+    pairs = [(w.astype(np.float32), (0.1 * rng.randn(*b.shape)).astype(np.float32))
+             for w, b in _glorot(layers, rng)]
+    return pairs, (LB + (UB - LB) * rng.rand(n, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("layers,n", SSE_CASES)
+def test_fused_sse_matches_jax(layers, n):
+    """make_burgers_sse's value and gradients against the JAX v1 pair
+    (tests/test_pallas_train.py:34-62 shapes and bars)."""
+    pairs, X_f = _sse_case(layers, n, seed=n)
+    jsse = pallas_train.make_burgers_sse(LB, UB, NU, interpret=True)
+    jp = tuple((jnp.asarray(w), jnp.asarray(b)) for w, b in pairs)
+    want_val, want_grads = jax.value_and_grad(lambda p: jsse(p, jnp.asarray(X_f)))(jp)
+
+    params = params_from_numpy(pairs, "cpu", torch.float32)
+    leaves = [a.requires_grad_(True) for wb in params for a in wb]
+    val = fused_train.make_burgers_sse(LB, UB, NU)(params, torch.as_tensor(X_f))
+    grads = torch.autograd.grad(val, leaves)
+
+    np.testing.assert_allclose(float(val.detach()), float(want_val), rtol=1e-5)
+    for g, want in zip(grads, [np.asarray(a) for wb in want_grads for a in wb]):
+        scale = max(1e-3, float(np.max(np.abs(want))))
+        np.testing.assert_allclose(g.numpy(), want, rtol=5e-4, atol=5e-6 * scale)
+
+
+def test_fused_sse_is_the_eager_residual_sum_and_scales_by_grad_output():
+    """In float64 the plain pair, through prep and reassembly, is the sum
+    of the eager residual squared and its autograd; the backward is the
+    pair's gradient times grad_output; the no-grad branch gives the same
+    value; the points get no gradient."""
+    from pinn_torch.problems import burgers
+
+    pairs, X_f = _sse_case([2, 12, 12, 1], 70, seed=3)
+    params = params_from_numpy(pairs, "cpu", torch.float64)
+    X = torch.as_tensor(X_f, dtype=torch.float64)
+    lb, ub = (torch.as_tensor(a, dtype=torch.float64) for a in (LB, UB))
+    scale = 2.0 / (ub - lb)
+    zero = torch.zeros((), dtype=torch.float64)
+    vx, vt = torch.stack([scale[0], zero]), torch.stack([zero, scale[1]])
+    z1row, z2row, wt_args = fused_train._prep(params, vx, vt)
+    val, gwt, gz1, gz2 = fused_train.burgers_sse_grad_plain(
+        fused_train._normalise(X, lb, ub), z1row, z2row, wt_args, NU)
+    grads = fused_train._assemble_net_grads(params, gwt, gz1, gz2, vx, vt)
+    leaves = [a.clone().requires_grad_(True) for wb in params for a in wb]
+    pp = [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+    want = torch.sum(burgers.residual_cont(pp, X, lb, ub, nu=NU) ** 2)
+    want_grads = torch.autograd.grad(want, leaves)
+    torch.testing.assert_close(val, want.detach(), rtol=1e-12, atol=0.0)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-12)
+
+    p32 = params_from_numpy(pairs, "cpu", torch.float32)
+    leaves32 = [a.requires_grad_(True) for wb in p32 for a in wb]
+    X32 = torch.as_tensor(X_f).requires_grad_(True)
+    sse = fused_train.make_burgers_sse(LB, UB, NU)
+    g1 = torch.autograd.grad(sse(p32, X32), leaves32 + [X32], allow_unused=True)
+    g3 = torch.autograd.grad(3.0 * sse(p32, X32), leaves32)
+    assert g1[-1] is None
+    for a, b in zip(g1[:-1], g3):
+        torch.testing.assert_close(3.0 * a, b, rtol=1e-6, atol=0.0)
+    with torch.no_grad():
+        v_only = sse(p32, torch.as_tensor(X_f))
+    np.testing.assert_allclose(float(v_only), float(sse(p32, X32).detach()),
+                               rtol=1e-6)

@@ -116,10 +116,82 @@ def test_port_never_imports_jax():
             "import pinn_torch, pinn_torch.experiments.inf_cont_burgers\n"
             "import pinn_torch.experiments.ide_cont_burgers\n"
             "import pinn_torch.experiments.inf_cont_schrodinger\n"
+            "import pinn_torch.experiments.serving_example\n"
             "import pinn_torch.ops.fused_train, pinn_torch.optim.lbfgs\n"
-            "import pinn_torch.ops.fused_schrodinger\n"
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
-            " if m.startswith('jax'))\n")
+            "import pinn_torch.ops.fused_schrodinger, pinn_torch.ops.residual\n"
+            "import pinn_torch.api, pinn_torch.ensemble, pinn_torch.export\n"
+            "import pinn_torch.dtypes\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pinn'))\n"
+            "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env=env, timeout=120)
+
+
+# ---------------------------------------------------------------------------
+# RAR (residual-based adaptive refinement), float64 against the JAX run
+# ---------------------------------------------------------------------------
+
+RAR_HP = {"N_u": 30, "N_f": 400, "layers": [2, 12, 1], "log_frequency": 1000,
+          "dtype": "float64", "rar_pool": 2000}
+
+
+@pytest.fixture(scope="module")
+def rar_ckpt(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("rar") / "init.npz")
+    jax_checkpoint.save_npz(path, jax_mlp.init_mlp(
+        jax.random.PRNGKey(5), RAR_HP["layers"], jax.numpy.float64))
+    return path
+
+
+def _recording_resamples(monkeypatch, trainer_cls, out):
+    """Record the collocation points of every resampled batch."""
+    resample = trainer_cls._resample
+
+    def record(self, i):
+        resample(self, i)
+        out.append(np.asarray(self.batch["X_f"]))
+
+    monkeypatch.setattr(trainer_cls, "_resample", record)
+
+
+def test_rar_resampling_matches_jax(rar_ckpt, jax_exp, monkeypatch):
+    """rar_pool: every resample scores the pool under the live iterate
+    and keeps the same points as the JAX run, element for element."""
+    import pinn.train
+    import pinn_torch.train
+
+    hp = {**RAR_HP, "tf_epochs": 10, "nt_epochs": 30, "nt_resample": 10,
+          "init_checkpoint": rar_ckpt}
+    draws = {"jax": [], "port": []}
+    _recording_resamples(monkeypatch, pinn.train.Trainer, draws["jax"])
+    _recording_resamples(monkeypatch, pinn_torch.train.Trainer, draws["port"])
+    want = jax_exp.run(dict(hp))
+    got = torch_exp.run({**hp, "device": "cpu"})
+    assert got["rar_draws"] == len(draws["port"]) == len(draws["jax"]) >= 2
+    for a, b in zip(draws["port"], draws["jax"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(got["loss"], _jax_final_loss(want), rtol=1e-6)
+
+
+def test_rar_init_matches_jax(rar_ckpt, jax_exp):
+    """rar_init: one draw from the warm-start net before training, the
+    same points as the JAX run's; the plain LHS draw differs."""
+    hp = {**RAR_HP, "tf_epochs": 0, "nt_epochs": 10, "rar_init": True,
+          "init_checkpoint": rar_ckpt}
+    want = jax_exp.run(dict(hp))
+    got = torch_exp.run({**hp, "device": "cpu"})
+    assert got["rar_draws"] == 1
+    np.testing.assert_array_equal(got["batch"]["X_f"].numpy(),
+                                  np.asarray(want["batch"]["X_f"]))
+    np.testing.assert_allclose(got["loss"], _jax_final_loss(want), rtol=1e-6)
+    plain = torch_exp.run({**hp, "device": "cpu", "rar_init": False,
+                           "nt_epochs": 0})
+    assert not np.array_equal(plain["batch"]["X_f"].numpy(),
+                              got["batch"]["X_f"].numpy())
+
+
+def test_rar_pool_smaller_than_n_f_raises():
+    with pytest.raises(ValueError, match="rar_pool"):
+        torch_exp.run({**RAR_HP, "device": "cpu", "rar_pool": 100})
