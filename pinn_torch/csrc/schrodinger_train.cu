@@ -10,47 +10,39 @@
 // kernel masks by n_real.
 //
 // Replaces (pinn/ops/pallas_schrodinger.py):
-//   schrodinger_sse_grad  <- _make_fwd_bwd_kernel (:95), launched by
-//                            _sse_fwd_bwd_call (:219)
-//   schrodinger_sse       <- _fwd_kernel (:70), launched by
-//                            _sse_fwd_call (:193)
+//   schrodinger_sse_grad  <- _make_fwd_bwd_kernel (:95), launched at :244
+//                            by _sse_fwd_bwd_call
+//   schrodinger_sse       <- _fwd_kernel (:70), launched at :201 by
+//                            _sse_fwd_call
 // and, with the suffix _bf16, both with stream_dtype="bfloat16" (bf16
 // streams and saved activations, f32 accumulation; pt_mlp.cuh).  As in
 // the TPU kernel, the output bias gradient sums the f32 value adjoints
-// (kRoundedBias = false), the weight gradients the rounded ones.
+// (kRoundedBias = false), the weight gradients the rounded ones.  The
+// output layer carries 2 x 4 streams; the adjoint of the d/dx stream is
+// 0 (the residual has no first x derivative).
 //
-// The forward, backward, layout and reductions are pt_mlp.cuh's; this
-// file holds the two-output head and the entry points, instantiated at
-// hidden width <= 128.  The output layer carries 2 x 4 streams; the
-// adjoint of the d/dx stream is 0 (the residual has no first x
-// derivative).
+// What bounds them on this card: operations.  At the flagship [2,
+// 100x4, 2], N_f = 20,000, a loss+grad call is 14.8 GFLOP (forward,
+// weight gradients and input adjoints of three 100 x 100 layers on
+// four streams, chip_smoke._bound): 0.223 ms at the 67 TFLOP/s f32
+// rate outside the tensor cores, and 0.0209 ms for the bf16 entry with
+// its layer products counted at the 989 TFLOP/s bf16 tensor-core rate.
+// The loss-only call is a third of that work.
 //
-// Block shape.  The flagship [2, 100x4, 2] has 31,002 weights: 124 KB
-// of shared memory, more than half an SM's 228 KB, so one block fits on
-// an SM.  A one-warp block would leave each SM one warp; instead the
-// warps of a block share one copy of the weights, as many as keep the
-// grid within one wave (pt_warps_per_block: 5 warps x 125 blocks at
-// N_f = 20,000).  Smaller nets keep one-warp blocks.
-//
-// Bounds on this card.  Per point, ~0.74 MFLOP of f32 FMA forward and
-// backward at the flagship: 14.8 GFLOP a step at N_f = 20,000, 0.22 ms
-// at the card's 67 TFLOP/s f32 (non-tensor-core) peak.  What bounds it
-// is latency and local memory: the three
-// per-thread stream arrays are 3 x 4 x 128 floats, 6 KB a thread, far
-// beyond the registers, so they live in L1 and spill to L2.  The saved
-// activations are 4 layers x 4 streams x 100 x 4 B = 6,400 B a point,
-// 128 MB at N_f = 20,000 (64 MB with bf16 streams), more than the 50 MB
-// L2, so they stream from HBM; and the per-warp gradient partials are
-// 625 x 31,003 floats (77.6 MB).  A later design would give a point's
-// neurons to several lanes (streams in registers, the layer products
-// as warp-level matrix products on the tensor cores) and reduce the
-// weight gradients across a block before they leave the SM.  The bf16
-// entry points share these bounds: the same per-thread f32 FMAs on
-// rounded operands, with half the workspace traffic.
+// Design.  The loss+grad entries (rows 7 and 7b of PERF.md's kernel
+// table) run pt_tile.cuh's block-tiled kernel: tiles of 32 points,
+// every layer of a tile one product in shared memory on f32 FFMA,
+// persistent blocks whose saved activations stay in an L2-resident
+// slot, one partials row a block.  One thread a
+// point, as pt_mlp.cuh has it, kept 6 KB of streams a thread in local
+// memory and ran at 1.6-2.3x the plain PyTorch version's time.  The
+// loss-only entries keep pt_mlp.cuh's one-thread-a-point forward
+// (weights in shared memory, one block an SM at the flagship).
 //
 // Every entry returns cudaGetLastError().
 
 #include "pt_mlp.cuh"
+#include "pt_tile.cuh"
 
 #define SCHRODINGER_MAX_WIDTH 128
 
@@ -113,7 +105,8 @@ int schrodinger_sse_grad(const float* a0, const float* wpack,
                          const int* widths, int n_layers, int n_pts,
                          float* ws, float* partials, float* out,
                          void* stream) {
-  return pt_launch_loss_grad<SchrodingerHead, SCHRODINGER_MAX_WIDTH, float>(
+  return pt_tile_launch_loss_grad<SchrodingerHead, SCHRODINGER_MAX_WIDTH,
+                                  float>(
       widths, n_layers, a0, wpack, n_pts, SchrodingerHead::Args{}, ws,
       partials, out, stream);
 }
@@ -122,10 +115,10 @@ int schrodinger_sse_grad_bf16(const float* a0, const float* wpack,
                               const int* widths, int n_layers, int n_pts,
                               __nv_bfloat16* ws, float* partials, float* out,
                               void* stream) {
-  return pt_launch_loss_grad<SchrodingerHead, SCHRODINGER_MAX_WIDTH,
-                             __nv_bfloat16>(widths, n_layers, a0, wpack,
-                                            n_pts, SchrodingerHead::Args{},
-                                            ws, partials, out, stream);
+  return pt_tile_launch_loss_grad<SchrodingerHead, SCHRODINGER_MAX_WIDTH,
+                                  __nv_bfloat16>(
+      widths, n_layers, a0, wpack, n_pts, SchrodingerHead::Args{}, ws,
+      partials, out, stream);
 }
 
 // SSE only.  partials: n_tiles floats; out: 1 float.

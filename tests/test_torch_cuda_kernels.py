@@ -176,12 +176,25 @@ def test_ide_kernels_match_plain(layers, n, l1, logl2):
     _check_against_plain(got, again, want, loss_only, n_lam=1)
 
 
+# The edges of the tiled loss+grad kernel (pt_tile.cuh, 32-point tiles):
+# one point, a tile less or more one point, more tiles than one wave of
+# blocks (132 SMs), the widest net and one hidden layer.
+S_TILE_EDGES = [
+    ([2, 100, 100, 100, 100, 2], 1),
+    ([2, 100, 100, 100, 100, 2], 31),
+    ([2, 100, 100, 100, 100, 2], 33),
+    ([2, 100, 100, 100, 100, 2], 132 * 32 + 7),
+    ([2, 128, 128, 2], 132 * 32 + 7),
+    ([2, 100, 2], 1000),
+]
+
+
 @pytest.mark.parametrize("layers,n", [
     ([2, 100, 100, 100, 100, 2], 2048),
     ([2, 100, 100, 100, 100, 2], 300),
     ([2, 40, 40, 2], 300),
     ([2, 32, 2], 512),
-])
+] + S_TILE_EDGES)
 def test_schrodinger_kernels_match_plain(layers, n):
     rng = np.random.RandomState(n)
     pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
@@ -278,7 +291,7 @@ def test_bf16_ide_kernels_match_plain(layers, n):
 
 
 @pytest.mark.parametrize("layers,n", [([2, 100, 100, 100, 100, 2], 20000),
-                                      ([2, 32, 2], 512)])
+                                      ([2, 32, 2], 512)] + S_TILE_EDGES)
 def test_bf16_schrodinger_kernels_match_plain(layers, n):
     rng = np.random.RandomState(n + 1)
     pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))

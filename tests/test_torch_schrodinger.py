@@ -148,7 +148,9 @@ def test_taylor_order1_without_v2():
 
 @pytest.mark.parametrize("layers,n", [([2, 32, 2], 512),
                                       ([2, 40, 40, 2], 300),
-                                      ([2, 100, 100, 100, 100, 2], 300)])
+                                      ([2, 100, 100, 100, 100, 2], 300),
+                                      ([2, 128, 128, 2], 33),
+                                      ([2, 100, 2], 1)])
 def test_fused_sse_matches_jax(layers, n):
     pairs = _pairs(layers, n, np.float32)
     X_f = (LB + (UB - LB) * np.random.RandomState(n).rand(n, 2)).astype(np.float32)
