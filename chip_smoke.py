@@ -20,20 +20,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    2,000), [2, 20, 20, 20, 1] (N = 300) and [2, 16, 1] (N = 1,017), for
    (lambda1, log lambda2) = (0, -6) and (1.3, -4); times at N = 2,000.
 3c. Schrödinger kernels vs plain, at [2, 100x4, 2] (N = 20,000 and
-   300), [2, 32, 2] (N = 512) and the edges of the tiled loss+grad
-   kernel (32-point tiles): [2, 100x4, 2] at N = 1, 31, 33 and 4,231
-   (more tiles than one wave of blocks), [2, 128, 128, 2] (N = 4,231;
-   the widest net) and [2, 100, 2] (N = 1,000; one hidden layer); times
-   at N = 20,000 with the share of the bound; ptxas's registers and
-   spills of the tiled kernel, and the grid, block, registers and
-   shared memory of its launch at [2, 100x4, 2] and [2, 128, 128, 2]
-   from a profiler trace.
+   300), [2, 32, 2] (N = 512) and the edges of the tiled kernels
+   (32-point tiles): [2, 100x4, 2] at N = 1, 31, 33 and 4,231 (more
+   tiles than one wave of blocks), [2, 128, 128, 2] (N = 4,231; the
+   widest net) and [2, 100, 2] (N = 1,000; one hidden layer); at [2,
+   100x4, 2] the loss-only kernel's loss bitwise the loss+grad
+   kernel's; times at N = 20,000 with the share of the bound; ptxas's
+   registers and spills of both tiled kernels (loss+grad, loss only),
+   and the grid, block, registers and shared memory of their launches
+   at [2, 100x4, 2] and [2, 128, 128, 2] from a profiler trace.
 3d. The six bf16-stream kernels vs their plain bf16 versions: the
    inference pair at the three shapes of 3, the identification pair at
    [2, 20x8, 1] (N = 2,000) and [2, 16, 1] (N = 1,017), the
    Schrödinger pair at [2, 100x4, 2] (N = 20,000), [2, 32, 2]
-   (N = 512) and the six edges of 3c; bitwise repeatability; times at
-   each flagship.
+   (N = 512) and the six edges of 3c, the loss bitwise as in 3c;
+   bitwise repeatability; times at each flagship.
 3e. The v1 SSE pair and the three residual-evaluation kernels vs their
    plain versions: the SSE pair at [2, 20x8, 1] (N = 10,000), [2, 40x8,
    1] (N = 1,124) and [2, 16, 1] (N = 1,024); both Burgers residual
@@ -302,17 +303,18 @@ def _check_bf16_grads(tag, got, want):
 
 def _check_pair(stats, tag, grad_name, loss_name, kernel_grad, kernel_loss,
                 plain_grad, plain_loss, args, layers, n_aux, n_lam=0,
-                time_it=False, bf16=False):
+                time_it=False, bf16=False, bitwise_loss=False):
     """Hold the loss+grad and loss-only kernels to their plain versions
     on ``args`` (a net of ``layers``; ``n_aux`` aux rows).  float32:
     loss rtol 1e-5; net gradients rtol 5e-4 with atol 5e-6 * max|g|;
     the last ``n_lam`` gradient pieces (the lambda adjoints) rtol 1e-4;
-    the loss-only kernel to the loss+grad one at rtol 1e-6.  bf16
-    streams (the same roundings, summed in another order, which can move
-    a rounding): losses rtol 2e-3, the net gradients and the lambda
-    adjoints each rel-L2 <= 1e-2 and cosine >= 0.9999.  Two launches
-    bitwise equal.  Updates ``stats``; with ``time_it`` the times and
-    the bound at this shape."""
+    the loss-only kernel to the loss+grad one at rtol 1e-6, or bitwise
+    with ``bitwise_loss`` (f32 and bf16).  bf16 streams (the same
+    roundings, summed in another order, which can move a rounding):
+    losses rtol 2e-3, the net gradients and the lambda adjoints each
+    rel-L2 <= 1e-2 and cosine >= 0.9999.  Two launches bitwise equal.
+    Updates ``stats``; with ``time_it`` the times and the bound at this
+    shape."""
     import torch
     got = _flat(kernel_grad(*args))
     again = _flat(kernel_grad(*args))
@@ -338,12 +340,18 @@ def _check_pair(stats, tag, grad_name, loss_name, kernel_grad, kernel_loss,
             torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-6 * gmax)
         for g, w in zip(got[lam], want[lam]):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
-        torch.testing.assert_close(loss_only.reshape(1), got[0], rtol=1e-6,
-                                   atol=0.0)
+        if not bitwise_loss:
+            torch.testing.assert_close(loss_only.reshape(1), got[0],
+                                       rtol=1e-6, atol=0.0)
         torch.testing.assert_close(loss_only, want_loss, rtol=1e-5, atol=0.0)
         bars = "within the float32 bars"
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
         raise AssertionError(f"{tag}: two launches differ bitwise")
+    if bitwise_loss:
+        if not torch.equal(loss_only.reshape(1), got[0]):
+            raise AssertionError(f"{tag}: loss-only {float(loss_only)!r} is "
+                                 f"not the loss+grad loss {float(got[0])!r}")
+        bars += ", loss-only = loss+grad loss bitwise"
     lerr = float(abs(loss_only - want_loss))
     for name, e in ((grad_name, err), (loss_name, lerr)):
         stats.setdefault(name, {"max_abs_err": 0.0})
@@ -418,7 +426,7 @@ def phase_ide_kernels(stats: dict, bf16: bool = False, shapes=IDE_SHAPES,
 
 
 def _schrodinger_edges():
-    """The edges of the tiled loss+grad kernel (pt_tile.cuh), whose tile
+    """The edges of the tiled kernels (pt_tile.cuh), whose tile
     is the points of one partials row of the C interface: one point, a
     tile less or more one point, more tiles than one wave of blocks (132
     SMs), the widest net and one hidden layer."""
@@ -447,16 +455,21 @@ def phase_schrodinger_kernels(stats: dict, bf16: bool = False,
                     lambda *a: fs.schrodinger_sse_grad(*a, bf16=bf16),
                     lambda *a: fs.schrodinger_sse(*a, bf16=bf16),
                     plain_grad, plain_loss, args, layers, n_aux=0,
-                    time_it=i == 0, bf16=bf16)
-    for line in _ptxas_lines("pt_tile_loss_grad_kernel", bf16):
-        log(f"[kernels] schrodinger_sse_grad{sfx} ptxas: {line}")
+                    time_it=i == 0, bf16=bf16,
+                    bitwise_loss=layers == S_FLAGSHIP)
     shapes = [SCHRODINGER_SHAPES[0], ([2, 128, 128, 2], 4231)]
     inputs = [_schrodinger_inputs(layers, n, seed=300) for layers, n in shapes]
-    recs = _launch_records("pt_tile_loss_grad_kernel", [
-        lambda a=a: fs.schrodinger_sse_grad(*a, bf16=bf16) for a in inputs])
-    for (layers, n), rec in zip(shapes, recs):
-        log(f"[kernels] schrodinger_sse_grad{sfx} launch at "
-            f"{_shape_tag(layers, n)} (profiler trace): {rec}")
+    for kernel, name, fn in (("pt_tile_loss_grad_kernel", "schrodinger_sse_grad",
+                              fs.schrodinger_sse_grad),
+                             ("pt_tile_loss_kernel", "schrodinger_sse",
+                              fs.schrodinger_sse)):
+        for line in _ptxas_lines(kernel, bf16):
+            log(f"[kernels] {name}{sfx} ptxas ({kernel}): {line}")
+        recs = _launch_records(kernel, [
+            lambda a=a, fn=fn: fn(*a, bf16=bf16) for a in inputs])
+        for (layers, n), rec in zip(shapes, recs):
+            log(f"[kernels] {name}{sfx} launch of {kernel} at "
+                f"{_shape_tag(layers, n)} (profiler trace): {rec}")
 
 
 def _launch_records(kernel, fns, tries=3):

@@ -1,10 +1,12 @@
-// Block-tiled loss+grad kernel of the fused PINN losses (sm_90a), for
-// nets with wide hidden layers: the Schrodinger net [2, 100x4, 2] and
-// any hidden width up to 128.  It computes what pt_loss_grad_kernel
-// (pt_mlp.cuh) computes, with the same Head, PtNet, weight pack, stream
-// type S and rounding points, but shaped as the TPU kernel
-// (_make_fwd_bwd_kernel, pinn/ops/pallas_schrodinger.py:95) shapes it:
-// each layer of a tile is one matrix product over the four streams.
+// Block-tiled kernels of the fused PINN losses (sm_90a), for nets with
+// wide hidden layers: the Schrodinger net [2, 100x4, 2] and any hidden
+// width up to 128.  pt_tile_loss_grad_kernel computes what
+// pt_loss_grad_kernel (pt_mlp.cuh) computes, pt_tile_loss_kernel what
+// pt_loss_kernel computes, with the same Head, PtNet, weight pack,
+// stream type S and rounding points, but shaped as the TPU kernels
+// (_make_fwd_bwd_kernel and _fwd_kernel, pinn/ops/pallas_schrodinger.py:95
+// and :70) shape them: each layer of a tile is one matrix product over
+// the four streams.
 //
 // Why.  One thread a point (pt_mlp.cuh) keeps a point's 3 x 4W stream
 // floats in local memory and chains scalar FMAs on them; at width 100
@@ -21,14 +23,16 @@
 // groups).  Hidden widths are padded to a multiple of 4 with zero
 // weights and zero activations, which adds exactly 0 everywhere.
 //
-// Shared memory: two activation buffers of hp x (4T + 4) floats (hp =
-// the widest hidden layer, padded), the current layer's Wt (at most hp x
-// hp, row stride padded), the output streams U and then their adjoints
-// gU (kOut x 4T), and per point the output bias adjoints, the loss and
-// the two inputs.  At T = 32: 147,264 bytes at width 100, 202,368 at
-// 128, of the 232,448 a block may have, so one block of 800 threads an
-// SM.  The weight pack is not resident: each layer's Wt is copied in
-// (S-rounded) in the phase before its product, from L2.
+// Shared memory (PtTileSmem, the one carve-up): two activation buffers
+// of hp x (4T + 4) floats (hp = the widest hidden layer, padded), the
+// current layer's Wt (at most hp x hp, row stride padded), the output
+// streams U and then their adjoints gU (kOut x 4T), with gradients the
+// output bias adjoints (kOut x T), and per point the loss and the two
+// inputs.  At T = 32: 147,264 bytes at width 100 and 202,368 at 128
+// with gradients, 147,008 and 202,112 without, of the 232,448 a block
+// may have, so one block of 800 threads an SM.  The weight pack is not
+// resident: each layer's Wt is copied in (S-rounded) in the phase
+// before its product, from L2.
 //
 // Products, 4 x 4 outputs a thread from 16-byte shared loads, f32
 // FFMA, each output summed in one fixed order:
@@ -38,22 +42,27 @@
 // The elementwise passes (bias, tanh, stream recombination; the
 // adjoint of that; the rematerialised layer inputs) run one thread per
 // (neuron, point) with pt_streams / pt_gz, the math of pt_mlp.cuh's
-// per-point loops.
+// per-point loops.  The forward (pt_tile_forward) is one template for
+// both kernels; the loss-only kernel runs it with nothing saved and
+// has no backward.
 //
-// Saved activations.  (t, z1, z11, z2) of every hidden neuron go to the
-// block's own slot of ws, [slot][layer][stream][neuron][point] with T
-// points a row.  Blocks are persistent (grid = min(tiles, SMs x blocks
-// an SM)); block b takes tiles b, b + grid, ... and reuses
-// its slot for each, so the workspace in use is grid x ws_rows x T
-// values (27 MB at f32 for 132 slots at the flagship), which stays in
-// the 50 MB L2.
+// Saved activations (loss+grad).  (t, z1, z11, z2) of every hidden
+// neuron go to the block's own slot of ws, [slot][layer][stream]
+// [neuron][point] with T points a row.  Blocks are persistent (grid =
+// min(tiles, SMs x blocks an SM)); block b takes tiles b, b + grid, ...
+// and reuses its slot for each, so the workspace in use is grid x
+// ws_rows x T values (27 MB at f32 for 132 slots at the flagship),
+// which stays in the 50 MB L2.
 //
 // Partials without atomics.  Block b owns row b of partials [grid, 1 +
-// n_weights]: its first tile stores its sums there, each later tile
-// adds its own by read-add-write in the block's fixed tile order, and
-// pt_reduce sums the grid rows in row order.  Every sum over points or
-// streams inside a tile has a fixed order too, so two launches on the
-// same inputs and card give bitwise-equal results.
+// n_weights] (loss+grad) or [grid] (loss only): its first tile stores
+// its sums there, each later tile adds its own by read-add-write in the
+// block's fixed tile order, and pt_reduce sums the grid rows in row
+// order.  Every sum over points or streams inside a tile has a fixed
+// order too, so two launches on the same inputs and card give
+// bitwise-equal results, and the two kernels give the same loss bit for
+// bit when their grids are equal (at widths 100 and 128 both run one
+// block an SM).
 //
 // Precision: IEEE f32 (fmaf, tanhf), no TF32, no fast math; with S =
 // __nv_bfloat16 the roundings of pt_mlp.cuh's header, at the same
@@ -74,12 +83,24 @@ constexpr int kPtTileThreads = 800;
 
 __host__ __device__ __forceinline__ int pt_pad4(int n) { return (n + 3) & ~3; }
 
-// Shared-memory floats of a block at hidden width hp (padded) and
-// n_out outputs (the kernel's carve-up, in order).
-__host__ __device__ __forceinline__ int pt_tile_smem_floats(int hp, int n_out) {
-  constexpr int T = PT_TILE;
-  return 2 * hp * (4 * T + 4) + hp * hp + n_out * 4 * T + n_out * T + 3 * T;
-}
+// The carve-up of a block's shared memory at hidden width hp (padded)
+// and n_out outputs, in floats from its start, in order; the kernels
+// and their launches take it from here alone.
+struct PtTileSmem {
+  int buf0, buf1, w, u, gb, l, x, floats;
+  __host__ __device__ __forceinline__ PtTileSmem(int hp, int n_out,
+                                                 bool grads) {
+    constexpr int T = PT_TILE, LD = 4 * T + 4;
+    buf0 = 0;                           // activations
+    buf1 = buf0 + hp * LD;              // activations
+    w = buf1 + hp * LD;                 // the current layer's Wt
+    u = w + hp * hp;                    // U, then the rounded gU
+    gb = u + n_out * 4 * T;             // output bias adjoints (grads)
+    l = gb + (grads ? n_out * T : 0);   // per-point loss
+    x = l + T;                          // the inputs, rounded
+    floats = x + 2 * T;
+  }
+};
 
 __device__ __forceinline__ void pt_tile_add(float* dst, float v, bool first) {
   *dst = first ? v : *dst + v;
@@ -274,6 +295,117 @@ __device__ void pt_tile_gz(const PtNet& net, int l, const S* slot, float* g) {
   }
 }
 
+// The forward of tile `tile`, the TPU kernels' _layer_fwd on a_cat:
+// x_s <- its two inputs, S-rounded; layer 0 elementwise; each hidden
+// layer one product over the 4T columns, then bias, tanh and the
+// stream recombination; u_s <- the output streams U (f32, the bias on
+// the value stream).  On return cur holds the last hidden layer's
+// outputs, nxt is the other activation buffer and w_s holds Wt_out.
+// With kSave each hidden neuron's (t, z1, z11, z2) go to slot.  kSave
+// is a template argument for pt_forward_hidden's reason (pt_mlp.cuh):
+// with a runtime test both versions of each loop stay in the code.
+template <int NO, class S, bool kSave>
+__device__ __forceinline__ void pt_tile_forward(
+    const PtNet& net, const float* __restrict__ a0,
+    const float* __restrict__ wpack, int n_pts, int tile, float* smem,
+    const PtTileSmem& sm, S* slot, float*& cur, float*& nxt) {
+  using St = PtStream<S>;
+  constexpr int T = PT_TILE, M = 4 * T, LD = M + 4;
+  float* const w_s = smem + sm.w;
+  float* const u_s = smem + sm.u;
+  float* const x_s = smem + sm.x;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int L = net.n_layers - 1;   // the output layer
+  auto w_at = [&](int i) { return St::rnd(wpack[i]); };
+
+  for (int p = tid; p < T; p += nth) {
+    const int col = tile * T + p;
+    const bool live = col < n_pts;
+    x_s[p] = St::rnd(live ? a0[col] : 0.0f);
+    x_s[T + p] = St::rnd(live ? a0[n_pts + col] : 0.0f);
+  }
+  pt_tile_load_w<S>(net, 1, wpack, w_s);
+  __syncthreads();
+
+  // ---- layer 0: two inputs, constant tangent rows, z11 = 0 ----
+  cur = smem + sm.buf0;
+  nxt = smem + sm.buf1;
+  {
+    const int h = net.width[1];
+    for (int idx = tid; idx < pt_pad4(h) * T; idx += nth) {
+      const int j = idx / T, p = idx - j * T;
+      float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (j < h) {
+        const float zv = w_at(net.w_off[0] + 2 * j) * x_s[p]
+                         + w_at(net.w_off[0] + 2 * j + 1) * x_s[T + p]
+                         + w_at(net.b_off[0] + j);
+        const float z1 = w_at(net.z1_off + j);
+        const float z2 = w_at(net.z2_off + j);
+        const float t = tanhf(zv);
+        if (kSave) {
+          S* sv = slot + (size_t)(net.s_off[0] + j) * T + p;
+          sv[0] = St::put(t);
+          sv[h * T] = St::put(z1);
+          sv[2 * h * T] = St::put(0.0f);
+          sv[3 * h * T] = St::put(z2);
+        }
+        const float sp = 1.0f - t * t;
+        const float spp = -2.0f * t * sp;
+        o[0] = St::rnd(t);
+        o[1] = St::rnd(sp * z1);
+        o[2] = St::rnd(spp * z1 * z1);
+        o[3] = St::rnd(sp * z2);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) cur[j * LD + s * T + p] = o[s];
+    }
+  }
+  __syncthreads();
+
+  // ---- hidden layers 1 .. L-1 ----
+  for (int l = 1; l < L; ++l) {
+    const int ld = pt_pad4(net.width[l]), h = net.width[l + 1];
+    pt_tile_fwd_product(w_s, ld, cur, nxt, pt_pad4(h));
+    __syncthreads();
+    for (int idx = tid; idx < pt_pad4(h) * T; idx += nth) {
+      const int j = idx / T, p = idx - j * T;
+      float* zj = nxt + j * LD + p;
+      float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (j < h) {
+        const float zv = zj[0] + w_at(net.b_off[l] + j);
+        const float z1 = zj[T], z11 = zj[2 * T], z2 = zj[3 * T];
+        const float t = tanhf(zv);
+        if (kSave) {
+          S* sv = slot + (size_t)(net.s_off[l] + j) * T + p;
+          sv[0] = St::put(t);
+          sv[h * T] = St::put(z1);
+          sv[2 * h * T] = St::put(z11);
+          sv[3 * h * T] = St::put(z2);
+        }
+        pt_streams<S>(t, z1, z11, z2, o);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) zj[s * T] = o[s];
+    }
+    pt_tile_load_w<S>(net, l + 1, wpack, w_s);
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+
+  // ---- output layer ----
+  const int hin = net.width[L], ld = pt_pad4(hin);
+  for (int idx = tid; idx < NO * M; idx += nth) {
+    const int o = idx / M, m = idx - o * M;
+    const float* wo = w_s + o * ld;
+    float u = 0.0f;
+    for (int k = 0; k < hin; ++k) u = fmaf(wo[k], cur[k * LD + m], u);
+    u_s[idx] = m < T ? u + w_at(net.b_off[L] + o) : u;
+  }
+  __syncthreads();
+}
+
 // Loss and every gradient; tiles of T points, one partials row a block.
 template <class Head, class S>
 __global__ void __launch_bounds__(kPtTileThreads)
@@ -286,13 +418,13 @@ pt_tile_loss_grad_kernel(PtNet net, int hp_max,
   using St = PtStream<S>;
   constexpr int T = PT_TILE, M = 4 * T, LD = M + 4, NO = Head::kOut;
   extern __shared__ float4 pt_tile_buf[];
-  float* const buf0 = reinterpret_cast<float*>(pt_tile_buf);
-  float* const buf1 = buf0 + hp_max * LD;
-  float* const w_s = buf1 + hp_max * LD;
-  float* const u_s = w_s + hp_max * hp_max;   // U, then the rounded gU
-  float* const gb_s = u_s + NO * M;           // output bias adjoints
-  float* const l_s = gb_s + NO * T;           // per-point loss
-  float* const x_s = l_s + T;                 // the inputs, rounded
+  float* const smem = reinterpret_cast<float*>(pt_tile_buf);
+  const PtTileSmem sm(hp_max, NO, true);
+  float* const w_s = smem + sm.w;
+  float* const u_s = smem + sm.u;
+  float* const gb_s = smem + sm.gb;
+  float* const l_s = smem + sm.l;
+  float* const x_s = smem + sm.x;
 
   const int tid = threadIdx.x, nth = blockDim.x;
   const int L = net.n_layers - 1;   // the output layer
@@ -300,92 +432,16 @@ pt_tile_loss_grad_kernel(PtNet net, int hp_max,
   S* const slot = ws + (size_t)blockIdx.x * net.ws_rows * T;
   float* const loss_out = partials + (size_t)blockIdx.x * (1 + net.n_weights);
   float* const grad = loss_out + 1;
-  auto w_at = [&](int i) { return St::rnd(wpack[i]); };
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first = tile == (int)blockIdx.x;
-    for (int p = tid; p < T; p += nth) {
-      const int col = tile * T + p;
-      const bool live = col < n_pts;
-      x_s[p] = St::rnd(live ? a0[col] : 0.0f);
-      x_s[T + p] = St::rnd(live ? a0[n_pts + col] : 0.0f);
-    }
-    pt_tile_load_w<S>(net, 1, wpack, w_s);
-    __syncthreads();
+    float* cur;
+    float* nxt;
+    pt_tile_forward<NO, S, true>(net, a0, wpack, n_pts, tile, smem, sm,
+                                 slot, cur, nxt);
 
-    // ---- layer 0: two inputs, constant tangent rows, z11 = 0 ----
-    float* cur = buf0;
-    float* nxt = buf1;
-    {
-      const int h = net.width[1];
-      for (int idx = tid; idx < pt_pad4(h) * T; idx += nth) {
-        const int j = idx / T, p = idx - j * T;
-        float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (j < h) {
-          const float zv = w_at(net.w_off[0] + 2 * j) * x_s[p]
-                           + w_at(net.w_off[0] + 2 * j + 1) * x_s[T + p]
-                           + w_at(net.b_off[0] + j);
-          const float z1 = w_at(net.z1_off + j);
-          const float z2 = w_at(net.z2_off + j);
-          const float t = tanhf(zv);
-          S* sv = slot + (size_t)(net.s_off[0] + j) * T + p;
-          sv[0] = St::put(t);
-          sv[h * T] = St::put(z1);
-          sv[2 * h * T] = St::put(0.0f);
-          sv[3 * h * T] = St::put(z2);
-          const float sp = 1.0f - t * t;
-          const float spp = -2.0f * t * sp;
-          o[0] = St::rnd(t);
-          o[1] = St::rnd(sp * z1);
-          o[2] = St::rnd(spp * z1 * z1);
-          o[3] = St::rnd(sp * z2);
-        }
-#pragma unroll
-        for (int s = 0; s < 4; ++s) cur[j * LD + s * T + p] = o[s];
-      }
-    }
-    __syncthreads();
-
-    // ---- hidden layers 1 .. L-1 ----
-    for (int l = 1; l < L; ++l) {
-      const int ld = pt_pad4(net.width[l]), h = net.width[l + 1];
-      pt_tile_fwd_product(w_s, ld, cur, nxt, pt_pad4(h));
-      __syncthreads();
-      for (int idx = tid; idx < pt_pad4(h) * T; idx += nth) {
-        const int j = idx / T, p = idx - j * T;
-        float* zj = nxt + j * LD + p;
-        float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (j < h) {
-          const float zv = zj[0] + w_at(net.b_off[l] + j);
-          const float z1 = zj[T], z11 = zj[2 * T], z2 = zj[3 * T];
-          const float t = tanhf(zv);
-          S* sv = slot + (size_t)(net.s_off[l] + j) * T + p;
-          sv[0] = St::put(t);
-          sv[h * T] = St::put(z1);
-          sv[2 * h * T] = St::put(z11);
-          sv[3 * h * T] = St::put(z2);
-          pt_streams<S>(t, z1, z11, z2, o);
-        }
-#pragma unroll
-        for (int s = 0; s < 4; ++s) zj[s * T] = o[s];
-      }
-      pt_tile_load_w<S>(net, l + 1, wpack, w_s);
-      __syncthreads();
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-
-    // ---- output layer and head ----
+    // ---- head ----
     const int hin = net.width[L], ld = pt_pad4(hin);
-    for (int idx = tid; idx < NO * M; idx += nth) {
-      const int o = idx / M, m = idx - o * M;
-      const float* wo = w_s + o * ld;
-      float u = 0.0f;
-      for (int k = 0; k < hin; ++k) u = fmaf(wo[k], cur[k * LD + m], u);
-      u_s[idx] = m < T ? u + w_at(net.b_off[L] + o) : u;
-    }
-    __syncthreads();
     for (int p = tid; p < T; p += nth) {
       const int col = tile * T + p;
       const typename Head::Point pt = Head::load(args, n_pts, col, col < n_pts);
@@ -492,31 +548,80 @@ pt_tile_loss_grad_kernel(PtNet net, int hp_max,
   }
 }
 
+// The loss alone, in pt_tile_loss_grad_kernel's tiles, grid and order:
+// its forward with nothing saved, Head::eval a point (one warp, a point
+// a lane), the tile's sum in point order added to the block's partial.
+// At the same grid the two kernels' losses are bitwise equal.
+template <class Head, class S>
+__global__ void __launch_bounds__(kPtTileThreads)
+pt_tile_loss_kernel(PtNet net, int hp_max, const float* __restrict__ a0,
+                    const float* __restrict__ wpack, int n_pts,
+                    typename Head::Args args, float* __restrict__ partials) {
+  static_assert(Head::kExtra == 0, "pt_tile takes heads without extras");
+  static_assert(kPtTileThreads >= PT_TILE, "a tile's points in one pass");
+  constexpr int T = PT_TILE, M = 4 * T, NO = Head::kOut;
+  extern __shared__ float4 pt_tile_buf[];
+  float* const smem = reinterpret_cast<float*>(pt_tile_buf);
+  const PtTileSmem sm(hp_max, NO, false);
+  const float* const u_s = smem + sm.u;
+  float* const l_s = smem + sm.l;
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (n_pts + T - 1) / T;
+  float* const loss_out = partials + blockIdx.x;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const bool first = tile == (int)blockIdx.x;
+    float* cur;
+    float* nxt;
+    pt_tile_forward<NO, S, false>(net, a0, wpack, n_pts, tile, smem, sm,
+                                  static_cast<S*>(nullptr), cur, nxt);
+    // Only warp 0 touches l_s and the partial; the next tile writes
+    // u_s after barriers that warp 0 reaches first.
+    if (tid < T) {
+      const int p = tid, col = tile * T + p;
+      const typename Head::Point pt = Head::load(args, n_pts, col, col < n_pts);
+      float U[NO][4], gU[NO][4], ex[1];
+      for (int o = 0; o < NO; ++o) {
+        for (int s = 0; s < 4; ++s) U[o][s] = u_s[o * M + s * T + p];
+      }
+      l_s[p] = Head::eval(args, pt, U, gU, ex);
+    }
+    __syncwarp();
+    if (tid == 0) {
+      float s = 0.0f;
+      for (int p = 0; p < T; ++p) s += l_s[p];
+      pt_tile_add(loss_out, s, first);
+    }
+  }
+}
+
 // The launch shape of one kernel instance on one device at one hidden
 // width hp (padded): its dynamic shared memory, the SM count and the
-// blocks an SM.  Each instance keeps the last one it launched with, so
-// the attribute is set and the occupancy asked only when the device or
-// the width changes.
+// blocks an SM.  Each instance keeps the last one it launched with in
+// its own PtTileCache, so the attribute is set and the occupancy asked
+// only when the device or the width changes.
 struct PtTileShape {
   int dev = -1, hp = 0, n_sm = 0, per_sm = 0;
   size_t smem = 0;
 };
 
-// Loss, every gradient, through the tiled kernel at hidden width <= W.
-// The buffers are pt_launch_loss_grad's (ws: ws_rows * n_rows * 32
-// values of S; partials: n_rows * (1 + n_weights) floats, n_rows =
-// ceil(n_pts / 32)).  A tile is one partials row's points, so a
-// block's slot and partials row fit in them while the grid is at most
-// the tile count.  A launch the card refuses (shared memory, threads)
-// returns its error; there is no fallback.
-template <class Head, int W, class S>
-int pt_tile_launch_loss_grad(const int* widths, int n_layers, const float* a0,
-                             const float* wpack, int n_pts,
-                             typename Head::Args args, S* ws, float* partials,
-                             float* out, void* stream) {
+struct PtTileCache {
+  std::mutex mu;
+  PtTileShape last;
+};
+
+// The net, launch shape and grid of a tiled kernel over n_pts points at
+// hidden width <= max_width: grid = min(tiles, SMs x blocks an SM).  A
+// tile is one partials row's points, so a block's slot and partials row
+// fit the C interface's buffers (ceil(n_pts / 32) rows) while the grid
+// is at most the tile count; a grid past them is refused.
+int pt_tile_plan(const int* widths, int n_layers, int n_out, int max_width,
+                 int n_pts, const void* kernel, bool grads,
+                 PtTileCache* cache, PtNet* net, PtTileShape* sh,
+                 int* grid) {
   constexpr int T = PT_TILE;
-  PtNet net;
-  int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
+  int err = pt_make_net(widths, n_layers, n_out, max_width, net);
   if (err) return err;
   if (n_pts < 1) return (int)cudaErrorInvalidValue;
   int hp = 4;
@@ -526,17 +631,13 @@ int pt_tile_launch_loss_grad(const int* widths, int n_layers, const float* a0,
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const void* kernel = (const void*)pt_tile_loss_grad_kernel<Head, S>;
-  static std::mutex mu;
-  static PtTileShape last;
-  PtTileShape sh;
   {
-    std::lock_guard<std::mutex> lock(mu);
-    if (last.dev != dev || last.hp != hp) {
+    std::lock_guard<std::mutex> lock(cache->mu);
+    if (cache->last.dev != dev || cache->last.hp != hp) {
       PtTileShape fresh;
       fresh.dev = dev;
       fresh.hp = hp;
-      fresh.smem = sizeof(float) * pt_tile_smem_floats(hp, Head::kOut);
+      fresh.smem = sizeof(float) * PtTileSmem(hp, n_out, grads).floats;
       e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)fresh.smem);
@@ -550,23 +651,67 @@ int pt_tile_launch_loss_grad(const int* widths, int n_layers, const float* a0,
       }
       if (e != cudaSuccess) return (int)e;
       if (fresh.per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-      last = fresh;
+      cache->last = fresh;
     }
-    sh = last;
+    *sh = cache->last;
   }
   const int n_tiles = (n_pts + T - 1) / T;
   const int n_rows = (n_pts + PT_TILE - 1) / PT_TILE;
-  const int slots = sh.n_sm * sh.per_sm;
-  const int grid = n_tiles < slots ? n_tiles : slots;
-  if ((size_t)grid * T > (size_t)n_rows * PT_TILE) {
+  const int slots = sh->n_sm * sh->per_sm;
+  *grid = n_tiles < slots ? n_tiles : slots;
+  if ((size_t)*grid * T > (size_t)n_rows * PT_TILE) {
     return (int)cudaErrorInvalidValue;
   }
+  return 0;
+}
+
+// Loss, every gradient, through the tiled kernel at hidden width <= W.
+// The buffers are pt_launch_loss_grad's (ws: ws_rows * n_rows * 32
+// values of S; partials: n_rows * (1 + n_weights) floats, n_rows =
+// ceil(n_pts / 32)).  A launch the card refuses (shared memory,
+// threads) returns its error; there is no fallback.
+template <class Head, int W, class S>
+int pt_tile_launch_loss_grad(const int* widths, int n_layers, const float* a0,
+                             const float* wpack, int n_pts,
+                             typename Head::Args args, S* ws, float* partials,
+                             float* out, void* stream) {
+  static PtTileCache cache;
+  PtNet net;
+  PtTileShape sh;
+  int grid = 0;
+  int err = pt_tile_plan(widths, n_layers, Head::kOut, W, n_pts,
+                         (const void*)pt_tile_loss_grad_kernel<Head, S>, true,
+                         &cache, &net, &sh, &grid);
+  if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   pt_tile_loss_grad_kernel<Head, S><<<grid, kPtTileThreads, sh.smem, s>>>(
-      net, hp, a0, wpack, n_pts, args, ws, partials);
+      net, sh.hp, a0, wpack, n_pts, args, ws, partials);
   err = (int)cudaGetLastError();
   if (err) return err;
   return pt_reduce(partials, grid, 1 + net.n_weights, out, s);
+}
+
+// The loss alone, through the tiled kernel at hidden width <= W.  The
+// buffers are pt_launch_loss's (partials: n_rows floats; out: 1 float).
+template <class Head, int W, class S>
+int pt_tile_launch_loss(const int* widths, int n_layers, const float* a0,
+                        const float* wpack, int n_pts,
+                        typename Head::Args args, float* partials,
+                        float* out, void* stream) {
+  static PtTileCache cache;
+  PtNet net;
+  PtTileShape sh;
+  int grid = 0;
+  int err = pt_tile_plan(widths, n_layers, Head::kOut, W, n_pts,
+                         (const void*)pt_tile_loss_kernel<Head, S>, false,
+                         &cache, &net, &sh, &grid);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  pt_tile_loss_kernel<Head, S><<<grid, kPtTileThreads, sh.smem, s>>>(
+      net, sh.hp, a0, wpack, n_pts, args, partials);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return pt_reduce(partials, grid, 1, out, s);
 }
 
 }  // namespace

@@ -29,15 +29,17 @@
 // its layer products counted at the 989 TFLOP/s bf16 tensor-core rate.
 // The loss-only call is a third of that work.
 //
-// Design.  The loss+grad entries (rows 7 and 7b of PERF.md's kernel
-// table) run pt_tile.cuh's block-tiled kernel: tiles of 32 points,
-// every layer of a tile one product in shared memory on f32 FFMA,
-// persistent blocks whose saved activations stay in an L2-resident
-// slot, one partials row a block.  One thread a
-// point, as pt_mlp.cuh has it, kept 6 KB of streams a thread in local
-// memory and ran at 1.6-2.3x the plain PyTorch version's time.  The
-// loss-only entries keep pt_mlp.cuh's one-thread-a-point forward
-// (weights in shared memory, one block an SM at the flagship).
+// Design.  Every entry runs one of pt_tile.cuh's block-tiled kernels:
+// tiles of 32 points, every layer of a tile one product in shared
+// memory on f32 FFMA, persistent blocks, one partials row a block.  The
+// loss+grad entries (rows 7 and 7b of PERF.md's kernel table) save
+// their activations to an L2-resident slot a block and run the
+// backward; the loss-only entries (rows 8 and 8b) run the same forward
+// with nothing saved, so at the same grid their loss is bitwise the
+// loss+grad entries'.  One thread a point, as pt_mlp.cuh has it, kept
+// the streams in local memory: 6 KB a thread for loss+grad, 1.6-2.3x
+// the plain PyTorch version's time, and loss-only 1.7-2.5x its plain
+// version's.
 //
 // Every entry returns cudaGetLastError().
 
@@ -125,7 +127,7 @@ int schrodinger_sse_grad_bf16(const float* a0, const float* wpack,
 int schrodinger_sse(const float* a0, const float* wpack, const int* widths,
                     int n_layers, int n_pts, float* partials, float* out,
                     void* stream) {
-  return pt_launch_loss<SchrodingerHead, SCHRODINGER_MAX_WIDTH, float>(
+  return pt_tile_launch_loss<SchrodingerHead, SCHRODINGER_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, SchrodingerHead::Args{}, partials,
       out, stream);
 }
@@ -133,10 +135,10 @@ int schrodinger_sse(const float* a0, const float* wpack, const int* widths,
 int schrodinger_sse_bf16(const float* a0, const float* wpack,
                          const int* widths, int n_layers, int n_pts,
                          float* partials, float* out, void* stream) {
-  return pt_launch_loss<SchrodingerHead, SCHRODINGER_MAX_WIDTH,
-                        __nv_bfloat16>(widths, n_layers, a0, wpack, n_pts,
-                                       SchrodingerHead::Args{}, partials, out,
-                                       stream);
+  return pt_tile_launch_loss<SchrodingerHead, SCHRODINGER_MAX_WIDTH,
+                             __nv_bfloat16>(widths, n_layers, a0, wpack,
+                                            n_pts, SchrodingerHead::Args{},
+                                            partials, out, stream);
 }
 
 }  // extern "C"

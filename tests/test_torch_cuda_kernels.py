@@ -7,13 +7,15 @@ run
 
 Bars as in tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol
 5e-4 with atol 5e-6 * max|g|, identification lambda adjoints rtol 1e-4;
-two launches are bitwise equal.  The bf16-stream kernels against their
-plain bf16 versions (the same roundings, summed in another order, which
-can move a rounding): loss rtol 2e-3, gradient rel-L2 <= 1e-2 and
-cosine >= 0.9999 (the net gradients and the lambda adjoints each).  The
-residual-evaluation kernels against theirs at the bars of
-tests/test_pallas.py: Burgers rtol 2e-5 / atol 1e-6, Schrödinger rtol
-2e-4 / atol 2e-6.
+two launches are bitwise equal, and at [2, 100x4, 2] the Schrödinger
+loss-only kernel's loss is the loss+grad kernel's bit for bit (f32 and
+bf16: the same tiled forward, grid and order of sums).  The bf16-stream
+kernels against their plain bf16 versions (the same roundings, summed
+in another order, which can move a rounding): loss rtol 2e-3, gradient
+rel-L2 <= 1e-2 and cosine >= 0.9999 (the net gradients and the lambda
+adjoints each).  The residual-evaluation kernels against theirs at the
+bars of tests/test_pallas.py: Burgers rtol 2e-5 / atol 1e-6,
+Schrödinger rtol 2e-4 / atol 2e-6.
 """
 
 import numpy as np
@@ -189,14 +191,10 @@ S_TILE_EDGES = [
 ]
 
 
-@pytest.mark.parametrize("layers,n", [
-    ([2, 100, 100, 100, 100, 2], 2048),
-    ([2, 100, 100, 100, 100, 2], 300),
-    ([2, 40, 40, 2], 300),
-    ([2, 32, 2], 512),
-] + S_TILE_EDGES)
-def test_schrodinger_kernels_match_plain(layers, n):
-    rng = np.random.RandomState(n)
+def _schrodinger_args(layers, n, seed):
+    """Seeded weights and points, prepared for the Schrödinger kernels
+    on the card: (a0, z1row, z2row, wt_args)."""
+    rng = np.random.RandomState(seed)
     pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
              for a, b in zip(layers[:-1], layers[1:])]
     params = params_from_numpy(pairs, "cuda", torch.float32)
@@ -204,8 +202,17 @@ def test_schrodinger_kernels_match_plain(layers, n):
     X_f = torch.as_tensor(lbs + (ubs - lbs) * rng.rand(n, 2), dtype=torch.float32,
                           device="cuda")
     lb, ub, vx, vt = ft._tangents(lbs, ubs, "cuda")
-    args = (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
+    return (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
 
+
+@pytest.mark.parametrize("layers,n", [
+    ([2, 100, 100, 100, 100, 2], 2048),
+    ([2, 100, 100, 100, 100, 2], 300),
+    ([2, 40, 40, 2], 300),
+    ([2, 32, 2], 512),
+] + S_TILE_EDGES)
+def test_schrodinger_kernels_match_plain(layers, n):
+    args = _schrodinger_args(layers, n, seed=n)
     n0 = dict(fs.launches)
     got = _flat(fs.schrodinger_sse_grad(*args))
     again = _flat(fs.schrodinger_sse_grad(*args))
@@ -214,6 +221,23 @@ def test_schrodinger_kernels_match_plain(layers, n):
     torch.cuda.synchronize()
     assert _launched(fs, n0, "schrodinger_sse_grad", "schrodinger_sse") == (2, 1)
     _check_against_plain(got, again, want, loss_only)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n", [20000, 132 * 32 + 7])
+def test_schrodinger_loss_only_is_the_loss_grad_loss_bitwise(n, bf16):
+    """At [2, 100x4, 2] both tiled kernels run one block an SM, so the
+    same grid, tiles and order of sums: the loss-only kernel's loss is
+    the loss+grad kernel's, bit for bit."""
+    args = _schrodinger_args([2, 100, 100, 100, 100, 2], n, seed=n + 2)
+    n0 = dict(fs.launches)
+    loss_only = fs.schrodinger_sse(*args, bf16=bf16)
+    loss = fs.schrodinger_sse_grad(*args, bf16=bf16)[0]
+    torch.cuda.synchronize()
+    sfx = "_bf16" if bf16 else ""
+    assert _launched(fs, n0, "schrodinger_sse" + sfx,
+                     "schrodinger_sse_grad" + sfx) == (1, 1)
+    assert torch.equal(loss_only.reshape(1), loss.reshape(1))
 
 
 def test_schrodinger_wrapper_refuses_wide_nets():
@@ -293,16 +317,7 @@ def test_bf16_ide_kernels_match_plain(layers, n):
 @pytest.mark.parametrize("layers,n", [([2, 100, 100, 100, 100, 2], 20000),
                                       ([2, 32, 2], 512)] + S_TILE_EDGES)
 def test_bf16_schrodinger_kernels_match_plain(layers, n):
-    rng = np.random.RandomState(n + 1)
-    pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
-             for a, b in zip(layers[:-1], layers[1:])]
-    params = params_from_numpy(pairs, "cuda", torch.float32)
-    lbs, ubs = np.array([-5.0, 0.0], np.float32), np.array([5.0, np.pi / 2], np.float32)
-    X_f = torch.as_tensor(lbs + (ubs - lbs) * rng.rand(n, 2), dtype=torch.float32,
-                          device="cuda")
-    lb, ub, vx, vt = ft._tangents(lbs, ubs, "cuda")
-    args = (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
-
+    args = _schrodinger_args(layers, n, seed=n + 1)
     n0 = dict(fs.launches)
     got = _flat(fs.schrodinger_sse_grad(*args, bf16=True))
     again = _flat(fs.schrodinger_sse_grad(*args, bf16=True))

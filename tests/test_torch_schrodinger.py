@@ -171,6 +171,35 @@ def test_fused_sse_matches_jax(layers, n):
                                    float(got.detach()), rtol=1e-6)
 
 
+@pytest.mark.parametrize("layers,n,stream_dtype", [
+    ([2, 100, 100, 100, 100, 2], 600, None),
+    ([2, 128, 128, 2], 33, None),
+    ([2, 100, 2], 1, None),
+    ([2, 32, 2], 512, None),
+    # bf16 on two 512-point TPU tiles or more: XLA CPU refuses the BF16
+    # dot of a single one.
+    ([2, 100, 100, 100, 100, 2], 600, "bfloat16"),
+    ([2, 128, 128, 2], 1031, "bfloat16"),
+])
+def test_fused_sse_loss_only_matches_jax(layers, n, stream_dtype):
+    """The loss-only branch (``schrodinger_sse[_bf16]``'s plain version
+    on the CPU) against the JAX primal without a gradient, which runs
+    ``_sse_fwd_call`` -> ``_fwd_kernel`` in interpret mode: rtol 1e-5
+    (float32), 2e-3 (bf16 streams)."""
+    pairs = _pairs(layers, n + 11, np.float32)
+    X_f = (LB + (UB - LB) * np.random.RandomState(n + 11).rand(n, 2)).astype(np.float32)
+    jsse = pallas_schrodinger.make_schrodinger_sse(LB, UB, interpret=True,
+                                                   stream_dtype=stream_dtype)
+    want = jsse(tuple((jnp.asarray(w), jnp.asarray(b)) for w, b in pairs),
+                jnp.asarray(X_f))
+    sse = fused_schrodinger.make_schrodinger_sse(LB, UB, stream_dtype)
+    with torch.no_grad():
+        got = sse(params_from_numpy(pairs, "cpu", torch.float32),
+                  torch.as_tensor(X_f))
+    np.testing.assert_allclose(float(got), float(want),
+                               rtol=2e-3 if stream_dtype else 1e-5)
+
+
 def test_fused_loss_matches_jax():
     """make_schrodinger_loss, value and gradients, as
     tests/test_pallas_schrodinger.py holds the JAX one to its XLA loss."""
