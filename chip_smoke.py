@@ -14,8 +14,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    shared-memory and spill lines.
 3. Burgers inference kernels vs plain: each against its plain PyTorch
    version on the card, at the flagship [2, 20x8, 1] (N = 10,100), the
-   width-40 [2, 40x8, 1] and a ragged [2, 16, 1]; bitwise
-   repeatability; median times at the flagship.
+   width-40 [2, 40x8, 1], a ragged [2, 16, 1] and the edges of the
+   narrow loss+grad kernel (pt_narrow.cuh, a block a 32-point tile):
+   the flagship at N = 1, 31, 33 and 10,119, [2, 7, 33, 64, 1], the
+   widest pack [2, 64x14, 1] and the most layers [2, 20x15, 1]; at
+   every shape the loss-only loss bitwise the loss+grad loss; bitwise
+   repeatability; median times at the flagship; ptxas's lines of the
+   narrow kernel and of the loss-only kernel, their launch records and
+   the device ms a call of each kernel of a call (profiler trace).
 3b. Burgers identification kernels vs plain, at [2, 20x8, 1] (N =
    2,000), [2, 20, 20, 20, 1] (N = 300) and [2, 16, 1] (N = 1,017), for
    (lambda1, log lambda2) = (0, -6) and (1.3, -4); times at N = 2,000.
@@ -30,8 +36,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the grid, block, registers and shared memory of their launches
    at [2, 100x4, 2] and [2, 128, 128, 2] from a profiler trace.
 3d. The six bf16-stream kernels vs their plain bf16 versions: the
-   inference pair at the three shapes of 3, the identification pair at
-   [2, 20x8, 1] (N = 2,000) and [2, 16, 1] (N = 1,017), the
+   inference pair as in 3 (every shape, the loss bitwise, the ptxas
+   lines, launch records and device times), the identification pair
+   at [2, 20x8, 1] (N = 2,000) and [2, 16, 1] (N = 1,017), the
    Schrödinger pair at [2, 100x4, 2] (N = 20,000), [2, 32, 2]
    (N = 512) and the six edges of 3c, the loss bitwise as in 3c;
    bitwise repeatability; times at each flagship.
@@ -122,6 +129,13 @@ KERNEL_SHAPES = [           # (layers, N_u, N_f)
     (WIDE, 100, 1024),
     ([2, 16, 1], 7, 1017),  # ragged edge inside a 32-point tile
 ]
+# The edges of the narrow loss+grad kernel (pt_narrow.cuh, a block a
+# 32-point tile), as (layers, N): one point, a tile less or more one
+# point, the flagship's 316 tiles and 7 points more, hidden widths that
+# are not multiples of 4, the widest pack and the most layers.
+NARROW_EDGES = [(FLAGSHIP, 1), (FLAGSHIP, 31), (FLAGSHIP, 33),
+                (FLAGSHIP, 316 * 32 + 7), ([2, 7, 33, 64, 1], 1000),
+                ([2] + [64] * 14 + [1], 1000), ([2] + [20] * 15 + [1], 1000)]
 IDE_SHAPES = [(FLAGSHIP, 2000), ([2, 20, 20, 20, 1], 300), ([2, 16, 1], 1017)]
 IDE_LAMBDAS = [(0.0, -6.0), (1.3, -4.0)]
 SCHRODINGER_SHAPES = [(S_FLAGSHIP, 20000), (S_FLAGSHIP, 300), ([2, 32, 2], 512)]
@@ -198,9 +212,9 @@ def _weights(layers, rng):
     return params_from_numpy(pairs, "cuda", torch.float32)
 
 
-def _kernel_inputs(layers, n_u, n_f, seed):
+def _kernel_inputs(layers, n_u, n_f, seed, n=None):
     """Seeded numpy weights and points, prepared for the inference
-    kernels on the card."""
+    kernels on the card; with ``n``, only the last ``n`` points."""
     import torch
     from pinn_torch.ops import fused_train as ft
 
@@ -213,7 +227,15 @@ def _kernel_inputs(layers, n_u, n_f, seed):
              for k, v in batch.items()}
     lb, ub, vx, vt = ft._tangents(LB, UB, "cuda")
     a0, aux = ft._prep_points(batch, lb, ub)
+    if n is not None:
+        a0, aux = a0[:, -n:].contiguous(), aux[:, -n:].contiguous()
     return (a0, aux, *ft._prep(params, vx, vt))
+
+
+def _edge_inputs(layers, n, seed):
+    """_kernel_inputs for ``n`` points, a third of them data points."""
+    n_u = max(1, n // 3)
+    return _kernel_inputs(layers, n_u, n - n_u + 1, seed, n=n)
 
 
 def _ide_inputs(layers, n, lam, seed):
@@ -382,25 +404,50 @@ def _shape_tag(layers, n):
     return f"{layers[1]}x{len(layers) - 2} N={n}"
 
 
-def phase_kernels(stats: dict, bf16: bool = False,
-                  shapes=KERNEL_SHAPES) -> None:
+def phase_kernels(stats: dict, bf16: bool = False) -> None:
     """3 (3d with ``bf16``): the Burgers inference kernels against their
-    plain versions."""
+    plain versions, the loss-only loss bitwise the loss+grad one at
+    every shape; the narrow kernel's and the loss-only kernel's ptxas
+    lines, launch records and device times."""
     from pinn_torch.ops import fused_train as ft
     sfx = "_bf16" if bf16 else ""
     plain_grad = (ft.burgers_loss_grad_bf16_plain if bf16
                   else ft.burgers_loss_grad_plain)
     plain_loss = ft.burgers_loss_bf16_plain if bf16 else ft.burgers_loss_plain
 
-    for i, (layers, n_u, n_f) in enumerate(shapes):
-        args = _kernel_inputs(layers, n_u, n_f, seed=100 + i)
-        _check_pair(stats, sfx[1:] + " " + _shape_tag(layers, n_u + n_f),
-                    "burgers_loss_grad" + sfx, "burgers_loss" + sfx,
-                    lambda *a: ft.burgers_loss_grad(*a, NU, bf16=bf16),
-                    lambda *a: ft.burgers_loss(*a, NU, bf16=bf16),
-                    lambda *a: plain_grad(*a, NU),
+    def grad(*a):
+        return ft.burgers_loss_grad(*a, NU, bf16=bf16)
+
+    def loss(*a):
+        return ft.burgers_loss(*a, NU, bf16=bf16)
+
+    cases = [(layers, n_u + n_f, _kernel_inputs(layers, n_u, n_f, seed=100 + i))
+             for i, (layers, n_u, n_f) in enumerate(KERNEL_SHAPES)]
+    cases += [(layers, n, _edge_inputs(layers, n, seed=700 + i))
+              for i, (layers, n) in enumerate(NARROW_EDGES)]
+    for i, (layers, n, args) in enumerate(cases):
+        _check_pair(stats, sfx[1:] + " " + _shape_tag(layers, n),
+                    "burgers_loss_grad" + sfx, "burgers_loss" + sfx, grad,
+                    loss, lambda *a: plain_grad(*a, NU),
                     lambda *a: plain_loss(*a, NU),
-                    args, layers, n_aux=3, time_it=i == 0, bf16=bf16)
+                    args, layers, n_aux=3, time_it=i == 0, bf16=bf16,
+                    bitwise_loss=True)
+
+    flagship = cases[0][2]
+    for kernel, name, fn in (("pt_narrow_loss_grad_kernel", "burgers_loss_grad",
+                              grad),
+                             ("pt_loss_kernel", "burgers_loss", loss)):
+        for line in _ptxas_lines(kernel, bf16, "BurgersInfHead"):
+            log(f"[kernels] {name}{sfx} ptxas ({kernel}): {line}")
+        rec, = _launch_records(kernel, [lambda: fn(*flagship)])
+        log(f"[kernels] {name}{sfx} launch of {kernel} at "
+            f"{_shape_tag(FLAGSHIP, cases[0][1])} (profiler trace): {rec}")
+        dev = _device_ms(lambda: fn(*flagship))
+        log(f"[kernels] {name}{sfx} device ms a call at "
+            f"{_shape_tag(FLAGSHIP, cases[0][1])} (profiler trace, beside "
+            f"the median {stats[name + sfx]['ms']:.4f} ms through the "
+            f"wrapper): total {sum(dev.values()):.5f}; "
+            + ", ".join(f"{k} {v:.5f}" for k, v in dev.items()))
 
 
 def phase_ide_kernels(stats: dict, bf16: bool = False, shapes=IDE_SHAPES,
@@ -500,14 +547,37 @@ def _launch_records(kernel, fns, tries=3):
     return ["not traced"] * len(fns)
 
 
-def _ptxas_lines(kernel, bf16):
+def _device_ms(fn, reps=20) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches, by kernel
+    name, from a torch.profiler (CUPTI) trace of ``reps`` calls after
+    one outside it."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$", "", e.key)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def _ptxas_lines(kernel, bf16, head=""):
     """ptxas's lines (registers, stack, spills) for the float32 or bf16
-    instance of the kernel template named ``kernel``."""
+    instance of the kernel template named ``kernel`` (on ``head``)."""
     from pinn_torch.ops import _build
     lines, keep = [], False
     for line in _build.library().log.splitlines():
         if "Compiling entry function" in line:
-            keep = kernel in line and ("bfloat16" in line) == bf16
+            keep = (kernel in line and head in line
+                    and ("bfloat16" in line) == bf16)
         elif keep and ("registers" in line or "spill" in line):
             lines.append(line.strip())
     return lines

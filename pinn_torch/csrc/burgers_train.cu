@@ -47,30 +47,36 @@
 // rather than being burgers_loss_grad with w = 1, d = 0: it reads no
 // aux rows and sums f^2, not a weighted mean.
 //
-// The forward, backward, layout and reductions are pt_mlp.cuh's; this
-// file holds the two loss heads and the entry points, instantiated at
-// hidden width <= 64.  The weights sit in shared memory (12.2 KB at
-// [2, 20x8, 1], 46.9 KB at [2, 40x8, 1]), so every block is one warp
-// and many blocks share an SM.  The saved-activation workspace is
-// 2,560 B a point at width 20 (25.9 MB at the inference flagship's
-// N = 10,100, inside the 50 MB L2), half that with bf16 streams.
+// Two designs, one layout.  burgers_loss_grad[_bf16] launch
+// pt_narrow.cuh's block-tiled kernel: a block a 32-point tile, each
+// layer one product over the four streams in shared memory, the
+// weights staged a layer at a time, 320 threads a block (42 KB of
+// shared memory at [2, 20x8, 1], so several blocks share an SM and the
+// flagship's 316 tiles run in one wave); its loss is burgers_loss's bit
+// for bit.  The other eight entries run pt_mlp.cuh's one thread a
+// point, the weights in shared memory (12.2 KB at [2, 20x8, 1], 46.9 KB
+// at [2, 40x8, 1]), one warp a block.  Both read the same buffers:
+// the saved-activation workspace is 2,560 B a point at width 20 (25.9
+// MB at the inference flagship's N = 10,100, inside the 50 MB L2), half
+// that with bf16 streams, and partials hold a row per 32-point tile.
+// All are instantiated at hidden width <= 64.
 //
 // Bounds on this card.  The inference flagship step is ~0.7 GFLOP of
-// f32 FMA for ~26 MB of workspace traffic, but N = 10,100 points make
-// only 316 warps (2.4 per SM), and the identification path's
-// N_u = 2,000 only 63 warps on 132 SMs: both kernels are bound by
-// latency (of the shuffle reductions, 3,021 per warp at width 20, and
-// of per-thread local-memory arrays) rather than by FLOP/s or
-// bandwidth.  Spreading a point's neurons over several lanes, so that
-// a small N still fills the SMs, is the next step for speed.  The bf16
-// entry points are bound the same way: their products are the same
-// per-thread f32 FMAs (on the tensor cores bf16 operands would run at
-// 989 TFLOP/s), plus a conversion at each rounding point on the
-// dependency chain; PERF.md has their times beside the f32 ones.
+// f32 FMA for ~26 MB of workspace traffic (0.0115 ms at 67 TFLOP/s).
+// The narrow kernel's products read both operands from shared memory,
+// so a block is bound by the shared-memory pipe and by the latency of
+// its phases, not by FLOP/s.  pt_mlp.cuh's kernels are bound by latency:
+// N = 10,100 points make 316 warps (2.4 per SM), the identification
+// path's N_u = 2,000 only 63 warps on 132 SMs, and each warp waits on
+// shuffle reductions (3,021 per warp at width 20) and per-thread
+// local-memory arrays; their bf16 entries add a conversion at each
+// rounding point on the dependency chain.  The identification pair
+// (an extra-accumulator head) is the next to move to pt_narrow.cuh.
+// PERF.md has the times.
 //
 // Every entry returns cudaGetLastError().
 
-#include "pt_mlp.cuh"
+#include "pt_narrow.cuh"
 
 #define BURGERS_MAX_WIDTH 64
 
@@ -206,7 +212,7 @@ int burgers_loss_grad(const float* a0, const float* aux, const float* wpack,
                       const int* widths, int n_layers, int n_pts, float nu,
                       float* ws, float* partials, float* out, void* stream) {
   const BurgersInfHead::Args args = {aux, nu};
-  return pt_launch_loss_grad<BurgersInfHead, BURGERS_MAX_WIDTH, float>(
+  return pt_narrow_launch_loss_grad<BurgersInfHead, BURGERS_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, args, ws, partials, out, stream);
 }
 
@@ -216,10 +222,10 @@ int burgers_loss_grad_bf16(const float* a0, const float* aux,
                            __nv_bfloat16* ws, float* partials, float* out,
                            void* stream) {
   const BurgersInfHead::Args args = {aux, nu};
-  return pt_launch_loss_grad<BurgersInfHead, BURGERS_MAX_WIDTH,
-                             __nv_bfloat16>(widths, n_layers, a0, wpack,
-                                            n_pts, args, ws, partials, out,
-                                            stream);
+  return pt_narrow_launch_loss_grad<BurgersInfHead, BURGERS_MAX_WIDTH,
+                                    __nv_bfloat16>(widths, n_layers, a0, wpack,
+                                                   n_pts, args, ws, partials,
+                                                   out, stream);
 }
 
 // Loss only.  partials: n_tiles floats; out: 1 float.

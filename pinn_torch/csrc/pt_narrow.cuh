@@ -1,0 +1,521 @@
+// Block-tiled loss+grad kernel of the fused PINN losses (sm_90a) for
+// nets with narrow hidden layers (width <= 64): the Burgers inference
+// net [2, 20x8, 1] and every layer list its entry points take.
+// pt_narrow_loss_grad_kernel computes what pt_loss_grad_kernel
+// (pt_mlp.cuh) computes, with the same Head, PtNet, weight pack, stream
+// type S, rounding points and buffers, but shaped as the TPU kernel
+// (_make_train_kernel, pinn/ops/pallas_train.py:524) shapes it: each
+// layer of a tile is one product over the four stacked streams.
+//
+// Why.  One thread a point (pt_mlp.cuh) gives the flagship's N =
+// 10,100 points 316 one-warp blocks, 2.4 warps an SM, with nothing to
+// hide latency; its stream arrays are sized for width 64 (3 KB of
+// local memory a thread, 80 floats of each used at width 20); every
+// weight gradient is a five-shuffle butterfly over the tile (3,061 of
+// them a warp); and with bf16 streams a rounding sits inside every
+// dependency chain.  pt_tile.cuh's layout does not fit width 20 as it
+// is (800 threads and one block an SM for 4 x 4 outputs a thread: at
+// width 20 most of them would idle).
+//
+// Tile and block.  A block owns one tile of T = PT_TILE = 32 points,
+// the points of one row of the partials that pt_mlp.cuh's callers
+// allocate, so the grid is ceil(N / 32) and the buffers of the C
+// interface cover every block.  It has kPtNarrowThreads threads; at
+// 42 KB of shared memory and 32 registers (width 20) up to five
+// blocks share an SM, so the flagship's 316 tiles run in one wave on
+// 132 SMs.  Its activations are the TPU kernel's a_cat: a row per
+// neuron, stream-major then point (value, d/dx, d2/dx2, d/dt), each
+// stream padded to 33 floats and a row to 132, so that a warp reading
+// one point of 32 (neuron, stream) rows, as the weight gradients do,
+// hits 32 banks.
+//
+// Shared memory (PtNarrowSmem, the one carve-up), at hp = the widest
+// hidden layer: three activation buffers of hp rows; two weight
+// buffers, each one layer's Wt and b (S-rounded as they load, as
+// pt_load_weights rounds), so the next layer's load shares a phase
+// with this layer's product; the output adjoints gU and the output
+// bias adjoints; the two inputs; and the 4 x h x hin partial sums of a
+// weight gradient.  42,352 bytes at [2, 20x8, 1]; 201,104 at [2, 64x14, 1],
+// the widest pack the entry points take (its 213 KB of weights would
+// not fit beside the buffers, so no pack is resident).
+//
+// Phases, each between block barriers; threads take (neuron, point)
+// pairs, a warp one neuron and a lane one point, so a weight is a
+// warp-wide broadcast and an activation a conflict-free row:
+//   forward, per hidden layer: the four pre-activation streams with
+//     pt_forward_hidden's fmaf chain (k ascending from 0.0f, then + b),
+//     tanh and the recombination, (t, z1, z11, z2) saved to ws at
+//     pt_mlp.cuh's offsets ([layer][stream][neuron][point], coalesced
+//     over the tile's points, L2-resident);
+//   head: one warp, a lane a point: pt_output's chains, Head::eval, the
+//     tile's loss summed by pt_warp_sum into partials[tile][0];
+//   backward, per hidden layer l = L-1 .. 1:
+//     A: the adjoints gz in place over the output adjoints (pt_layer_bwd's
+//        math), layer l's inputs rematerialised from ws, Wt_l loaded,
+//        the previous layer's weight gradient summed from its parts;
+//     B: dW's four parts (one per stream: depth 32 each, an fmaf chain
+//        over the points), the bias gradient, and the input adjoints
+//        Wt_l^T gz into the free buffer;
+//   layer 0: dW0 on the value stream, the tangent rows' adjoints as
+//     column sums of gz_1 and gz_2.
+// The loss and every value of the forward are bitwise pt_loss_kernel's
+// (the same expressions at every point, the same sum over a tile and
+// pt_reduce over the tiles in row order), so the loss of this kernel is
+// burgers_loss's bit for bit.  Every gradient is a fixed-order sum (the
+// four stream parts added in stream order), no atomics: two launches on
+// the same inputs are bitwise equal.
+//
+// bf16 streams (S = __nv_bfloat16): each value is rounded once, where
+// pt_mlp.cuh rounds it, as it is stored to a shared buffer or to ws;
+// the products read f32 values that hold rounded numbers.  No
+// conversion sits inside a product's dependency chain.
+//
+// Bound: at the flagship ~0.7 GFLOP of FFMA a call (0.0115 ms at 67
+// TFLOP/s); the products read both operands from shared memory (5
+// loads for 4 FMAs in the forward and input adjoints, 2 for 1 in the
+// weight gradients): by count ~55,000 shared-memory wavefronts a tile,
+// at one a cycle an SM, against ~8,400 cycles of FFMA issue, so the
+// shared-memory pipe, not the FMA units, bounds a block (0.11 ms on
+// the H100, PERF.md).  Precision: IEEE f32 (fmaf, tanhf); build without
+// --use_fast_math.  Heads with extra accumulators (kExtra > 0) are not
+// taken yet: their sums go where the loss's sum goes.
+
+#pragma once
+
+#include "pt_mlp.cuh"
+
+#include <mutex>
+
+namespace {
+
+// Threads a block: ten warps, two rounds of a width-20 layer's 640
+// (neuron, point) pairs.  The H100 sweep of 128 to 640 threads
+// (chip_narrow_probe.py --sweep, PERF.md) put it first, 0.107-0.109 ms
+// of device time at [2, 20x8, 1], N = 10,100, against 0.110-0.116 for
+// 256 and 384-640 and 0.145 for 128.
+constexpr int kPtNarrowThreads = 320;
+
+constexpr int kPtNarrowTS = PT_TILE + 1;       // stream stride in a row
+constexpr int kPtNarrowLD = 4 * kPtNarrowTS;   // row stride
+
+// The carve-up of a block's shared memory at hidden width hp and n_out
+// outputs, in floats from its start, in order; the kernel and its
+// launch take it from here alone.  The buffers are found by arithmetic
+// (act(i), w(l)), not by indexing an array of offsets, which would put
+// the struct in local memory.
+struct PtNarrowSmem {
+  int act_size, w0, w_size, gu, gb, x, part, floats;
+  __host__ __device__ __forceinline__ PtNarrowSmem(int hp, int n_out) {
+    constexpr int T = PT_TILE, LD = kPtNarrowLD;
+    const int hw = hp > n_out ? hp : n_out;
+    act_size = hp * LD;                   // three activation buffers
+    w0 = 3 * act_size;                    // two of Wt (h x hin), b (h)
+    w_size = hw * ((hp > 2 ? hp : 2) + 1);
+    gu = w0 + 2 * w_size;                 // gU, S-rounded (n_out rows)
+    gb = gu + n_out * LD;                 // output bias adjoints
+    x = gb + n_out * T;                   // the inputs, S-rounded
+    part = x + 2 * T;                     // 4 parts of a weight gradient
+    floats = part + 4 * hw * hp;
+  }
+  __device__ __forceinline__ int act(int i) const { return i * act_size; }
+  // The weight buffer of layer l: the two alternate.
+  __device__ __forceinline__ int w(int l) const {
+    return w0 + (l & 1) * w_size;
+  }
+};
+
+// w_s <- Wt_l (h x hin, row-major) then b_l (h), S-rounded.
+template <class S>
+__device__ __forceinline__ void pt_narrow_load_w(const PtNet& net, int l,
+                                                 const float* __restrict__ wpack,
+                                                 float* w_s) {
+  const int n = net.width[l + 1] * (net.width[l] + 1);
+  const float* src = wpack + net.w_off[l];   // b_l follows Wt_l in wpack
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    w_s[i] = PtStream<S>::rnd(src[i]);
+  }
+}
+
+// Hidden layer l >= 1: nxt <- its four output streams from cur, ws <-
+// its (t, z1, z11, z2).  pt_forward_hidden's arithmetic at each point.
+template <class S>
+__device__ __forceinline__ void pt_narrow_fwd_layer(const PtNet& net, int l,
+                                                    const float* w_s,
+                                                    const float* cur,
+                                                    float* nxt, S* ws,
+                                                    int cols, int col0) {
+  using St = PtStream<S>;
+  constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
+  const int hin = net.width[l], h = net.width[l + 1];
+  const float* b = w_s + h * hin;
+  for (int idx = threadIdx.x; idx < h * T; idx += blockDim.x) {
+    const int j = idx / T, p = idx - j * T;
+    const float* Wj = w_s + j * hin;
+    const float* a = cur + p;
+    float zv = 0.0f, z1 = 0.0f, z11 = 0.0f, z2 = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < hin; ++k) {
+      const float wk = Wj[k];
+      const float* ak = a + k * LD;
+      zv = fmaf(wk, ak[0 * TS], zv);
+      z1 = fmaf(wk, ak[1 * TS], z1);
+      z11 = fmaf(wk, ak[2 * TS], z11);
+      z2 = fmaf(wk, ak[3 * TS], z2);
+    }
+    zv += b[j];
+    const float t = tanhf(zv);
+    const float sp = 1.0f - t * t;
+    const float spp = -2.0f * t * sp;
+    S* sv = ws + (size_t)(net.s_off[l] + j) * cols + col0 + p;
+    sv[0] = St::put(t);
+    sv[(size_t)h * cols] = St::put(z1);
+    sv[(size_t)2 * h * cols] = St::put(z11);
+    sv[(size_t)3 * h * cols] = St::put(z2);
+    float* o = nxt + j * LD + p;
+    o[0 * TS] = St::rnd(t);
+    o[1 * TS] = St::rnd(sp * z1);
+    o[2 * TS] = St::rnd(spp * z1 * z1 + sp * z11);
+    o[3 * TS] = St::rnd(sp * z2);
+  }
+}
+
+// g <- the adjoints gz of hidden layer l's pre-activation streams, in
+// place over the adjoints of its outputs (pt_layer_bwd's arithmetic).
+template <class S>
+__device__ __forceinline__ void pt_narrow_gz(const PtNet& net, int l,
+                                             float* g, const S* ws, int cols,
+                                             int col0) {
+  using St = PtStream<S>;
+  constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
+  const int h = net.width[l + 1];
+  for (int idx = threadIdx.x; idx < h * T; idx += blockDim.x) {
+    const int j = idx / T, p = idx - j * T;
+    const S* sv = ws + (size_t)(net.s_off[l] + j) * cols + col0 + p;
+    const float t = St::get(sv[0]);
+    const float z1 = St::get(sv[(size_t)h * cols]);
+    const float z11 = St::get(sv[(size_t)2 * h * cols]);
+    const float z2 = St::get(sv[(size_t)3 * h * cols]);
+    float* gj = g + j * LD + p;
+    const float g0 = gj[0 * TS];
+    const float g1 = gj[1 * TS];
+    const float g2 = gj[2 * TS];
+    const float g3 = gj[3 * TS];
+    const float sp = 1.0f - t * t;
+    const float spp = -2.0f * t * sp;
+    const float gt = g0 + g1 * (-2.0f * t * z1)
+                     + g2 * ((6.0f * t * t - 2.0f) * z1 * z1 - 2.0f * t * z11)
+                     + g3 * (-2.0f * t * z2);
+    gj[0 * TS] = St::rnd(sp * gt);
+    gj[1 * TS] = St::rnd(g1 * sp + g2 * (2.0f * spp * z1));
+    gj[2 * TS] = St::rnd(g2 * sp);
+    gj[3 * TS] = St::rnd(g3 * sp);
+  }
+}
+
+// a <- hidden layer l's output streams, rebuilt from its saved block.
+template <class S>
+__device__ __forceinline__ void pt_narrow_remat(const PtNet& net, int l,
+                                                float* a, const S* ws,
+                                                int cols, int col0) {
+  using St = PtStream<S>;
+  constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
+  const int h = net.width[l + 1];
+  for (int idx = threadIdx.x; idx < h * T; idx += blockDim.x) {
+    const int k = idx / T, p = idx - k * T;
+    const S* sv = ws + (size_t)(net.s_off[l] + k) * cols + col0 + p;
+    const float tp = St::get(sv[0]);
+    const float z1p = St::get(sv[(size_t)h * cols]);
+    const float z11p = St::get(sv[(size_t)2 * h * cols]);
+    const float z2p = St::get(sv[(size_t)3 * h * cols]);
+    const float spp_ = 1.0f - tp * tp;
+    const float sppp = -2.0f * tp * spp_;
+    float* ak = a + k * LD + p;
+    ak[0 * TS] = St::rnd(tp);
+    ak[1 * TS] = St::rnd(spp_ * z1p);
+    ak[2 * TS] = St::rnd(sppp * z1p * z1p + spp_ * z11p);
+    ak[3 * TS] = St::rnd(spp_ * z2p);
+  }
+}
+
+// part[s][j * hin + k] = sum over the tile's points p, ascending, of
+// g[j][s][p] a[k][s][p]: the four stream parts of dW (h x hin).
+__device__ __forceinline__ void pt_narrow_wgrad_parts(const float* g,
+                                                      const float* a, int h,
+                                                      int hin, float* part) {
+  constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
+  const int n = h * hin;
+  for (int idx = threadIdx.x; idx < 4 * n; idx += blockDim.x) {
+    const int s = idx & 3, jk = idx >> 2;
+    const int j = jk / hin, k = jk - j * hin;
+    const float* gr = g + j * LD + s * TS;
+    const float* ar = a + k * LD + s * TS;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int p = 0; p < T; ++p) acc = fmaf(gr[p], ar[p], acc);
+    part[s * n + jk] = acc;
+  }
+}
+
+// dst[jk] = the four parts of a weight gradient of n values, added in
+// stream order.
+__device__ __forceinline__ void pt_narrow_wgrad_sum(const float* part, int n,
+                                                    float* dst) {
+  for (int jk = threadIdx.x; jk < n; jk += blockDim.x) {
+    dst[jk] = part[jk] + part[n + jk] + part[2 * n + jk] + part[3 * n + jk];
+  }
+}
+
+// dst[k][s][p] = sum over j < h, ascending, of w[j * hin + k] g[j][s][p]:
+// the adjoints of a layer's inputs, Wt^T g per stream.
+__device__ __forceinline__ void pt_narrow_adj(const float* w, const float* g,
+                                              int h, int hin, float* dst) {
+  constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
+  for (int idx = threadIdx.x; idx < hin * T; idx += blockDim.x) {
+    const int k = idx / T, p = idx - k * T;
+    const float* gp = g + p;
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < h; ++j) {
+      const float wjk = w[j * hin + k];
+      const float* gj = gp + j * LD;
+      s0 = fmaf(wjk, gj[0 * TS], s0);
+      s1 = fmaf(wjk, gj[1 * TS], s1);
+      s2 = fmaf(wjk, gj[2 * TS], s2);
+      s3 = fmaf(wjk, gj[3 * TS], s3);
+    }
+    float* o = dst + k * LD + p;
+    o[0 * TS] = s0;
+    o[1 * TS] = s1;
+    o[2 * TS] = s2;
+    o[3 * TS] = s3;
+  }
+}
+
+// Loss and every gradient of tile blockIdx.x into partials row
+// blockIdx.x (1 + n_weights floats).
+template <class Head, class S>
+__global__ void __launch_bounds__(kPtNarrowThreads)
+pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
+                           const float* __restrict__ wpack, int n_pts,
+                           typename Head::Args args, S* __restrict__ ws,
+                           float* __restrict__ partials) {
+  static_assert(Head::kExtra == 0, "pt_narrow takes heads without extras");
+  using St = PtStream<S>;
+  constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
+  constexpr int NO = Head::kOut;
+  extern __shared__ float pt_narrow_buf[];
+  float* const smem = pt_narrow_buf;
+  const PtNarrowSmem sm(hp, NO);
+  float* const gu_s = smem + sm.gu;
+  float* const gb_s = smem + sm.gb;
+  float* const x_s = smem + sm.x;
+  float* const part_s = smem + sm.part;
+  auto wbuf = [&](int l) { return smem + sm.w(l); };
+
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int L = net.n_layers - 1;   // the output layer
+  const int tile = blockIdx.x;
+  const int col0 = tile * T;
+  const int cols = gridDim.x * T;
+  float* const part = partials + (size_t)tile * (1 + net.n_weights) + 1;
+
+  // ---- inputs and Wt_0 ----
+  for (int p = tid; p < T; p += nth) {
+    const int col = col0 + p;
+    const bool live = col < n_pts;
+    x_s[p] = St::rnd(live ? a0[col] : 0.0f);
+    x_s[T + p] = St::rnd(live ? a0[n_pts + col] : 0.0f);
+  }
+  pt_narrow_load_w<S>(net, 0, wpack, wbuf(0));
+  __syncthreads();
+
+  // ---- layer 0: two inputs, constant tangent rows, z11 = 0 ----
+  float* cur = smem + sm.act(0);
+  {
+    const int h = net.width[1];
+    const float* Wt = wbuf(0);
+    const float* b = Wt + 2 * h;
+    for (int idx = tid; idx < h * T; idx += nth) {
+      const int j = idx / T, p = idx - j * T;
+      const float x0 = x_s[p], x1 = x_s[T + p];
+      const float zv = Wt[2 * j] * x0 + Wt[2 * j + 1] * x1 + b[j];
+      const float z1 = St::rnd(wpack[net.z1_off + j]);
+      const float z2 = St::rnd(wpack[net.z2_off + j]);
+      const float t = tanhf(zv);
+      const float sp = 1.0f - t * t;
+      const float spp = -2.0f * t * sp;
+      S* sv = ws + (size_t)(net.s_off[0] + j) * cols + col0 + p;
+      sv[0] = St::put(t);
+      sv[(size_t)h * cols] = St::put(z1);
+      sv[(size_t)2 * h * cols] = St::put(0.0f);
+      sv[(size_t)3 * h * cols] = St::put(z2);
+      float* o = cur + j * LD + p;
+      o[0 * TS] = St::rnd(t);
+      o[1 * TS] = St::rnd(sp * z1);
+      o[2 * TS] = St::rnd(spp * z1 * z1);
+      o[3 * TS] = St::rnd(sp * z2);
+    }
+    pt_narrow_load_w<S>(net, 1, wpack, wbuf(1));
+  }
+  __syncthreads();
+
+  // ---- hidden layers 1 .. L-1; Wt_{l+1} loads beside layer l ----
+  int ic = 0;   // the buffer that holds cur
+  for (int l = 1; l < L; ++l) {
+    float* nxt = smem + sm.act(ic ^ 1);
+    pt_narrow_fwd_layer<S>(net, l, wbuf(l), cur, nxt, ws, cols, col0);
+    pt_narrow_load_w<S>(net, l + 1, wpack, wbuf(l + 1));
+    __syncthreads();
+    ic ^= 1;
+    cur = nxt;
+  }
+
+  // ---- output layer and head: one warp, a lane a point ----
+  const int hin_L = net.width[L];
+  if (tid < T) {
+    const int p = tid, col = col0 + p;
+    const typename Head::Point pt = Head::load(args, n_pts, col, col < n_pts);
+    const float* w_out = wbuf(L);
+    float U[NO][4], gU[NO][4], ex[Head::kExtra + 1];
+    for (int o = 0; o < NO; ++o) {
+      const float* Wo = w_out + o * hin_L;
+      const float* a = cur + p;
+      float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f, u3 = 0.0f;
+      for (int k = 0; k < hin_L; ++k) {
+        const float wk = Wo[k];
+        const float* ak = a + k * LD;
+        u0 = fmaf(wk, ak[0 * TS], u0);
+        u1 = fmaf(wk, ak[1 * TS], u1);
+        u2 = fmaf(wk, ak[2 * TS], u2);
+        u3 = fmaf(wk, ak[3 * TS], u3);
+      }
+      U[o][0] = u0 + w_out[NO * hin_L + o];
+      U[o][1] = u1;
+      U[o][2] = u2;
+      U[o][3] = u3;
+    }
+    const float loss = Head::eval(args, pt, U, gU, ex);
+    const float loss_tile = pt_warp_sum(loss);
+    if (p == 0) part[-1] = loss_tile;
+    for (int o = 0; o < NO; ++o) {
+      gb_s[o * T + p] = Head::kRoundedBias ? St::rnd(gU[o][0]) : gU[o][0];
+      for (int s = 0; s < 4; ++s) gu_s[o * LD + s * TS + p] = St::rnd(gU[o][s]);
+    }
+  }
+  __syncthreads();
+
+  // ---- output layer's gradients; the last hidden layer's output
+  // adjoints Wt_out^T gU ----
+  float* g = smem + sm.act(ic ^ 1);
+  pt_narrow_wgrad_parts(gu_s, cur, NO, hin_L, part_s);
+  for (int o = tid; o < NO; o += nth) {
+    float s = 0.0f;
+    for (int p = 0; p < T; ++p) s += gb_s[o * T + p];
+    part[net.b_off[L] + o] = s;
+  }
+  pt_narrow_adj(wbuf(L), gu_s, NO, hin_L, g);
+  __syncthreads();
+  int prev_off = net.w_off[L], prev_n = NO * hin_L;   // parts to sum
+  int ig = ic ^ 1;   // the buffer that holds g
+
+  // ---- hidden layers L-1 .. 1 ----
+  for (int l = L - 1; l >= 1; --l) {
+    const int h = net.width[l + 1], hin = net.width[l];
+    const int ia = ig == 0 ? 1 : 0;   // the two buffers other than g
+    const int io = 3 - ig - ia;
+    float* a = smem + sm.act(ia);
+    pt_narrow_wgrad_sum(part_s, prev_n, part + prev_off);
+    pt_narrow_gz<S>(net, l, g, ws, cols, col0);
+    pt_narrow_remat<S>(net, l - 1, a, ws, cols, col0);
+    pt_narrow_load_w<S>(net, l, wpack, wbuf(l));
+    __syncthreads();
+    pt_narrow_wgrad_parts(g, a, h, hin, part_s);
+    for (int j = tid; j < h; j += nth) {
+      float s = 0.0f;
+      for (int p = 0; p < T; ++p) s += g[j * LD + p];
+      part[net.b_off[l] + j] = s;
+    }
+    float* g_in = smem + sm.act(io);
+    pt_narrow_adj(wbuf(l), g, h, hin, g_in);
+    __syncthreads();
+    prev_off = net.w_off[l];
+    prev_n = h * hin;
+    ig = io;
+    g = g_in;
+  }
+
+  // ---- layer 0: W0 sees only the value stream; the tangent rows'
+  // adjoints are column sums of gz_1 and gz_2 ----
+  pt_narrow_wgrad_sum(part_s, prev_n, part + prev_off);
+  pt_narrow_gz<S>(net, 0, g, ws, cols, col0);
+  __syncthreads();
+  const int h1 = net.width[1];
+  for (int idx = tid; idx < 5 * h1; idx += nth) {
+    const int j = idx / 5, q = idx - 5 * j;
+    const float* gj = g + j * LD;
+    float s = 0.0f;
+    if (q < 2) {
+      const float* xq = x_s + q * T;
+      for (int p = 0; p < T; ++p) s = fmaf(gj[p], xq[p], s);
+      part[net.w_off[0] + 2 * j + q] = s;
+    } else {
+      const float* row = gj + (q == 2 ? 0 : q == 3 ? TS : 3 * TS);
+      for (int p = 0; p < T; ++p) s += row[p];
+      part[q == 2 ? net.b_off[0] + j : (q == 3 ? net.z1_off : net.z2_off) + j] = s;
+    }
+  }
+}
+
+// The dynamic shared memory of one kernel instance on one device at
+// one hidden width: each instance keeps the last one it launched with,
+// so the attribute is set only when the device or the size changes.
+struct PtNarrowCache {
+  std::mutex mu;
+  int dev = -1;
+  size_t smem = 0;
+};
+
+// Loss, every gradient, through the narrow kernel at hidden width <= W.
+// The buffers are pt_launch_loss_grad's (ws: ws_rows * n_tiles * 32
+// values of S; partials: n_tiles * (1 + n_weights) floats; out: 1 +
+// n_weights floats, n_tiles = ceil(n_pts / 32)).  A launch the card
+// refuses (shared memory, threads) returns its error; there is no
+// fallback.
+template <class Head, int W, class S>
+int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
+                               const float* a0, const float* wpack, int n_pts,
+                               typename Head::Args args, S* ws,
+                               float* partials, float* out, void* stream) {
+  static PtNarrowCache cache;
+  PtNet net;
+  int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
+  if (err) return err;
+  if (n_pts < 1) return (int)cudaErrorInvalidValue;
+  int hp = 1;
+  for (int l = 1; l < n_layers; ++l) hp = widths[l] > hp ? widths[l] : hp;
+  const size_t smem = sizeof(float) * PtNarrowSmem(hp, Head::kOut).floats;
+  const void* kernel = (const void*)pt_narrow_loss_grad_kernel<Head, S>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  {
+    std::lock_guard<std::mutex> lock(cache.mu);
+    if (cache.dev != dev || cache.smem != smem) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      cache.dev = dev;
+      cache.smem = smem;
+    }
+  }
+  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
+  cudaStream_t s = (cudaStream_t)stream;
+  pt_narrow_loss_grad_kernel<Head, S><<<n_tiles, kPtNarrowThreads, smem, s>>>(
+      net, hp, a0, wpack, n_pts, args, ws, partials);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return pt_reduce(partials, n_tiles, 1 + net.n_weights, out, s);
+}
+
+}  // namespace

@@ -7,9 +7,12 @@ run
 
 Bars as in tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol
 5e-4 with atol 5e-6 * max|g|, identification lambda adjoints rtol 1e-4;
-two launches are bitwise equal, and at [2, 100x4, 2] the Schrödinger
+two launches are bitwise equal; at [2, 100x4, 2] the Schrödinger
 loss-only kernel's loss is the loss+grad kernel's bit for bit (f32 and
-bf16: the same tiled forward, grid and order of sums).  The bf16-stream
+bf16: the same tiled forward, grid and order of sums), and so is the
+Burgers inference one at [2, 20x8, 1] (the narrow kernel computes each
+point's forward and the sums over a tile and over the tiles as the
+loss-only kernel does).  The bf16-stream
 kernels against their plain bf16 versions (the same roundings, summed
 in another order, which can move a rounding): loss rtol 2e-3, gradient
 rel-L2 <= 1e-2 and cosine >= 0.9999 (the net gradients and the lambda
@@ -52,14 +55,35 @@ def _case(layers, n_u, n_f, seed, device):
     return params, batch
 
 
-def _kernel_args(params, batch):
+def _kernel_args(params, batch, n=None):
+    """The inference kernels' arguments; with ``n``, only the last ``n``
+    points."""
     dev = batch["X_f"].device
     lb, ub = (torch.as_tensor(a, device=dev) for a in (LB, UB))
     a0, aux = ft._prep_points(batch, lb, ub)
+    if n is not None:
+        a0, aux = a0[:, -n:].contiguous(), aux[:, -n:].contiguous()
     scale = 2.0 / (ub - lb)
     zero = torch.zeros((), device=dev)
     vx, vt = torch.stack([scale[0], zero]), torch.stack([zero, scale[1]])
     return (a0, aux, *ft._prep(params, vx, vt))
+
+
+FLAGSHIP = [2] + [20] * 8 + [1]
+# The edges of the narrow loss+grad kernel (pt_narrow.cuh, a block a
+# 32-point tile), as (layers, N_u, N_f, the last N points kept): one
+# point, a tile less or more one point, the flagship's 316 tiles and 7
+# points more, hidden widths that are not multiples of 4, the widest
+# pack and the most layers.
+NARROW_EDGES = [
+    (FLAGSHIP, 1, 1, 1),
+    (FLAGSHIP, 10, 22, 31),
+    (FLAGSHIP, 11, 23, 33),
+    (FLAGSHIP, 100, 316 * 32 + 7 - 100, None),
+    ([2, 7, 33, 64, 1], 33, 300, None),
+    ([2] + [64] * 14 + [1], 50, 500, None),
+    ([2] + [20] * 15 + [1], 50, 500, None),
+]
 
 
 def _flat(out):
@@ -73,16 +97,16 @@ def _launched(module, before, *names):
     return tuple(module.launches[n] - before[n] for n in names)
 
 
-@pytest.mark.parametrize("layers,n_u,n_f", [
-    ([2, 20, 20, 20, 1], 32, 300),
-    ([2] + [20] * 8 + [1], 100, 2048),
-    ([2, 16, 1], 7, 1017),
-    ([2, 40, 40, 1], 16, 256),
-    ([2, 5, 1], 1, 1),
-])
-def test_kernels_match_plain(layers, n_u, n_f):
+@pytest.mark.parametrize("layers,n_u,n_f,n", [
+    ([2, 20, 20, 20, 1], 32, 300, None),
+    ([2] + [20] * 8 + [1], 100, 2048, None),
+    ([2, 16, 1], 7, 1017, None),
+    ([2, 40, 40, 1], 16, 256, None),
+    ([2, 5, 1], 1, 1, None),
+] + NARROW_EDGES)
+def test_kernels_match_plain(layers, n_u, n_f, n):
     params, batch = _case(layers, n_u, n_f, seed=len(layers) + n_f, device="cuda")
-    args = _kernel_args(params, batch)
+    args = _kernel_args(params, batch, n)
     n0 = dict(ft.launches)
     got = _flat(ft.burgers_loss_grad(*args, NU))
     again = _flat(ft.burgers_loss_grad(*args, NU))
@@ -98,6 +122,24 @@ def test_kernels_match_plain(layers, n_u, n_f):
     torch.testing.assert_close(loss_only.reshape(1), got[0], rtol=1e-6,
                                atol=0.0)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n_f", [10000, 1948])
+def test_inference_loss_only_is_the_loss_grad_loss_bitwise(n_f, bf16):
+    """At [2, 20x8, 1] (N = 10,100 and 2,048) burgers_loss's loss is
+    burgers_loss_grad's bit for bit: the L-BFGS line search compares
+    loss-only trials with loss+grad values."""
+    params, batch = _case(FLAGSHIP, 100, n_f, seed=n_f + 3, device="cuda")
+    args = _kernel_args(params, batch)
+    n0 = dict(ft.launches)
+    loss_only = ft.burgers_loss(*args, NU, bf16=bf16)
+    loss = ft.burgers_loss_grad(*args, NU, bf16=bf16)[0]
+    torch.cuda.synchronize()
+    sfx = "_bf16" if bf16 else ""
+    assert _launched(ft, n0, "burgers_loss" + sfx,
+                     "burgers_loss_grad" + sfx) == (1, 1)
+    assert torch.equal(loss_only.reshape(1), loss.reshape(1))
 
 
 def test_fused_loss_on_card_matches_cpu():
@@ -268,14 +310,14 @@ def _check_bf16(got, again, want, loss_only, want_loss, n_lam=0):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("layers,n_u,n_f", [
-    ([2] + [20] * 8 + [1], 100, 10000),
-    ([2] + [40] * 8 + [1], 100, 1024),
-    ([2, 16, 1], 7, 1017),
-])
-def test_bf16_kernels_match_plain(layers, n_u, n_f):
+@pytest.mark.parametrize("layers,n_u,n_f,n", [
+    ([2] + [20] * 8 + [1], 100, 10000, None),
+    ([2] + [40] * 8 + [1], 100, 1024, None),
+    ([2, 16, 1], 7, 1017, None),
+] + NARROW_EDGES)
+def test_bf16_kernels_match_plain(layers, n_u, n_f, n):
     params, batch = _case(layers, n_u, n_f, seed=n_f, device="cuda")
-    args = _kernel_args(params, batch)
+    args = _kernel_args(params, batch, n)
     n0 = dict(ft.launches)
     got = _flat(ft.burgers_loss_grad(*args, NU, bf16=True))
     again = _flat(ft.burgers_loss_grad(*args, NU, bf16=True))

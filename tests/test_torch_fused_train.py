@@ -221,6 +221,28 @@ def test_bf16_streams_match_jax():
     np.testing.assert_allclose(float(v_only), val, rtol=1e-6)
 
 
+@pytest.mark.parametrize("stream_dtype,n_u,n_f", [
+    (None, 3, 30),          # N = 33: a tile and one point
+    ("bfloat16", 31, 1000),  # N = 1,031: two TPU tiles (XLA CPU and bf16)
+])
+def test_edge_widths_match_jax(stream_dtype, n_u, n_f):
+    """[2, 7, 33, 64, 1]: hidden widths that are not multiples of 4 and
+    the widest the CUDA kernels take, as in their card tests.  The plain
+    version (float32 autograd, or the explicit bf16 backward) against
+    the JAX kernel in interpret mode, at the module's bars."""
+    pairs, batch = _case([2, 7, 33, 64, 1], n_u, n_f, seed=7)
+    want_val, want_grads = _jax_value_and_grad(pairs, batch, stream_dtype)
+    val, grads = _torch_value_and_grad(pairs, batch, stream_dtype)
+    if stream_dtype is None:
+        np.testing.assert_allclose(val, want_val, rtol=1e-5)
+        for g, want in zip(grads, want_grads):
+            scale = max(1e-3, float(np.max(np.abs(want))))
+            np.testing.assert_allclose(g, want, rtol=5e-4, atol=5e-6 * scale)
+    else:
+        val32, grads32 = _torch_value_and_grad(pairs, batch)
+        assert_bf16_parity(val, grads, want_val, want_grads, val32, grads32)
+
+
 def _explicit_case(head):
     """(autograd plain version, the explicit backward without rounding,
     their inputs) of one kernel head, float32 on the CPU."""
