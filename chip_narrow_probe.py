@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the Burgers inference kernels on one NVIDIA GPU, and sweep the
-block of the narrow loss+grad kernel (``pinn_torch/csrc/pt_narrow.cuh``).
+"""Time the Burgers kernels on one NVIDIA GPU, and sweep the block of
+the narrow loss+grad kernel (``pinn_torch/csrc/pt_narrow.cuh``).
 
 Usage (from the repository root, on a machine with a CUDA card and the
 CUDA toolkit):
@@ -11,10 +11,13 @@ At the inference flagship ([2, 20x8, 1], N = 10,100, ``chip_smoke.py``'s
 seeded inputs) it prints, for ``burgers_loss_grad``,
 ``burgers_loss_grad_bf16``, ``burgers_loss`` and ``burgers_loss_bf16``
 (PERF.md rows 1, 1b, 2, 2b), and at the identification flagship ([2,
-20x8, 1], N = 2,000) for the four ``burgers_ide_*`` entries (rows 3-4b,
-on ``pt_mlp.cuh``), the median ms a call through the wrapper (CUDA
-events, 50 calls) and the device ms a call of each kernel the call
-launches (torch.profiler, 20 calls).
+20x8, 1], N = 2,000) for the four ``burgers_ide_*`` entries (rows 3-4b),
+the median ms a call through the wrapper (CUDA events, 50 calls) and
+the device ms a call of each kernel the call launches (torch.profiler,
+20 calls).  Rows 1, 1b, 3 and 3b run ``pt_narrow.cuh``'s kernel, rows
+2, 2b, 4 and 4b ``pt_mlp.cuh``'s loss-only kernel.  For rows 3 and 3b
+it also prints the loss and the lambda adjoints (A1, -A2) as hex
+floats, so that two trees' outputs can be compared bit for bit.
 
 ``--tree DIR`` times the ``pinn_torch`` of the checkout at DIR (another
 commit unpacked there, say) with this script's measurement code, so
@@ -23,10 +26,10 @@ that two trees are timed alike on one card, in turns.
 ``--sweep`` builds the tree's sources once for each block size in
 ``SWEEP`` (a copy under ``build/``, the constant ``kPtNarrowThreads``
 rewritten; the tree's own library is untouched), prints each build's
-ptxas line for the narrow kernel, checks that each gives the default
-build's loss and gradients bit for bit (the block size changes the order
-of no sum), and times rows 1 and 1b at each size in two interleaved
-rounds.
+ptxas lines for the narrow kernel on both heads, checks that each gives
+the default build's loss and gradients bit for bit for rows 1, 1b, 3 and
+3b (the block size changes the order of no sum), and times those four
+at each size in two interleaved rounds.
 
 The last line is the card's nvidia-smi line.  Without a CUDA device it
 exits with code 2.
@@ -46,6 +49,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SWEEP = (128, 192, 256, 320, 384, 448, 512, 640)
+NARROW = ("burgers_loss_grad", "burgers_loss_grad_bf16",   # rows 1, 1b
+          "burgers_ide_loss_grad", "burgers_ide_loss_grad_bf16")   # 3, 3b
+HEADS = ("BurgersInfHead", "BurgersIdeHead")
 
 
 def _smoke():
@@ -130,23 +136,23 @@ def _sweep(cs) -> None:
     calls = _calls(cs)
     default = _build.library()
     libs = _variants(SWEEP)
-    want = {b: cs._flat(calls["burgers_loss_grad" + b]()) for b in ("", "_bf16")}
+    want = {name: cs._flat(calls[name]()) for name in NARROW}
     for nt, lib in libs.items():
         _build._LIBRARY = lib
-        regs = cs._ptxas_lines("pt_narrow_loss_grad_kernel", False,
-                               "BurgersInfHead")
-        for b in ("", "_bf16"):
-            got = cs._flat(calls["burgers_loss_grad" + b]())
+        regs = {head: cs._ptxas_lines("pt_narrow_loss_grad_kernel", False, head)
+                for head in HEADS}
+        for name in NARROW:
+            got = cs._flat(calls[name]())
             torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want[b])):
-                raise AssertionError(f"{nt} threads: burgers_loss_grad{b} "
-                                     "differs from the default build")
-        print(f"[sweep] {nt} threads: {regs}; loss and gradients bitwise the "
-              "default build's", flush=True)
+            if not all(torch.equal(g, w) for g, w in zip(got, want[name])):
+                raise AssertionError(f"{nt} threads: {name} differs from the "
+                                     "default build")
+        print(f"[sweep] {nt} threads: {regs}; loss and gradients of "
+              f"{', '.join(NARROW)} bitwise the default build's", flush=True)
     for rnd in range(2):
         for nt, lib in libs.items():
             _build._LIBRARY = lib
-            for name in ("burgers_loss_grad", "burgers_loss_grad_bf16"):
+            for name in NARROW:
                 _time(cs, f"sweep round {rnd} {nt} threads", name, calls[name])
     _build._LIBRARY = default
 
@@ -172,6 +178,10 @@ def main() -> int:
     calls = _calls(cs)
     for name, fn in calls.items():
         _time(cs, tag, name, fn)
+    for name in NARROW[2:]:
+        out = cs._flat(calls[name]())
+        print(f"[probe] {tag} {name} outputs: loss {float(out[0]).hex()}, "
+              f"glam {', '.join(float(v).hex() for v in out[-1])}", flush=True)
     if opts.sweep:
         _sweep(cs)
     smi = subprocess.run(

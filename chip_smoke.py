@@ -23,8 +23,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    narrow kernel and of the loss-only kernel, their launch records and
    the device ms a call of each kernel of a call (profiler trace).
 3b. Burgers identification kernels vs plain, at [2, 20x8, 1] (N =
-   2,000), [2, 20, 20, 20, 1] (N = 300) and [2, 16, 1] (N = 1,017), for
-   (lambda1, log lambda2) = (0, -6) and (1.3, -4); times at N = 2,000.
+   2,000), [2, 20, 20, 20, 1] (N = 300), [2, 16, 1] (N = 1,017) and the
+   narrow kernel's edges (the flagship at N = 1, 31, 33 and 2,023,
+   [2, 7, 33, 64, 1], [2, 64x14, 1], [2, 20x15, 1]), for (lambda1, log
+   lambda2) = (0, -6) and (1.3, -4); at every shape the loss-only loss
+   bitwise the loss+grad loss; times at N = 2,000; the narrow kernel's
+   and the loss-only kernel's ptxas lines, launch records and device ms
+   a call, as in 3.
 3c. Schrödinger kernels vs plain, at [2, 100x4, 2] (N = 20,000 and
    300), [2, 32, 2] (N = 512) and the edges of the tiled kernels
    (32-point tiles): [2, 100x4, 2] at N = 1, 31, 33 and 4,231 (more
@@ -38,7 +43,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 3d. The six bf16-stream kernels vs their plain bf16 versions: the
    inference pair as in 3 (every shape, the loss bitwise, the ptxas
    lines, launch records and device times), the identification pair
-   at [2, 20x8, 1] (N = 2,000) and [2, 16, 1] (N = 1,017), the
+   at [2, 20x8, 1] (N = 2,000), [2, 16, 1] (N = 1,017) and the edges
+   of 3b, as in 3b, the
    Schrödinger pair at [2, 100x4, 2] (N = 20,000), [2, 32, 2]
    (N = 512) and the six edges of 3c, the loss bitwise as in 3c;
    bitwise repeatability; times at each flagship.
@@ -137,6 +143,8 @@ NARROW_EDGES = [(FLAGSHIP, 1), (FLAGSHIP, 31), (FLAGSHIP, 33),
                 (FLAGSHIP, 316 * 32 + 7), ([2, 7, 33, 64, 1], 1000),
                 ([2] + [64] * 14 + [1], 1000), ([2] + [20] * 15 + [1], 1000)]
 IDE_SHAPES = [(FLAGSHIP, 2000), ([2, 20, 20, 20, 1], 300), ([2, 16, 1], 1017)]
+# The same edges for the identification head, whose flagship is 63 tiles.
+IDE_EDGES = NARROW_EDGES[:3] + [(FLAGSHIP, 63 * 32 + 7)] + NARROW_EDGES[4:]
 IDE_LAMBDAS = [(0.0, -6.0), (1.3, -4.0)]
 SCHRODINGER_SHAPES = [(S_FLAGSHIP, 20000), (S_FLAGSHIP, 300), ([2, 32, 2], 512)]
 SSE_SHAPES = [(FLAGSHIP, 10000), (WIDE, 1124), ([2, 16, 1], 1024)]
@@ -433,27 +441,37 @@ def phase_kernels(stats: dict, bf16: bool = False) -> None:
                     args, layers, n_aux=3, time_it=i == 0, bf16=bf16,
                     bitwise_loss=True)
 
-    flagship = cases[0][2]
-    for kernel, name, fn in (("pt_narrow_loss_grad_kernel", "burgers_loss_grad",
-                              grad),
-                             ("pt_loss_kernel", "burgers_loss", loss)):
-        for line in _ptxas_lines(kernel, bf16, "BurgersInfHead"):
+    _report_narrow(stats, bf16, "BurgersInfHead", "burgers", grad, loss,
+                   cases[0][2], _shape_tag(FLAGSHIP, cases[0][1]))
+
+
+def _report_narrow(stats, bf16, head, prefix, grad, loss, args, shape):
+    """ptxas's lines of the narrow loss+grad kernel and of the loss-only
+    kernel on ``head``, the launch record of each in one call on
+    ``args`` and the device ms a call of each kernel the call launches
+    (profiler traces), beside the median through the wrapper."""
+    sfx = "_bf16" if bf16 else ""
+    for kernel, name, fn in (("pt_narrow_loss_grad_kernel",
+                              prefix + "_loss_grad", grad),
+                             ("pt_loss_kernel", prefix + "_loss", loss)):
+        for line in _ptxas_lines(kernel, bf16, head):
             log(f"[kernels] {name}{sfx} ptxas ({kernel}): {line}")
-        rec, = _launch_records(kernel, [lambda: fn(*flagship)])
-        log(f"[kernels] {name}{sfx} launch of {kernel} at "
-            f"{_shape_tag(FLAGSHIP, cases[0][1])} (profiler trace): {rec}")
-        dev = _device_ms(lambda: fn(*flagship))
-        log(f"[kernels] {name}{sfx} device ms a call at "
-            f"{_shape_tag(FLAGSHIP, cases[0][1])} (profiler trace, beside "
-            f"the median {stats[name + sfx]['ms']:.4f} ms through the "
-            f"wrapper): total {sum(dev.values()):.5f}; "
+        rec, = _launch_records(kernel, [lambda: fn(*args)])
+        log(f"[kernels] {name}{sfx} launch of {kernel} at {shape} "
+            f"(profiler trace): {rec}")
+        dev = _device_ms(lambda: fn(*args))
+        log(f"[kernels] {name}{sfx} device ms a call at {shape} (profiler "
+            f"trace, beside the median {stats[name + sfx]['ms']:.4f} ms "
+            f"through the wrapper): total {sum(dev.values()):.5f}; "
             + ", ".join(f"{k} {v:.5f}" for k, v in dev.items()))
 
 
-def phase_ide_kernels(stats: dict, bf16: bool = False, shapes=IDE_SHAPES,
-                      lambdas=IDE_LAMBDAS) -> None:
+def phase_ide_kernels(stats: dict, bf16: bool = False,
+                      shapes=IDE_SHAPES + IDE_EDGES) -> None:
     """3b (3d with ``bf16``): the identification kernels against their
-    plain versions."""
+    plain versions, the loss-only loss bitwise the loss+grad one at
+    every shape; the narrow kernel's and the loss-only kernel's ptxas
+    lines, launch records and device times at the first shape."""
     from pinn_torch.ops import fused_train as ft
     sfx = "_bf16" if bf16 else ""
     plain_grad = (ft.burgers_ide_loss_grad_bf16_plain if bf16
@@ -461,15 +479,24 @@ def phase_ide_kernels(stats: dict, bf16: bool = False, shapes=IDE_SHAPES,
     plain_loss = (ft.burgers_ide_loss_bf16_plain if bf16
                   else ft.burgers_ide_loss_plain)
 
+    def grad(*a):
+        return ft.burgers_ide_loss_grad(*a, bf16=bf16)
+
+    def loss(*a):
+        return ft.burgers_ide_loss(*a, bf16=bf16)
+
     for i, (layers, n) in enumerate(shapes):
-        for j, lam in enumerate(lambdas):
+        for j, lam in enumerate(IDE_LAMBDAS):
             args = _ide_inputs(layers, n, lam, seed=200 + i)
             _check_pair(stats, f"ide{sfx} {_shape_tag(layers, n)} lam={lam}",
                         "burgers_ide_loss_grad" + sfx, "burgers_ide_loss" + sfx,
-                        lambda *a: ft.burgers_ide_loss_grad(*a, bf16=bf16),
-                        lambda *a: ft.burgers_ide_loss(*a, bf16=bf16),
-                        plain_grad, plain_loss, args, layers, n_aux=3,
-                        n_lam=1, time_it=i == 0 and j == 0, bf16=bf16)
+                        grad, loss, plain_grad, plain_loss, args, layers,
+                        n_aux=3, n_lam=1, time_it=i == 0 and j == 0, bf16=bf16,
+                        bitwise_loss=True)
+    layers, n = shapes[0]
+    _report_narrow(stats, bf16, "BurgersIdeHead", "burgers_ide", grad, loss,
+                   _ide_inputs(layers, n, IDE_LAMBDAS[0], seed=200),
+                   _shape_tag(layers, n))
 
 
 def _schrodinger_edges():
@@ -586,8 +613,8 @@ def _ptxas_lines(kernel, bf16, head=""):
 def phase_bf16_kernels(stats: dict) -> None:
     """3d: the six bf16-stream kernels against their plain versions."""
     phase_kernels(stats, bf16=True)
-    phase_ide_kernels(stats, bf16=True, shapes=[IDE_SHAPES[0], IDE_SHAPES[2]],
-                      lambdas=IDE_LAMBDAS[1:])
+    phase_ide_kernels(stats, bf16=True,
+                      shapes=[IDE_SHAPES[0], IDE_SHAPES[2], *IDE_EDGES])
     phase_schrodinger_kernels(stats, bf16=True,
                               shapes=[SCHRODINGER_SHAPES[0],
                                       SCHRODINGER_SHAPES[2],

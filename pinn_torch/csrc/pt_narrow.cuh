@@ -1,29 +1,34 @@
-// Block-tiled loss+grad kernel of the fused PINN losses (sm_90a) for
-// nets with narrow hidden layers (width <= 64): the Burgers inference
-// net [2, 20x8, 1] and every layer list its entry points take.
+// Block-tiled loss+grad kernel of the fused Burgers losses (sm_90a) for
+// nets with narrow hidden layers (width <= 64).  Four entries of
+// burgers_train.cu launch it: burgers_loss_grad[_bf16] on the inference
+// head (BurgersInfHead) and burgers_ide_loss_grad[_bf16] on the
+// identification head (BurgersIdeHead, two extra accumulators A1, A2).
 // pt_narrow_loss_grad_kernel computes what pt_loss_grad_kernel
 // (pt_mlp.cuh) computes, with the same Head, PtNet, weight pack, stream
-// type S, rounding points and buffers, but shaped as the TPU kernel
-// (_make_train_kernel, pinn/ops/pallas_train.py:524) shapes it: each
-// layer of a tile is one product over the four stacked streams.
+// type S, rounding points and buffers, but shaped as the TPU kernels
+// (_make_train_kernel and _make_ide_kernel, pinn/ops/pallas_train.py:524
+// and :847) shape it: each layer of a tile is one product over the four
+// stacked streams.
 //
-// Why.  One thread a point (pt_mlp.cuh) gives the flagship's N =
-// 10,100 points 316 one-warp blocks, 2.4 warps an SM, with nothing to
-// hide latency; its stream arrays are sized for width 64 (3 KB of
-// local memory a thread, 80 floats of each used at width 20); every
-// weight gradient is a five-shuffle butterfly over the tile (3,061 of
-// them a warp); and with bf16 streams a rounding sits inside every
-// dependency chain.  pt_tile.cuh's layout does not fit width 20 as it
-// is (800 threads and one block an SM for 4 x 4 outputs a thread: at
-// width 20 most of them would idle).
+// Why.  One thread a point (pt_mlp.cuh) gives the inference flagship's
+// N = 10,100 points 316 one-warp blocks, 2.4 warps an SM, and the
+// identification flagship's N = 2,000 only 63, with nothing to hide
+// latency; its stream arrays are sized for width 64 (3 KB of local
+// memory a thread, 80 floats of each used at width 20); every weight
+// gradient is a five-shuffle butterfly over the tile (3,061 of them a
+// warp); and with bf16 streams a rounding sits inside every dependency
+// chain.  pt_tile.cuh's layout does not fit width 20 as it is (800
+// threads and one block an SM for 4 x 4 outputs a thread: at width 20
+// most of them would idle).
 //
 // Tile and block.  A block owns one tile of T = PT_TILE = 32 points,
 // the points of one row of the partials that pt_mlp.cuh's callers
 // allocate, so the grid is ceil(N / 32) and the buffers of the C
 // interface cover every block.  It has kPtNarrowThreads threads; at
 // 42 KB of shared memory and 32 registers (width 20) up to five
-// blocks share an SM, so the flagship's 316 tiles run in one wave on
-// 132 SMs.  Its activations are the TPU kernel's a_cat: a row per
+// blocks share an SM, so the inference flagship's 316 tiles run in one
+// wave on 132 SMs, and the identification flagship's 63 leave 69 SMs
+// idle.  Its activations are the TPU kernel's a_cat: a row per
 // neuron, stream-major then point (value, d/dx, d2/dx2, d/dt), each
 // stream padded to 33 floats and a row to 132, so that a warp reading
 // one point of 32 (neuron, stream) rows, as the weight gradients do,
@@ -48,7 +53,10 @@
 //     pt_mlp.cuh's offsets ([layer][stream][neuron][point], coalesced
 //     over the tile's points, L2-resident);
 //   head: one warp, a lane a point: pt_output's chains, Head::eval, the
-//     tile's loss summed by pt_warp_sum into partials[tile][0];
+//     tile's loss summed by pt_warp_sum into partials[tile][0] and each
+//     of the head's kExtra accumulators likewise into the slots after
+//     the weight gradients (a partials row is 1 + n_weights + kExtra
+//     floats, as pt_loss_grad_kernel's);
 //   backward, per hidden layer l = L-1 .. 1:
 //     A: the adjoints gz in place over the output adjoints (pt_layer_bwd's
 //        math), layer l's inputs rematerialised from ws, Wt_l loaded,
@@ -61,24 +69,29 @@
 // The loss and every value of the forward are bitwise pt_loss_kernel's
 // (the same expressions at every point, the same sum over a tile and
 // pt_reduce over the tiles in row order), so the loss of this kernel is
-// burgers_loss's bit for bit.  Every gradient is a fixed-order sum (the
-// four stream parts added in stream order), no atomics: two launches on
-// the same inputs are bitwise equal.
+// the loss-only entry's (burgers_loss, burgers_ide_loss) bit for bit,
+// and the extras, the same per-point values under the same sums, are
+// pt_loss_grad_kernel's.  Every gradient is a fixed-order sum (the four
+// stream parts added in stream order), no atomics: two launches on the
+// same inputs are bitwise equal.
 //
 // bf16 streams (S = __nv_bfloat16): each value is rounded once, where
 // pt_mlp.cuh rounds it, as it is stored to a shared buffer or to ws;
 // the products read f32 values that hold rounded numbers.  No
 // conversion sits inside a product's dependency chain.
 //
-// Bound: at the flagship ~0.7 GFLOP of FFMA a call (0.0115 ms at 67
-// TFLOP/s); the products read both operands from shared memory (5
-// loads for 4 FMAs in the forward and input adjoints, 2 for 1 in the
-// weight gradients): by count ~55,000 shared-memory wavefronts a tile,
-// at one a cycle an SM, against ~8,400 cycles of FFMA issue, so the
-// shared-memory pipe, not the FMA units, bounds a block (0.11 ms on
-// the H100, PERF.md).  Precision: IEEE f32 (fmaf, tanhf); build without
-// --use_fast_math.  Heads with extra accumulators (kExtra > 0) are not
-// taken yet: their sums go where the loss's sum goes.
+// Bound: at the inference flagship ~0.7 GFLOP of FFMA a call (0.0115
+// ms at 67 TFLOP/s); the products read both operands from shared
+// memory (5 loads for 4 FMAs in the forward and input adjoints, 2 for 1
+// in the weight gradients): by count ~55,000 shared-memory wavefronts a
+// tile, at one a cycle an SM, against ~8,400 cycles of FFMA dispatch, so
+// the shared-memory pipe, not the FMA units, bounds a block while
+// several blocks share an SM; a block alone on its SM (the
+// identification flagship's 63 tiles) is bound by its phases' latency
+// instead.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+// 0.114 ms of device time at the inference flagship; 0.071 ms (f32) and
+// 0.062 ms (bf16) at the identification flagship.  Precision: IEEE f32
+// (fmaf, tanhf); build without --use_fast_math.
 
 #pragma once
 
@@ -89,10 +102,12 @@
 namespace {
 
 // Threads a block: ten warps, two rounds of a width-20 layer's 640
-// (neuron, point) pairs.  The H100 sweep of 128 to 640 threads
-// (chip_narrow_probe.py --sweep, PERF.md) put it first, 0.107-0.109 ms
-// of device time at [2, 20x8, 1], N = 10,100, against 0.110-0.116 for
-// 256 and 384-640 and 0.145 for 128.
+// (neuron, point) pairs.  The sweep of 128 to 640 threads
+// (chip_narrow_probe.py --sweep, PERF.md; an NVIDIA H100 80GB HBM3 at
+// 700 W) put it first at [2, 20x8, 1], N = 10,100, where 2.4 blocks
+// share an SM: 0.109 ms of device time against 0.110-0.116 for 256 and
+// 384-640 and 0.145 for 128.  At N = 2,000 (63 blocks, one an SM) more
+// threads are faster, 0.044 ms at 640 against 0.067 at 320.
 constexpr int kPtNarrowThreads = 320;
 
 constexpr int kPtNarrowTS = PT_TILE + 1;       // stream stride in a row
@@ -291,15 +306,14 @@ __device__ __forceinline__ void pt_narrow_adj(const float* w, const float* g,
   }
 }
 
-// Loss and every gradient of tile blockIdx.x into partials row
-// blockIdx.x (1 + n_weights floats).
+// Loss, every gradient and the head's extras of tile blockIdx.x into
+// partials row blockIdx.x (1 + n_weights + kExtra floats).
 template <class Head, class S>
 __global__ void __launch_bounds__(kPtNarrowThreads)
 pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
                            const float* __restrict__ wpack, int n_pts,
                            typename Head::Args args, S* __restrict__ ws,
                            float* __restrict__ partials) {
-  static_assert(Head::kExtra == 0, "pt_narrow takes heads without extras");
   using St = PtStream<S>;
   constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
   constexpr int NO = Head::kOut;
@@ -317,7 +331,8 @@ pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
   const int tile = blockIdx.x;
   const int col0 = tile * T;
   const int cols = gridDim.x * T;
-  float* const part = partials + (size_t)tile * (1 + net.n_weights) + 1;
+  float* const part =
+      partials + (size_t)tile * (1 + net.n_weights + Head::kExtra) + 1;
 
   // ---- inputs and Wt_0 ----
   for (int p = tid; p < T; p += nth) {
@@ -397,6 +412,10 @@ pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
     const float loss = Head::eval(args, pt, U, gU, ex);
     const float loss_tile = pt_warp_sum(loss);
     if (p == 0) part[-1] = loss_tile;
+    for (int e = 0; e < Head::kExtra; ++e) {
+      const float es = pt_warp_sum(ex[e]);
+      if (p == 0) part[net.n_weights + e] = es;
+    }
     for (int o = 0; o < NO; ++o) {
       gb_s[o * T + p] = Head::kRoundedBias ? St::rnd(gU[o][0]) : gU[o][0];
       for (int s = 0; s < 4; ++s) gu_s[o * LD + s * TS + p] = St::rnd(gU[o][s]);
@@ -475,12 +494,12 @@ struct PtNarrowCache {
   size_t smem = 0;
 };
 
-// Loss, every gradient, through the narrow kernel at hidden width <= W.
-// The buffers are pt_launch_loss_grad's (ws: ws_rows * n_tiles * 32
-// values of S; partials: n_tiles * (1 + n_weights) floats; out: 1 +
-// n_weights floats, n_tiles = ceil(n_pts / 32)).  A launch the card
-// refuses (shared memory, threads) returns its error; there is no
-// fallback.
+// Loss, every gradient and the head's extras, through the narrow kernel
+// at hidden width <= W.  The buffers are pt_launch_loss_grad's (ws:
+// ws_rows * n_tiles * 32 values of S; partials: n_tiles * (1 + n_weights
+// + kExtra) floats; out: 1 + n_weights + kExtra floats, n_tiles =
+// ceil(n_pts / 32)).  A launch the card refuses (shared memory,
+// threads) returns its error; there is no fallback.
 template <class Head, int W, class S>
 int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
                                const float* a0, const float* wpack, int n_pts,
@@ -515,7 +534,8 @@ int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
       net, hp, a0, wpack, n_pts, args, ws, partials);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return pt_reduce(partials, n_tiles, 1 + net.n_weights, out, s);
+  return pt_reduce(partials, n_tiles, 1 + net.n_weights + Head::kExtra, out,
+                   s);
 }
 
 }  // namespace

@@ -12,7 +12,8 @@ loss-only kernel's loss is the loss+grad kernel's bit for bit (f32 and
 bf16: the same tiled forward, grid and order of sums), and so is the
 Burgers inference one at [2, 20x8, 1] (the narrow kernel computes each
 point's forward and the sums over a tile and over the tiles as the
-loss-only kernel does).  The bf16-stream
+loss-only kernel does), and the identification one at [2, 20x8, 1] on
+the same narrow kernel.  The bf16-stream
 kernels against their plain bf16 versions (the same roundings, summed
 in another order, which can move a rounding): loss rtol 2e-3, gradient
 rel-L2 <= 1e-2 and cosine >= 0.9999 (the net gradients and the lambda
@@ -177,6 +178,13 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
                         torch.zeros(65, 1, device="cuda"), wide, NU)
 
 
+# The narrow kernel's edges for the identification head (layers, N):
+# the flagship at one point, a tile less or more one point and its 63
+# tiles and 7 points more, then the widths and depths of NARROW_EDGES.
+IDE_EDGES = [(FLAGSHIP, 1), (FLAGSHIP, 31), (FLAGSHIP, 33),
+             (FLAGSHIP, 63 * 32 + 7)] + [(e[0], 1000) for e in NARROW_EDGES[4:]]
+
+
 def _check_against_plain(got, again, want, loss_only, n_lam=0):
     """Flat outputs [loss, *grads, (lam adjoints)] of the kernel, a second
     launch, and the plain version; the loss-only kernel's value."""
@@ -192,32 +200,74 @@ def _check_against_plain(got, again, want, loss_only, n_lam=0):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("layers,n", [
-    ([2] + [20] * 8 + [1], 2000),
-    ([2, 20, 20, 20, 1], 300),
-    ([2, 16, 1], 1017),
-])
-@pytest.mark.parametrize("l1,logl2", [(0.0, -6.0), (1.3, -4.0)])
-def test_ide_kernels_match_plain(layers, n, l1, logl2):
-    params, batch = _case(layers, n, 1, seed=n, device="cuda")
+def _ide_args(layers, n, l1, logl2, seed):
+    """The identification kernels' arguments on the card, ``n`` data
+    points."""
+    params, batch = _case(layers, n, 1, seed=seed, device="cuda")
     lb, ub, vx, vt = ft._tangents(LB, UB, "cuda")
     a0, aux = ft._prep_ide_points(batch, lb, ub)
     lam = ft._lam(torch.tensor([l1], device="cuda"),
                   torch.tensor([logl2], device="cuda"))
-    args = (a0, aux, lam, *ft._prep(params, vx, vt))
+    return (a0, aux, lam, *ft._prep(params, vx, vt))
 
-    def flat(out):
-        loss, gwt, gz1, gz2, glam = out
-        return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)] + [glam]
 
+def _ide_flat(out):
+    loss, gwt, gz1, gz2, glam = out
+    return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)] + [glam]
+
+
+@pytest.mark.parametrize("layers,n", [
+    ([2] + [20] * 8 + [1], 2000),
+    ([2, 20, 20, 20, 1], 300),
+    ([2, 16, 1], 1017),
+] + IDE_EDGES)
+@pytest.mark.parametrize("l1,logl2", [(0.0, -6.0), (1.3, -4.0)])
+def test_ide_kernels_match_plain(layers, n, l1, logl2):
+    args = _ide_args(layers, n, l1, logl2, seed=n)
     n0 = dict(ft.launches)
-    got = flat(ft.burgers_ide_loss_grad(*args))
-    again = flat(ft.burgers_ide_loss_grad(*args))
+    got = _ide_flat(ft.burgers_ide_loss_grad(*args))
+    again = _ide_flat(ft.burgers_ide_loss_grad(*args))
     loss_only = ft.burgers_ide_loss(*args)
-    want = flat(ft.burgers_ide_loss_grad_plain(*args))
+    want = _ide_flat(ft.burgers_ide_loss_grad_plain(*args))
     torch.cuda.synchronize()
     assert _launched(ft, n0, "burgers_ide_loss_grad", "burgers_ide_loss") == (2, 1)
     _check_against_plain(got, again, want, loss_only, n_lam=1)
+    assert torch.equal(loss_only.reshape(1), got[0])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n", [2000, 63 * 32 + 7])
+def test_ide_loss_only_is_the_loss_grad_loss_bitwise(n, bf16):
+    """At [2, 20x8, 1] (N = 2,000 and 2,023) burgers_ide_loss's loss is
+    burgers_ide_loss_grad's bit for bit: the narrow kernel evaluates
+    the identification head as the loss-only kernel does."""
+    args = _ide_args(FLAGSHIP, n, 1.3, -4.0, seed=n + 3)
+    n0 = dict(ft.launches)
+    loss_only = ft.burgers_ide_loss(*args, bf16=bf16)
+    loss = ft.burgers_ide_loss_grad(*args, bf16=bf16)[0]
+    torch.cuda.synchronize()
+    sfx = "_bf16" if bf16 else ""
+    assert _launched(ft, n0, "burgers_ide_loss" + sfx,
+                     "burgers_ide_loss_grad" + sfx) == (1, 1)
+    assert torch.equal(loss_only.reshape(1), loss.reshape(1))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n", [33, 63 * 32 + 7])
+def test_ide_launches_on_one_input_are_bitwise_equal(n, bf16):
+    """Two launches on the same inputs, with a launch on other inputs
+    between them, give the same outputs bit for bit: the partials are
+    fresh torch.empty memory each call, so a slot that a block does not
+    write (a wrong row stride with the two extra accumulators) would
+    carry the other inputs' values into the second launch."""
+    args = _ide_args(FLAGSHIP, n, 1.3, -4.0, seed=n + 5)
+    other = _ide_args(FLAGSHIP, n, 0.0, -6.0, seed=n + 6)
+    first = _ide_flat(ft.burgers_ide_loss_grad(*args, bf16=bf16))
+    between = _ide_flat(ft.burgers_ide_loss_grad(*other, bf16=bf16))
+    second = _ide_flat(ft.burgers_ide_loss_grad(*args, bf16=bf16))
+    torch.cuda.synchronize()
+    assert not torch.equal(first[-1], between[-1])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # The edges of the tiled loss+grad kernel (pt_tile.cuh, 32-point tiles):
@@ -331,29 +381,20 @@ def test_bf16_kernels_match_plain(layers, n_u, n_f, n):
 
 
 @pytest.mark.parametrize("layers,n", [([2] + [20] * 8 + [1], 2000),
-                                      ([2, 16, 1], 1017)])
+                                      ([2, 16, 1], 1017)] + IDE_EDGES)
 def test_bf16_ide_kernels_match_plain(layers, n):
-    params, batch = _case(layers, n, 1, seed=n + 1, device="cuda")
-    lb, ub, vx, vt = ft._tangents(LB, UB, "cuda")
-    a0, aux = ft._prep_ide_points(batch, lb, ub)
-    lam = ft._lam(torch.tensor([1.3], device="cuda"),
-                  torch.tensor([-4.0], device="cuda"))
-    args = (a0, aux, lam, *ft._prep(params, vx, vt))
-
-    def flat(out):
-        loss, gwt, gz1, gz2, glam = out
-        return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)] + [glam]
-
+    args = _ide_args(layers, n, 1.3, -4.0, seed=n + 1)
     n0 = dict(ft.launches)
-    got = flat(ft.burgers_ide_loss_grad(*args, bf16=True))
-    again = flat(ft.burgers_ide_loss_grad(*args, bf16=True))
+    got = _ide_flat(ft.burgers_ide_loss_grad(*args, bf16=True))
+    again = _ide_flat(ft.burgers_ide_loss_grad(*args, bf16=True))
     loss_only = ft.burgers_ide_loss(*args, bf16=True)
-    want = flat(ft.burgers_ide_loss_grad_bf16_plain(*args))
+    want = _ide_flat(ft.burgers_ide_loss_grad_bf16_plain(*args))
     want_loss = ft.burgers_ide_loss_bf16_plain(*args)
     torch.cuda.synchronize()
     assert _launched(ft, n0, "burgers_ide_loss_grad_bf16",
                      "burgers_ide_loss_bf16") == (2, 1)
     _check_bf16(got, again, want, loss_only, want_loss, n_lam=1)
+    assert torch.equal(loss_only.reshape(1), got[0])
 
 
 @pytest.mark.parametrize("layers,n", [([2, 100, 100, 100, 100, 2], 20000),

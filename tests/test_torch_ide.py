@@ -163,6 +163,37 @@ def _assert_bf16_parity(val, grads, want_val, want_grads, val32, grads32):
     assert abs(np.linalg.norm(g) / np.linalg.norm(o) - 1) < 0.05
 
 
+@pytest.mark.parametrize("stream_dtype,n,l1,logl2", [
+    (None, 33, 0.0, -6.0),
+    (None, 33, 1.3, -4.0),
+    ("bfloat16", 1031, 1.3, -4.0),
+])
+def test_fused_ide_edge_widths_match_jax(stream_dtype, n, l1, logl2):
+    """[2, 7, 33, 64, 1]: hidden widths that are not multiples of 4 and
+    the widest the CUDA kernels take, as in their card tests; N = 33 is a
+    tile and one point.  The plain version against the JAX kernel in
+    interpret mode at the module's bars; bf16 at N = 1,031, two of the
+    JAX kernel's tiles (one fails on XLA's CPU backend)."""
+    jp = _jax_params([2, 7, 33, 64, 1], l1, logl2, jnp.float32, seed=n)
+    X, u = _points(n, n, np.float32)
+    jloss = pallas_train.make_burgers_ide_loss(LB, UB, interpret=True,
+                                               stream_dtype=stream_dtype)
+    want, want_g = jax.value_and_grad(jloss)(
+        jp, {"X_u": jnp.asarray(X), "u": jnp.asarray(u)})
+    want_g = [np.asarray(a) for a in jax.tree_util.tree_leaves(want_g)]
+    val, grads = _fused_value_and_grad(jp, X, u, stream_dtype)
+    if stream_dtype is not None:
+        val32, grads32 = _fused_value_and_grad(jp, X, u, None)
+        _assert_bf16_parity(val, grads, float(want), want_g, val32, grads32)
+        return
+    np.testing.assert_allclose(val, float(want), rtol=1e-5)
+    gmax = max(float(np.abs(w).max()) for w in want_g[:-2])
+    for g, w in zip(grads[:-2], want_g[:-2]):
+        np.testing.assert_allclose(g, w, rtol=5e-4, atol=5e-6 * gmax)
+    for g, w in zip(grads[-2:], want_g[-2:]):   # lambda1, log_lambda2
+        np.testing.assert_allclose(g, w, rtol=1e-4)
+
+
 def test_fused_ide_refuses_bf16_streams():
     """Once refused, bf16 streams now run: the plain bf16 version
     against make_burgers_ide_loss(stream_dtype="bfloat16",
