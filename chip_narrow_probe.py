@@ -1,35 +1,48 @@
 #!/usr/bin/env python3
-"""Time the Burgers kernels on one NVIDIA GPU, and sweep the block of
-the narrow loss+grad kernel (``pinn_torch/csrc/pt_narrow.cuh``).
+"""Time the Burgers kernels on one NVIDIA GPU, sweep the block of the
+narrow kernels (``pinn_torch/csrc/pt_narrow.cuh``), and compare the
+compiled code of two trees.
 
 Usage (from the repository root, on a machine with a CUDA card and the
 CUDA toolkit):
 
-    python3 chip_narrow_probe.py [--tree DIR] [--sweep]
+    python3 chip_narrow_probe.py [--tree DIR] [--sweep] [--sass DIR]
 
 At the inference flagship ([2, 20x8, 1], N = 10,100, ``chip_smoke.py``'s
 seeded inputs) it prints, for ``burgers_loss_grad``,
 ``burgers_loss_grad_bf16``, ``burgers_loss`` and ``burgers_loss_bf16``
-(PERF.md rows 1, 1b, 2, 2b), and at the identification flagship ([2,
-20x8, 1], N = 2,000) for the four ``burgers_ide_*`` entries (rows 3-4b),
-the median ms a call through the wrapper (CUDA events, 50 calls) and
-the device ms a call of each kernel the call launches (torch.profiler,
-20 calls).  Rows 1, 1b, 3 and 3b run ``pt_narrow.cuh``'s kernel, rows
-2, 2b, 4 and 4b ``pt_mlp.cuh``'s loss-only kernel.  For rows 3 and 3b
-it also prints the loss and the lambda adjoints (A1, -A2) as hex
-floats, so that two trees' outputs can be compared bit for bit.
+(PERF.md rows 1, 1b, 2, 2b), at the identification flagship ([2, 20x8,
+1], N = 2,000) for the four ``burgers_ide_*`` entries (rows 3-4b), and
+at the facade's v1 SSE ([2, 20x8, 1], N = 10,000, the inputs of
+``chip_smoke.py``'s phase 3e) for ``burgers_sse_grad`` and
+``burgers_sse`` (rows 5, 6), the median ms a call through the wrapper
+(CUDA events, 50 calls) and the device ms a call of each kernel the
+call launches (torch.profiler, 20 calls); so too for the residual
+evaluation (rows 9-11) at the inputs of phase 3e's times.  Rows 1, 1b,
+3, 3b and 5 run ``pt_narrow.cuh``'s loss+grad kernel, row 6 its
+loss-only kernel, rows 2, 2b, 4 and 4b ``pt_mlp.cuh``'s loss-only
+kernel.  It also prints, as
+hex floats, so that two trees' outputs can be compared bit for bit,
+the loss and the lambda adjoints (A1, -A2) of rows 3 and 3b and the
+loss of rows 5 and 6.
 
 ``--tree DIR`` times the ``pinn_torch`` of the checkout at DIR (another
 commit unpacked there, say) with this script's measurement code, so
 that two trees are timed alike on one card, in turns.
 
 ``--sweep`` builds the tree's sources once for each block size in
-``SWEEP`` (a copy under ``build/``, the constant ``kPtNarrowThreads``
-rewritten; the tree's own library is untouched), prints each build's
-ptxas lines for the narrow kernel on both heads, checks that each gives
-the default build's loss and gradients bit for bit for rows 1, 1b, 3 and
-3b (the block size changes the order of no sum), and times those four
-at each size in two interleaved rounds.
+``SWEEP`` (a copy under ``build/``, both constants
+``kPtNarrowThreads`` and ``kPtNarrowLossThreads`` rewritten to it; the
+tree's own library is untouched), prints each build's ptxas lines for
+the narrow kernels on every head, checks that each gives the default
+build's outputs bit for bit for rows 1, 1b, 3, 3b, 5 and 6 (the block
+size changes the order of no sum), and times those six at each size in
+two interleaved rounds.
+
+``--sass DIR`` builds this tree's kernels and those of the checkout at
+DIR, disassembles both libraries (``cuobjdump -sass``) and prints, for
+each kernel function, whether its instructions are identical in both,
+differ (with the differing lines) or are in one only.
 
 The last line is the card's nvidia-smi line.  Without a CUDA device it
 exits with code 2.
@@ -50,8 +63,14 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 SWEEP = (128, 192, 256, 320, 384, 448, 512, 640)
 NARROW = ("burgers_loss_grad", "burgers_loss_grad_bf16",   # rows 1, 1b
-          "burgers_ide_loss_grad", "burgers_ide_loss_grad_bf16")   # 3, 3b
-HEADS = ("BurgersInfHead", "BurgersIdeHead")
+          "burgers_ide_loss_grad", "burgers_ide_loss_grad_bf16",   # 3, 3b
+          "burgers_sse_grad", "burgers_sse")                      # 5, 6
+# The narrow kernel templates and the heads they are built for.
+NARROW_KERNELS = (("pt_narrow_loss_grad_kernel", "BurgersInfHead"),
+                  ("pt_narrow_loss_grad_kernel", "BurgersIdeHead"),
+                  ("pt_narrow_loss_grad_kernel", "BurgersSseHead"),
+                  ("pt_narrow_loss_kernel", "BurgersSseHead"))
+CONSTANTS = ("kPtNarrowThreads", "kPtNarrowLossThreads")
 
 
 def _smoke():
@@ -66,11 +85,32 @@ def _smoke():
 
 def _calls(cs):
     """The timed calls by entry point: rows 1-2b at the inference
-    flagship, rows 3-4b at identification's (N = 2,000)."""
+    flagship, rows 3-4b at identification's (N = 2,000), rows 5-6 at
+    the facade's v1 SSE (N = 10,000), rows 9-11 where phase 3e times
+    them (both Burgers layouts on the 200,000-point pool, Schrödinger's
+    on its grid)."""
+    import numpy as np
+    import torch
     from pinn_torch.ops import fused_train as ft
+    from pinn_torch.ops import residual as rs
     args = cs._kernel_inputs(cs.FLAGSHIP, 100, 10000, seed=100)
     ide = cs._ide_inputs(cs.FLAGSHIP, 2000, cs.IDE_LAMBDAS[0], seed=200)
-    calls = {}
+    layers, n = cs.SSE_SHAPES[0]
+    sse = cs._sse_inputs(layers, n, seed=400)
+    calls = {"burgers_sse_grad": lambda: ft.burgers_sse_grad(*sse, cs.NU),
+             "burgers_sse": lambda: ft.burgers_sse(*sse, cs.NU)}
+    _, lb, ub = cs._grid("burgers")
+    rng = np.random.RandomState(500)
+    params = cs._weights(cs.FLAGSHIP, rng)
+    pool = torch.as_tensor(lb + (ub - lb) * rng.rand(cs.RAR_POOL, 2),
+                           dtype=torch.float32, device="cuda")
+    for name in ("burgers_residual", "burgers_residual_fmajor"):
+        calls[name] = lambda f=getattr(rs, name): f(params, pool, lb, ub, cs.NU)
+    X_s, slb, sub = cs._grid("schrodinger")
+    s_params = cs._weights(cs.S_FLAGSHIP, np.random.RandomState(600))
+    X_s = torch.as_tensor(X_s, dtype=torch.float32, device="cuda")
+    calls["schrodinger_residual"] = lambda: rs.schrodinger_residual(
+        s_params, X_s, slb, sub)
     for sfx, bf16 in (("", False), ("_bf16", True)):
         calls.update({
             "burgers_loss_grad" + sfx:
@@ -82,6 +122,12 @@ def _calls(cs):
             "burgers_ide_loss" + sfx:
                 lambda b=bf16: ft.burgers_ide_loss(*ide, bf16=b)})
     return calls
+
+
+def _outputs(cs, fn):
+    """A call's outputs as flat pieces: [loss, *grads, ...] or [loss]."""
+    out = fn()
+    return cs._flat(out) if isinstance(out, tuple) else [out.reshape(1)]
 
 
 def _time(cs, tag, name, fn):
@@ -103,11 +149,12 @@ def _variants(sizes):
         csrc = root / f"threads{nt}"
         shutil.copytree(_build.CSRC_DIR, csrc)
         hdr = csrc / "pt_narrow.cuh"
-        text, n = re.subn(r"constexpr int kPtNarrowThreads = \d+;",
-                          f"constexpr int kPtNarrowThreads = {nt};",
-                          hdr.read_text())
-        if n != 1:
-            raise RuntimeError("kPtNarrowThreads not found in pt_narrow.cuh")
+        text = hdr.read_text()
+        for const in CONSTANTS:
+            text, n = re.subn(rf"constexpr int {const} = \d+;",
+                              f"constexpr int {const} = {nt};", text)
+            if n != 1:
+                raise RuntimeError(f"{const} not found in pt_narrow.cuh")
         hdr.write_text(text)
         objs = []
         for src in sorted(csrc.glob("*.cu")):
@@ -136,13 +183,13 @@ def _sweep(cs) -> None:
     calls = _calls(cs)
     default = _build.library()
     libs = _variants(SWEEP)
-    want = {name: cs._flat(calls[name]()) for name in NARROW}
+    want = {name: _outputs(cs, calls[name]) for name in NARROW}
     for nt, lib in libs.items():
         _build._LIBRARY = lib
-        regs = {head: cs._ptxas_lines("pt_narrow_loss_grad_kernel", False, head)
-                for head in HEADS}
+        regs = {f"{kernel} {head}": cs._ptxas_lines(kernel, False, head)
+                for kernel, head in NARROW_KERNELS}
         for name in NARROW:
-            got = cs._flat(calls[name]())
+            got = _outputs(cs, calls[name])
             torch.cuda.synchronize()
             if not all(torch.equal(g, w) for g, w in zip(got, want[name])):
                 raise AssertionError(f"{nt} threads: {name} differs from the "
@@ -157,11 +204,70 @@ def _sweep(cs) -> None:
     _build._LIBRARY = default
 
 
+def _sass_functions(lib_path: Path) -> dict:
+    """{kernel function: its SASS lines} of a library.  A function is
+    named from its first ``pt_`` on, which drops the anonymous
+    namespace's per-file prefix; a name that repeats (a kernel of a
+    header in several sources) gets its count.  Each instruction keeps
+    both halves of its encoding (the second holds the scheduling
+    bits)."""
+    from pinn_torch.ops import _build
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : \S*?(pt_\w+)", line)
+        if m:
+            name, k = m.group(1), 1
+            while name + (f" #{k}" if k > 1 else "") in funcs:
+                k += 1
+            cur = funcs.setdefault(name + (f" #{k}" if k > 1 else ""), [])
+        elif cur is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            cur.append(re.sub(r"\s+", " ", line.strip()))
+        elif cur and re.match(r"\s*/\* 0x[0-9a-f]+ \*/\s*$", line):
+            cur[-1] += " " + line.strip()
+    return funcs
+
+
+def _sass(other: str) -> None:
+    """Compare the SASS of this tree's kernels with the checkout at
+    ``other``'s, function by function."""
+    import difflib
+    from pinn_torch.ops import _build
+    theirs = subprocess.run(
+        [sys.executable, "-c", "from pinn_torch.ops import _build; "
+         "print(_build.library().path)"], cwd=os.path.abspath(other),
+        capture_output=True, text=True, check=True).stdout.strip()
+    a = _sass_functions(Path(theirs))
+    b = _sass_functions(_build.library().path)
+    for name in sorted(set(a) | set(b)):
+        if name not in b:
+            print(f"[sass] only in {other}: {name} ({len(a[name])} "
+                  "instructions)", flush=True)
+        elif name not in a:
+            print(f"[sass] only in this tree: {name} ({len(b[name])} "
+                  "instructions)", flush=True)
+        elif a[name] == b[name]:
+            print(f"[sass] identical: {name} ({len(a[name])} instructions)",
+                  flush=True)
+        else:
+            diff = [d for d in difflib.unified_diff(a[name], b[name],
+                                                    lineterm="", n=0)
+                    if d[:1] in "+-" and d[:3] not in ("---", "+++")]
+            print(f"[sass] DIFFERS: {name} ({len(a[name])} / {len(b[name])} "
+                  f"instructions, {len(diff)} lines differ)", flush=True)
+            for d in diff[:40]:
+                print(f"[sass]   {d}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", help="time the pinn_torch of this checkout")
     ap.add_argument("--sweep", action="store_true",
-                    help="sweep the narrow kernel's block size")
+                    help="sweep the narrow kernels' block size")
+    ap.add_argument("--sass", metavar="DIR",
+                    help="compare the kernels' SASS with this checkout's")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -178,12 +284,18 @@ def main() -> int:
     calls = _calls(cs)
     for name, fn in calls.items():
         _time(cs, tag, name, fn)
-    for name in NARROW[2:]:
+    for name in NARROW[2:4]:
         out = cs._flat(calls[name]())
         print(f"[probe] {tag} {name} outputs: loss {float(out[0]).hex()}, "
               f"glam {', '.join(float(v).hex() for v in out[-1])}", flush=True)
+    for name in NARROW[4:]:
+        out = _outputs(cs, calls[name])
+        print(f"[probe] {tag} {name} outputs: loss {float(out[0]).hex()}",
+              flush=True)
     if opts.sweep:
         _sweep(cs)
+    if opts.sass:
+        _sass(opts.sass)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()

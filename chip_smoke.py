@@ -49,13 +49,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    (N = 512) and the six edges of 3c, the loss bitwise as in 3c;
    bitwise repeatability; times at each flagship.
 3e. The v1 SSE pair and the three residual-evaluation kernels vs their
-   plain versions: the SSE pair at [2, 20x8, 1] (N = 10,000), [2, 40x8,
-   1] (N = 1,124) and [2, 16, 1] (N = 1,024); both Burgers residual
-   layouts at [2, 20x8, 1] on the flagship grid (25,600 points) and on
-   a 200,000-point pool, and at [2, 20, 20, 1] (N = 700); the
-   Schrödinger residual at [2, 100x4, 2] on its grid (51,456 points)
-   and [2, 32, 32, 2] (N = 600); bitwise repeatability; times at the
-   first shape of each (the residuals at the pool and the grid).
+   plain versions: the SSE pair (pt_narrow.cuh's loss+grad kernel and
+   its loss-only kernel) at [2, 20x8, 1] (N = 10,000), [2, 40x8, 1]
+   (N = 1,124), [2, 16, 1] (N = 1,024) and the narrow kernels' edges of
+   3, at every shape the loss-only loss bitwise the loss+grad loss, and
+   at N = 10,000 both kernels' ptxas lines, launch records and device
+   ms a call, as in 3; both Burgers residual layouts at [2, 20x8, 1]
+   on the flagship grid (25,600 points) and on a 200,000-point pool,
+   and at [2, 20, 20, 1] (N = 700); the Schrödinger residual at [2,
+   100x4, 2] on its grid (51,456 points) and [2, 32, 32, 2] (N = 600);
+   bitwise repeatability; times at the first shape of each (the
+   residuals at the pool and the grid).
 4. Burgers inference main path: ``pinn_torch.experiments
    .inf_cont_burgers.run`` twice at the flagship width, a fused float32
    stage (Adam, then mixed-precision L-BFGS with a Wolfe search and
@@ -441,19 +445,19 @@ def phase_kernels(stats: dict, bf16: bool = False) -> None:
                     args, layers, n_aux=3, time_it=i == 0, bf16=bf16,
                     bitwise_loss=True)
 
-    _report_narrow(stats, bf16, "BurgersInfHead", "burgers", grad, loss,
+    _report_narrow(stats, bf16, "BurgersInfHead",
+                   [("pt_narrow_loss_grad_kernel", "burgers_loss_grad", grad),
+                    ("pt_loss_kernel", "burgers_loss", loss)],
                    cases[0][2], _shape_tag(FLAGSHIP, cases[0][1]))
 
 
-def _report_narrow(stats, bf16, head, prefix, grad, loss, args, shape):
-    """ptxas's lines of the narrow loss+grad kernel and of the loss-only
-    kernel on ``head``, the launch record of each in one call on
+def _report_narrow(stats, bf16, head, calls, args, shape):
+    """For each (kernel template, entry, call) of ``calls`` on ``head``:
+    ptxas's lines of the kernel, its launch record in one call on
     ``args`` and the device ms a call of each kernel the call launches
     (profiler traces), beside the median through the wrapper."""
     sfx = "_bf16" if bf16 else ""
-    for kernel, name, fn in (("pt_narrow_loss_grad_kernel",
-                              prefix + "_loss_grad", grad),
-                             ("pt_loss_kernel", prefix + "_loss", loss)):
+    for kernel, name, fn in calls:
         for line in _ptxas_lines(kernel, bf16, head):
             log(f"[kernels] {name}{sfx} ptxas ({kernel}): {line}")
         rec, = _launch_records(kernel, [lambda: fn(*args)])
@@ -494,7 +498,9 @@ def phase_ide_kernels(stats: dict, bf16: bool = False,
                         n_aux=3, n_lam=1, time_it=i == 0 and j == 0, bf16=bf16,
                         bitwise_loss=True)
     layers, n = shapes[0]
-    _report_narrow(stats, bf16, "BurgersIdeHead", "burgers_ide", grad, loss,
+    _report_narrow(stats, bf16, "BurgersIdeHead",
+                   [("pt_narrow_loss_grad_kernel", "burgers_ide_loss_grad", grad),
+                    ("pt_loss_kernel", "burgers_ide_loss", loss)],
                    _ide_inputs(layers, n, IDE_LAMBDAS[0], seed=200),
                    _shape_tag(layers, n))
 
@@ -693,19 +699,32 @@ def _check_residual(stats, tag, name, kernel, plain, params, X, layers, rtol,
 
 def phase_v1_kernels(stats: dict) -> None:
     """3e: the v1 SSE pair and the residual-evaluation kernels against
-    their plain versions."""
+    their plain versions; the SSE pair also at the narrow kernels'
+    edges, the loss-only loss bitwise the loss+grad one at every shape,
+    and both narrow kernels' ptxas lines, launch records and device
+    times at the first shape."""
     import torch
     from pinn_torch.ops import fused_train as ft
     from pinn_torch.ops import residual as rs
 
-    for i, (layers, n) in enumerate(SSE_SHAPES):
+    def grad(*a):
+        return ft.burgers_sse_grad(*a, NU)
+
+    def loss(*a):
+        return ft.burgers_sse(*a, NU)
+
+    for i, (layers, n) in enumerate(SSE_SHAPES + NARROW_EDGES):
         args = _sse_inputs(layers, n, seed=400 + i)
         _check_pair(stats, "sse " + _shape_tag(layers, n), "burgers_sse_grad",
-                    "burgers_sse", lambda *a: ft.burgers_sse_grad(*a, NU),
-                    lambda *a: ft.burgers_sse(*a, NU),
+                    "burgers_sse", grad, loss,
                     lambda *a: ft.burgers_sse_grad_plain(*a, NU),
                     lambda *a: ft.burgers_sse_plain(*a, NU),
-                    args, layers, n_aux=0, time_it=i == 0)
+                    args, layers, n_aux=0, time_it=i == 0, bitwise_loss=True)
+    layers, n = SSE_SHAPES[0]
+    _report_narrow(stats, False, "BurgersSseHead",
+                   [("pt_narrow_loss_grad_kernel", "burgers_sse_grad", grad),
+                    ("pt_narrow_loss_kernel", "burgers_sse", loss)],
+                   _sse_inputs(layers, n, seed=400), _shape_tag(layers, n))
 
     X_grid, lb, ub = _grid("burgers")
     for i, (layers, n) in enumerate(RESIDUAL_SHAPES):

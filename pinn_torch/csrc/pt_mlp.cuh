@@ -1,7 +1,9 @@
-// Shared device code of the fused PINN training kernels (sm_90a): one
-// point's forward through a tanh MLP carrying four Taylor streams
-// (value, d/dx, d2/dx2, d/dt), the loss head, and the hand-derived
-// backward, with per-warp partial sums reduced in a fixed order.
+// Shared code of the fused PINN loss kernels (sm_90a): the net, head
+// and buffer conventions that every kernel of pt_narrow.cuh, pt_tile.cuh
+// and residual_eval.cu takes, the stream type's roundings, the
+// fixed-order reduction of the partials, and a loss-only kernel that
+// carries one point a thread through a tanh MLP with four Taylor
+// streams (value, d/dx, d2/dx2, d/dt).
 //
 // Three things are template parameters:
 //
@@ -10,7 +12,7 @@
 //         adjoints gU[o][s] of the output streams (eval()), and any
 //         extra accumulators (kExtra slots after the weight gradients).
 //   W     the maximum hidden width, which sizes the per-thread stream
-//         arrays (3 x 4W floats of local memory).
+//         arrays (2 x 4W floats of local memory).
 //   S     the stream type: float (exact) or __nv_bfloat16 (the bf16
 //         streams of the TPU kernels' stream_dtype="bfloat16").
 //
@@ -19,7 +21,15 @@
 // row-major then b_l (h_out); then z1row (h1) and z2row (h1), the first
 // layer's constant tangent rows.  A gradient output has the loss in
 // slot 0, the gradient of wpack in wpack's own order, then the head's
-// kExtra accumulators.
+// kExtra accumulators.  A loss+grad kernel saves (t, z1, z11, z2) of
+// every hidden neuron to a device workspace ws laid out
+// [layer][stream][neuron][point], the rows of hidden layer l from
+// PtNet::s_off[l], n_tiles * 32 points a row, and sums a tile's loss
+// and gradients into its row of partials[n_tiles, 1 + n_weights +
+// kExtra]; a loss-only kernel a tile's loss into partials[n_tiles].
+// pt_reduce_rows_kernel then sums the rows in tile order.  No float
+// atomics, so two launches on the same inputs give bitwise-equal
+// results.
 //
 // A Head is a struct with kOut, kExtra, kRoundedBias (whether the
 // output bias gradient sums the stream-rounded value adjoint, as the
@@ -31,25 +41,16 @@
 // where eval returns the point's loss term; a point past the ragged
 // edge (live == false) must give 0 and zero adjoints.
 //
-// Design.  One thread carries one point.  A warp is a tile of 32
-// points; per-point sums over a tile use a fixed butterfly of warp
-// shuffles, and each warp writes its tile's row of
-// partials[n_tiles, 1 + n_weights + kExtra].  pt_reduce_rows_kernel
-// then sums the rows in tile order.  No float atomics, so two launches
-// on the same inputs give bitwise-equal results.  The weights of the
-// whole net sit in shared memory, shared by the warps of a block: one
-// warp a block while they fit in 48 KB (many blocks per SM), and above
-// that as many warps as keep the grid within one wave of the SMs
-// (pt_warps_per_block), since then only one block fits on an SM.
-//
-// Saved activations.  The backward needs (t, z1, z11, z2) of every
-// hidden neuron of the point.  They go to a device workspace ws laid
-// out [layer][stream][neuron][point] (n_tiles * 32 points a row), so the
-// 32 threads of a warp touch 32 consecutive floats; each layer's input
-// activations are rematerialised from the previous layer's saved block.
+// The loss-only kernel (pt_loss_kernel).  One thread carries one
+// point, a warp a tile of 32 points, whose loss pt_warp_sum sums in a
+// fixed butterfly.  The weights of the whole net sit in shared memory,
+// shared by the warps of a block: one warp a block while they fit in
+// 48 KB (many blocks per SM), and above that as many warps as keep the
+// grid within one wave of the SMs (pt_warps_per_block), since then
+// only one block fits on an SM.
 //
 // bf16 streams (S = __nv_bfloat16).  The TPU kernels round to bf16 at
-// fixed points (pinn/ops/pallas_train.py:121-274) and this code rounds
+// fixed points (pinn/ops/pallas_train.py:121-274) and the kernels round
 // at the same ones, round-to-nearest-even as JAX's astype: the weights,
 // biases, tangent rows and a0 as they are loaded; each layer's four
 // output streams (the next layer is computed from the unrounded t, z1,
@@ -59,10 +60,9 @@
 // layer inputs.  Every product takes rounded operands and accumulates
 // in f32; the loss, its aux rows, the partials and their reduction stay
 // f32.  ws holds S, which halves it.  The weights stay f32 in shared
-// memory, holding rounded values: the shared-memory size, and with it
-// the block shape (pt_warps_per_block), is the f32 kernels', and no
-// product pays a conversion.  With S = float every rounding is the
-// identity and the code is the f32 kernels'.
+// memory, holding rounded values, so no product pays a conversion.
+// With S = float every rounding is the identity and the code is the
+// f32 kernels'.
 //
 // Precision: IEEE f32 arithmetic throughout (fmaf, tanhf); build
 // without --use_fast_math.
@@ -123,42 +123,6 @@ __device__ __forceinline__ float pt_warp_sum(float v) {
   return v;
 }
 
-// out[k] = the tile's sum of g . act[:, k] over the four streams, for
-// k < n: one weight row's gradient, stored by lane 0.  Four butterflies
-// run side by side, so the shuffle latency of one hides behind the
-// others'; each sum keeps pt_warp_sum's order.
-template <int W>
-__device__ __forceinline__ void pt_grad_row(float g0, float g1, float g2,
-                                            float g3, const float* act, int n,
-                                            float* out, int lane) {
-  int k = 0;
-  for (; k + 4 <= n; k += 4) {
-    float c[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      c[q] = g0 * act[0 * W + k + q] + g1 * act[1 * W + k + q]
-             + g2 * act[2 * W + k + q] + g3 * act[3 * W + k + q];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        c[q] += __shfl_xor_sync(0xffffffffu, c[q], off);
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) out[k + q] = c[q];
-    }
-  }
-  for (; k < n; ++k) {
-    const float c = g0 * act[0 * W + k] + g1 * act[1 * W + k]
-                    + g2 * act[2 * W + k] + g3 * act[3 * W + k];
-    const float cs = pt_warp_sum(c);
-    if (lane == 0) out[k] = cs;
-  }
-}
-
 template <class S>
 __device__ __forceinline__ void pt_load_weights(const PtNet& net,
                                                 const float* __restrict__ wpack,
@@ -170,17 +134,12 @@ __device__ __forceinline__ void pt_load_weights(const PtNet& net,
 }
 
 // Forward of one point through the hidden stack.  On return act holds
-// the last hidden layer's four output streams [s * W + k].  With kSave
-// each hidden layer's (t, z1, z11, z2) is saved at
-// ws[(s_off[l] + s * h + j) * cols + col].  kSave is a template
-// argument, not a test of ws: with a runtime test the compiler kept
-// both versions of every layer loop in the loss+grad kernel, which ran
-// 1.7x slower on the H100.  act holds S-rounded values.
-template <int W, bool kSave, class S>
+// the last hidden layer's four output streams [s * W + k], S-rounded;
+// nxt is scratch of the same size.
+template <int W, class S>
 __device__ void pt_forward_hidden(const PtNet& net, const float* w_s,
                                   float x0, float x1, float* act,
-                                  float* nxt, S* ws, int cols,
-                                  int col) {
+                                  float* nxt) {
   using St = PtStream<S>;
   const int n_hidden = net.n_layers - 1;
   // Layer 0: two inputs, constant tangent rows, z11 = 0.
@@ -195,13 +154,6 @@ __device__ void pt_forward_hidden(const PtNet& net, const float* w_s,
       const float t = tanhf(zv);
       const float sp = 1.0f - t * t;
       const float spp = -2.0f * t * sp;
-      if (kSave) {
-        const int r = net.s_off[0] + j;
-        ws[(size_t)(r + 0 * h) * cols + col] = St::put(t);
-        ws[(size_t)(r + 1 * h) * cols + col] = St::put(z1);
-        ws[(size_t)(r + 2 * h) * cols + col] = St::put(0.0f);
-        ws[(size_t)(r + 3 * h) * cols + col] = St::put(z2);
-      }
       act[0 * W + j] = St::rnd(t);
       act[1 * W + j] = St::rnd(sp * z1);
       act[2 * W + j] = St::rnd(spp * z1 * z1);
@@ -228,13 +180,6 @@ __device__ void pt_forward_hidden(const PtNet& net, const float* w_s,
       const float t = tanhf(zv);
       const float sp = 1.0f - t * t;
       const float spp = -2.0f * t * sp;
-      if (kSave) {
-        const int r = net.s_off[l] + j;
-        ws[(size_t)(r + 0 * h) * cols + col] = St::put(t);
-        ws[(size_t)(r + 1 * h) * cols + col] = St::put(z1);
-        ws[(size_t)(r + 2 * h) * cols + col] = St::put(z11);
-        ws[(size_t)(r + 3 * h) * cols + col] = St::put(z2);
-      }
       nxt[0 * W + j] = St::rnd(t);
       nxt[1 * W + j] = St::rnd(sp * z1);
       nxt[2 * W + j] = St::rnd(spp * z1 * z1 + sp * z11);
@@ -272,176 +217,6 @@ __device__ __forceinline__ void pt_output(const PtNet& net, const float* w_s,
   }
 }
 
-// Adjoints of a hidden layer's pre-activation streams (_layer_bwd of
-// the TPU kernels): g holds the adjoints of the layer's four outputs,
-// gz receives (gz_v, gz_1, gz_11, gz_2), S-rounded.
-template <int W, class S>
-__device__ __forceinline__ void pt_layer_bwd(const PtNet& net, int l,
-                                             const float* g, float* gz,
-                                             const S* ws, int cols,
-                                             int col) {
-  using St = PtStream<S>;
-  const int h = net.width[l + 1];
-  for (int j = 0; j < h; ++j) {
-    const int r = net.s_off[l] + j;
-    const float t = St::get(ws[(size_t)(r + 0 * h) * cols + col]);
-    const float z1 = St::get(ws[(size_t)(r + 1 * h) * cols + col]);
-    const float z11 = St::get(ws[(size_t)(r + 2 * h) * cols + col]);
-    const float z2 = St::get(ws[(size_t)(r + 3 * h) * cols + col]);
-    const float g0 = g[0 * W + j];
-    const float g1 = g[1 * W + j];
-    const float g2 = g[2 * W + j];
-    const float g3 = g[3 * W + j];
-    const float sp = 1.0f - t * t;
-    const float spp = -2.0f * t * sp;
-    const float gt = g0 + g1 * (-2.0f * t * z1)
-                     + g2 * ((6.0f * t * t - 2.0f) * z1 * z1 - 2.0f * t * z11)
-                     + g3 * (-2.0f * t * z2);
-    gz[0 * W + j] = St::rnd(sp * gt);
-    gz[1 * W + j] = St::rnd(g1 * sp + g2 * (2.0f * spp * z1));
-    gz[2 * W + j] = St::rnd(g2 * sp);
-    gz[3 * W + j] = St::rnd(g3 * sp);
-  }
-}
-
-// Loss and every gradient of one tile per warp.
-template <class Head, int W, class S>
-__global__ void pt_loss_grad_kernel(PtNet net, const float* __restrict__ a0,
-                                    const float* __restrict__ wpack,
-                                    int n_pts, typename Head::Args args,
-                                    S* __restrict__ ws,
-                                    float* __restrict__ partials) {
-  using St = PtStream<S>;
-  extern __shared__ float w_s[];
-  pt_load_weights<S>(net, wpack, w_s);
-
-  const int lane = threadIdx.x & (PT_TILE - 1);
-  const int tile = blockIdx.x * (blockDim.x / PT_TILE) + threadIdx.x / PT_TILE;
-  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
-  if (tile >= n_tiles) return;  // a whole warp; no barrier follows
-  const int cols = n_tiles * PT_TILE;
-  const int col = tile * PT_TILE + lane;
-  const bool live = col < n_pts;
-  // Points past the ragged edge run with zero inputs and a zero weight
-  // (Head::load): they add exactly 0 to the loss and every gradient,
-  // and keep the warp converged for the shuffles.
-  const float x0 = St::rnd(live ? a0[col] : 0.0f);
-  const float x1 = St::rnd(live ? a0[n_pts + col] : 0.0f);
-  const typename Head::Point pt = Head::load(args, n_pts, col, live);
-
-  float act[4 * W];
-  float buf[4 * W];
-  float gz[4 * W];
-
-  pt_forward_hidden<W, true, S>(net, w_s, x0, x1, act, buf, ws, cols, col);
-  float U[Head::kOut][4], gU[Head::kOut][4], gb[Head::kOut];
-  float ex[Head::kExtra + 1];
-  pt_output<W, Head::kOut>(net, w_s, act, U);
-  const float loss = Head::eval(args, pt, U, gU, ex);
-  for (int o = 0; o < Head::kOut; ++o) {
-    gb[o] = Head::kRoundedBias ? St::rnd(gU[o][0]) : gU[o][0];
-    for (int s = 0; s < 4; ++s) gU[o][s] = St::rnd(gU[o][s]);
-  }
-
-  float* part = partials
-                + (size_t)tile * (1 + net.n_weights + Head::kExtra) + 1;
-  const float loss_tile = pt_warp_sum(loss);
-  if (lane == 0) part[-1] = loss_tile;
-  for (int e = 0; e < Head::kExtra; ++e) {
-    const float es = pt_warp_sum(ex[e]);
-    if (lane == 0) part[net.n_weights + e] = es;
-  }
-
-  // ---- output layer ----
-  const int L = net.n_layers - 1;
-  {
-    const int hin = net.width[L];
-    const float* Wt = w_s + net.w_off[L];
-    for (int o = 0; o < Head::kOut; ++o) {
-      pt_grad_row<W>(gU[o][0], gU[o][1], gU[o][2], gU[o][3], act, hin,
-                     part + net.w_off[L] + o * hin, lane);
-      const float cb = pt_warp_sum(gb[o]);
-      if (lane == 0) part[net.b_off[L] + o] = cb;
-    }
-    // buf <- adjoints of the last hidden layer's outputs.
-    for (int s = 0; s < 4; ++s) {
-      for (int k = 0; k < hin; ++k) {
-        float a = Wt[k] * gU[0][s];
-        for (int o = 1; o < Head::kOut; ++o) {
-          a = fmaf(Wt[o * hin + k], gU[o][s], a);
-        }
-        buf[s * W + k] = a;
-      }
-    }
-  }
-
-  // ---- hidden layers L-1 .. 1 ----
-  for (int l = L - 1; l >= 1; --l) {
-    const int hin = net.width[l];
-    const int h = net.width[l + 1];
-    const float* Wt = w_s + net.w_off[l];
-    pt_layer_bwd<W, S>(net, l, buf, gz, ws, cols, col);
-    // act <- this layer's inputs, rematerialised from layer l-1.
-    for (int k = 0; k < hin; ++k) {
-      const int r = net.s_off[l - 1] + k;
-      const float tp = St::get(ws[(size_t)(r + 0 * hin) * cols + col]);
-      const float z1p = St::get(ws[(size_t)(r + 1 * hin) * cols + col]);
-      const float z11p = St::get(ws[(size_t)(r + 2 * hin) * cols + col]);
-      const float z2p = St::get(ws[(size_t)(r + 3 * hin) * cols + col]);
-      const float spp_ = 1.0f - tp * tp;
-      const float sppp = -2.0f * tp * spp_;
-      act[0 * W + k] = St::rnd(tp);
-      act[1 * W + k] = St::rnd(spp_ * z1p);
-      act[2 * W + k] = St::rnd(sppp * z1p * z1p + spp_ * z11p);
-      act[3 * W + k] = St::rnd(spp_ * z2p);
-    }
-    for (int j = 0; j < h; ++j) {
-      const float gz0 = gz[0 * W + j];
-      pt_grad_row<W>(gz0, gz[1 * W + j], gz[2 * W + j], gz[3 * W + j], act,
-                     hin, part + net.w_off[l] + j * hin, lane);
-      const float cb = pt_warp_sum(gz0);
-      if (lane == 0) part[net.b_off[l] + j] = cb;
-    }
-    // buf <- adjoints of this layer's inputs: Wt^T gz per stream.
-    for (int k = 0; k < hin; ++k) {
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-      for (int j = 0; j < h; ++j) {
-        const float wjk = Wt[j * hin + k];
-        s0 = fmaf(wjk, gz[0 * W + j], s0);
-        s1 = fmaf(wjk, gz[1 * W + j], s1);
-        s2 = fmaf(wjk, gz[2 * W + j], s2);
-        s3 = fmaf(wjk, gz[3 * W + j], s3);
-      }
-      buf[0 * W + k] = s0;
-      buf[1 * W + k] = s1;
-      buf[2 * W + k] = s2;
-      buf[3 * W + k] = s3;
-    }
-  }
-
-  // ---- layer 0: W0 sees only the value stream; the tangent rows'
-  // adjoints are column sums of gz_1 and gz_2 ----
-  {
-    const int h = net.width[1];
-    pt_layer_bwd<W, S>(net, 0, buf, gz, ws, cols, col);
-    for (int j = 0; j < h; ++j) {
-      const float gz0 = gz[0 * W + j];
-      const float c0 = pt_warp_sum(gz0 * x0);
-      const float c1 = pt_warp_sum(gz0 * x1);
-      const float cb = pt_warp_sum(gz0);
-      const float cz1 = pt_warp_sum(gz[1 * W + j]);
-      const float cz2 = pt_warp_sum(gz[3 * W + j]);
-      if (lane == 0) {
-        part[net.w_off[0] + 2 * j] = c0;
-        part[net.w_off[0] + 2 * j + 1] = c1;
-        part[net.b_off[0] + j] = cb;
-        part[net.z1_off + j] = cz1;
-        part[net.z2_off + j] = cz2;
-      }
-    }
-  }
-}
-
 // The loss alone: one partial per tile.
 template <class Head, int W, class S>
 __global__ void pt_loss_kernel(PtNet net, const float* __restrict__ a0,
@@ -464,8 +239,7 @@ __global__ void pt_loss_kernel(PtNet net, const float* __restrict__ a0,
 
   float act[4 * W];
   float buf[4 * W];
-  pt_forward_hidden<W, false, S>(net, w_s, x0, x1, act, buf,
-                                 static_cast<S*>(nullptr), 0, col);
+  pt_forward_hidden<W, S>(net, w_s, x0, x1, act, buf);
   float U[Head::kOut][4], gU[Head::kOut][4];
   float ex[Head::kExtra + 1];
   pt_output<W, Head::kOut>(net, w_s, act, U);
@@ -565,36 +339,6 @@ int pt_reduce(const float* partials, int rows, int n_cols, float* out,
   pt_reduce_rows_kernel<<<blocks, threads, 0, stream>>>(partials, rows,
                                                         n_cols, out);
   return (int)cudaGetLastError();
-}
-
-// Loss, every gradient and the head's extras.  ws: ws_rows * (n_tiles *
-// 32) values of S; partials: n_tiles * (1 + n_weights + kExtra) floats;
-// out: 1 + n_weights + kExtra floats, where n_tiles = ceil(n_pts / 32).
-template <class Head, int W, class S>
-int pt_launch_loss_grad(const int* widths, int n_layers, const float* a0,
-                        const float* wpack, int n_pts,
-                        typename Head::Args args, S* ws, float* partials,
-                        float* out, void* stream) {
-  PtNet net;
-  int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
-  if (err) return err;
-  if (n_pts < 1) return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  err = pt_smem_bytes(net, (const void*)pt_loss_grad_kernel<Head, W, S>,
-                      &smem);
-  if (err) return err;
-  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
-  int warps = 1;
-  err = pt_warps_per_block(smem, n_tiles, &warps);
-  if (err) return err;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (n_tiles + warps - 1) / warps;
-  pt_loss_grad_kernel<Head, W, S><<<blocks, warps * PT_TILE, smem, s>>>(
-      net, a0, wpack, n_pts, args, ws, partials);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return pt_reduce(partials, n_tiles, 1 + net.n_weights + Head::kExtra, out,
-                   s);
 }
 
 // Loss only.  partials: n_tiles floats; out: 1 float.

@@ -1,97 +1,108 @@
-// Block-tiled loss+grad kernel of the fused Burgers losses (sm_90a) for
-// nets with narrow hidden layers (width <= 64).  Four entries of
-// burgers_train.cu launch it: burgers_loss_grad[_bf16] on the inference
-// head (BurgersInfHead) and burgers_ide_loss_grad[_bf16] on the
-// identification head (BurgersIdeHead, two extra accumulators A1, A2).
-// pt_narrow_loss_grad_kernel computes what pt_loss_grad_kernel
-// (pt_mlp.cuh) computes, with the same Head, PtNet, weight pack, stream
-// type S, rounding points and buffers, but shaped as the TPU kernels
-// (_make_train_kernel and _make_ide_kernel, pinn/ops/pallas_train.py:524
-// and :847) shape it: each layer of a tile is one product over the four
-// stacked streams.
+// Block-tiled kernels of the fused Burgers losses (sm_90a) for nets
+// with narrow hidden layers (width <= 64).
+//
+// pt_narrow_loss_grad_kernel gives the loss, every parameter gradient
+// and a head's extra sums.  Five entries of burgers_train.cu launch it:
+// burgers_loss_grad[_bf16] on the inference head (BurgersInfHead),
+// burgers_ide_loss_grad[_bf16] on the identification head
+// (BurgersIdeHead, two extra accumulators A1, A2) and burgers_sse_grad
+// on the v1 residual-SSE head (BurgersSseHead).  pt_narrow_loss_kernel
+// gives the loss alone, with the same forward and nothing saved;
+// burgers_sse launches it.  They replace the TPU kernels
+// _make_train_kernel (pinn/ops/pallas_train.py:524), _make_ide_kernel
+// (:847), _make_fwd_bwd_kernel (:305) and _fwd_kernel (:277), and are
+// shaped as those are: each layer of a tile is one product over the
+// four stacked streams.  They take pt_mlp.cuh's Head, PtNet, weight
+// pack, stream type S, rounding points and buffers.
 //
 // Why.  One thread a point (pt_mlp.cuh) gives the inference flagship's
 // N = 10,100 points 316 one-warp blocks, 2.4 warps an SM, and the
 // identification flagship's N = 2,000 only 63, with nothing to hide
 // latency; its stream arrays are sized for width 64 (3 KB of local
-// memory a thread, 80 floats of each used at width 20); every weight
-// gradient is a five-shuffle butterfly over the tile (3,061 of them a
-// warp); and with bf16 streams a rounding sits inside every dependency
-// chain.  pt_tile.cuh's layout does not fit width 20 as it is (800
-// threads and one block an SM for 4 x 4 outputs a thread: at width 20
-// most of them would idle).
+// memory a thread, 80 floats of each used at width 20); a weight
+// gradient summed by shuffles is a five-step butterfly over the tile
+// (3,061 of them a warp at width 20); and with bf16 streams a rounding
+// sits inside every dependency chain.  pt_tile.cuh's layout does not
+// fit width 20 as it is (800 threads and one block an SM for 4 x 4
+// outputs a thread: at width 20 most of them would idle).
 //
 // Tile and block.  A block owns one tile of T = PT_TILE = 32 points,
-// the points of one row of the partials that pt_mlp.cuh's callers
-// allocate, so the grid is ceil(N / 32) and the buffers of the C
-// interface cover every block.  It has kPtNarrowThreads threads; at
-// 42 KB of shared memory and 32 registers (width 20) up to five
-// blocks share an SM, so the inference flagship's 316 tiles run in one
-// wave on 132 SMs, and the identification flagship's 63 leave 69 SMs
-// idle.  Its activations are the TPU kernel's a_cat: a row per
-// neuron, stream-major then point (value, d/dx, d2/dx2, d/dt), each
-// stream padded to 33 floats and a row to 132, so that a warp reading
-// one point of 32 (neuron, stream) rows, as the weight gradients do,
-// hits 32 banks.
+// the points of one row of the partials that the C interface's callers
+// allocate, so the grid is ceil(N / 32) and the buffers cover every
+// block.  The loss+grad kernel has kPtNarrowThreads threads; at 42 KB
+// of shared memory and 32 registers (width 20) up to five blocks share
+// an SM, so the inference flagship's 316 tiles run in one wave on 132
+// SMs, and the identification flagship's 63 leave 69 SMs idle.  The
+// loss-only kernel has kPtNarrowLossThreads threads and 25 KB at width
+// 20.  Activations are the TPU kernel's a_cat: a row per neuron,
+// stream-major then point (value, d/dx, d2/dx2, d/dt), each stream
+// padded to 33 floats and a row to 132, so that a warp reading one
+// point of 32 (neuron, stream) rows, as the weight gradients do, hits
+// 32 banks.
 //
 // Shared memory (PtNarrowSmem, the one carve-up), at hp = the widest
-// hidden layer: three activation buffers of hp rows; two weight
-// buffers, each one layer's Wt and b (S-rounded as they load, as
-// pt_load_weights rounds), so the next layer's load shares a phase
-// with this layer's product; the output adjoints gU and the output
-// bias adjoints; the two inputs; and the 4 x h x hin partial sums of a
-// weight gradient.  42,352 bytes at [2, 20x8, 1]; 201,104 at [2, 64x14, 1],
-// the widest pack the entry points take (its 213 KB of weights would
-// not fit beside the buffers, so no pack is resident).
+// hidden layer: activation buffers of hp rows (three with gradients,
+// two without); two weight buffers, each one layer's Wt and b
+// (S-rounded as they load), so the next layer's load shares a phase
+// with this layer's product; with gradients the output adjoints gU and
+// the output bias adjoints; the two inputs; with gradients the 4 x h x
+// hin partial sums of a weight gradient.  With gradients 42,352 bytes
+// at [2, 20x8, 1] and 201,104 at [2, 64x14, 1], the widest pack the
+// entry points take (its 213 KB of weights would not fit beside the
+// buffers, so no pack is resident); without, 24,736 and 101,120.
 //
 // Phases, each between block barriers; threads take (neuron, point)
 // pairs, a warp one neuron and a lane one point, so a weight is a
 // warp-wide broadcast and an activation a conflict-free row:
-//   forward, per hidden layer: the four pre-activation streams with
-//     pt_forward_hidden's fmaf chain (k ascending from 0.0f, then + b),
-//     tanh and the recombination, (t, z1, z11, z2) saved to ws at
-//     pt_mlp.cuh's offsets ([layer][stream][neuron][point], coalesced
-//     over the tile's points, L2-resident);
-//   head: one warp, a lane a point: pt_output's chains, Head::eval, the
-//     tile's loss summed by pt_warp_sum into partials[tile][0] and each
-//     of the head's kExtra accumulators likewise into the slots after
-//     the weight gradients (a partials row is 1 + n_weights + kExtra
-//     floats, as pt_loss_grad_kernel's);
-//   backward, per hidden layer l = L-1 .. 1:
-//     A: the adjoints gz in place over the output adjoints (pt_layer_bwd's
-//        math), layer l's inputs rematerialised from ws, Wt_l loaded,
-//        the previous layer's weight gradient summed from its parts;
+//   forward (pt_narrow_forward, one template for both kernels), per
+//     hidden layer: the four pre-activation streams as fmaf chains over
+//     the inputs k ascending from 0.0f, then + b, tanh and the stream
+//     recombination; the loss+grad kernel saves (t, z1, z11, z2) to ws,
+//     [layer][stream][neuron][point] at PtNet's row offsets, coalesced
+//     over the tile's points, L2-resident;
+//   head: one warp, a lane a point: the output streams as fmaf chains
+//     over k ascending (pt_narrow_output), Head::eval, the tile's loss
+//     summed by pt_warp_sum into its partials row and, with gradients,
+//     each of the head's kExtra accumulators likewise into the slots
+//     after the weight gradients (a row is 1 + n_weights + kExtra
+//     floats);
+//   backward (loss+grad), per hidden layer l = L-1 .. 1:
+//     A: the adjoints gz in place over the output adjoints (the TPU
+//        kernels' _layer_bwd; fused_train.py's _layer_bwd is the plain
+//        version), layer l's inputs rematerialised from ws, Wt_l
+//        loaded, the previous layer's weight gradient summed from its
+//        parts;
 //     B: dW's four parts (one per stream: depth 32 each, an fmaf chain
 //        over the points), the bias gradient, and the input adjoints
 //        Wt_l^T gz into the free buffer;
 //   layer 0: dW0 on the value stream, the tangent rows' adjoints as
 //     column sums of gz_1 and gz_2.
-// The loss and every value of the forward are bitwise pt_loss_kernel's
-// (the same expressions at every point, the same sum over a tile and
-// pt_reduce over the tiles in row order), so the loss of this kernel is
-// the loss-only entry's (burgers_loss, burgers_ide_loss) bit for bit,
-// and the extras, the same per-point values under the same sums, are
-// pt_loss_grad_kernel's.  Every gradient is a fixed-order sum (the four
-// stream parts added in stream order), no atomics: two launches on the
-// same inputs are bitwise equal.
+// Each point's forward and head are the same expressions in both
+// kernels and in pt_mlp.cuh's pt_loss_kernel, each tile's loss the same
+// pt_warp_sum, and pt_reduce sums the tiles in row order, so the loss
+// of the two kernels is the same bit for bit, and pt_loss_kernel's on
+// the same head.  Every gradient is a fixed-order sum (the four stream
+// parts added in stream order), no atomics: two launches on the same
+// inputs are bitwise equal.
 //
 // bf16 streams (S = __nv_bfloat16): each value is rounded once, where
-// pt_mlp.cuh rounds it, as it is stored to a shared buffer or to ws;
-// the products read f32 values that hold rounded numbers.  No
+// pt_mlp.cuh's header says, as it is stored to a shared buffer or to
+// ws; the products read f32 values that hold rounded numbers.  No
 // conversion sits inside a product's dependency chain.
 //
-// Bound: at the inference flagship ~0.7 GFLOP of FFMA a call (0.0115
-// ms at 67 TFLOP/s); the products read both operands from shared
-// memory (5 loads for 4 FMAs in the forward and input adjoints, 2 for 1
-// in the weight gradients): by count ~55,000 shared-memory wavefronts a
-// tile, at one a cycle an SM, against ~8,400 cycles of FFMA dispatch, so
-// the shared-memory pipe, not the FMA units, bounds a block while
-// several blocks share an SM; a block alone on its SM (the
+// Bound: at the inference flagship ~0.7 GFLOP of FFMA a loss+grad call
+// (0.0115 ms at 67 TFLOP/s); the products read both operands from
+// shared memory (5 loads for 4 FMAs in the forward and input adjoints,
+// 2 for 1 in the weight gradients): by count ~55,000 shared-memory
+// wavefronts a tile, at one a cycle an SM, against ~8,400 cycles of
+// FFMA dispatch, so the shared-memory pipe, not the FMA units, bounds a
+// block while several blocks share an SM; a block alone on its SM (the
 // identification flagship's 63 tiles) is bound by its phases' latency
-// instead.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
-// 0.114 ms of device time at the inference flagship; 0.071 ms (f32) and
-// 0.062 ms (bf16) at the identification flagship.  Precision: IEEE f32
-// (fmaf, tanhf); build without --use_fast_math.
+// instead.  The loss-only call is a third of the FFMA and of the
+// shared-memory loads.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md): 0.114 ms of device time at the inference flagship; 0.071
+// ms (f32) and 0.062 ms (bf16) at the identification flagship.
+// Precision: IEEE f32 (fmaf, tanhf); build without --use_fast_math.
 
 #pragma once
 
@@ -110,27 +121,36 @@ namespace {
 // threads are faster, 0.044 ms at 640 against 0.067 at 320.
 constexpr int kPtNarrowThreads = 320;
 
+// Threads a block of the loss-only kernel, a constant of its own (its
+// block does a third of the loss+grad kernel's work): ten warps, two
+// rounds of a width-20 layer's (neuron, point) pairs.  PERF.md has the
+// sweep of 128 to 640 threads at [2, 20x8, 1], N = 10,000.
+constexpr int kPtNarrowLossThreads = 320;
+static_assert(kPtNarrowLossThreads >= PT_TILE, "a tile's head in one warp");
+
 constexpr int kPtNarrowTS = PT_TILE + 1;       // stream stride in a row
 constexpr int kPtNarrowLD = 4 * kPtNarrowTS;   // row stride
 
 // The carve-up of a block's shared memory at hidden width hp and n_out
-// outputs, in floats from its start, in order; the kernel and its
-// launch take it from here alone.  The buffers are found by arithmetic
-// (act(i), w(l)), not by indexing an array of offsets, which would put
-// the struct in local memory.
+// outputs, with the gradients' buffers (grads) or without, in floats
+// from its start, in order; the kernels and their launches take it
+// from here alone.  The buffers are found by arithmetic (act(i), w(l)),
+// not by indexing an array of offsets, which would put the struct in
+// local memory.
 struct PtNarrowSmem {
   int act_size, w0, w_size, gu, gb, x, part, floats;
-  __host__ __device__ __forceinline__ PtNarrowSmem(int hp, int n_out) {
+  __host__ __device__ __forceinline__ PtNarrowSmem(int hp, int n_out,
+                                                   bool grads) {
     constexpr int T = PT_TILE, LD = kPtNarrowLD;
     const int hw = hp > n_out ? hp : n_out;
-    act_size = hp * LD;                   // three activation buffers
-    w0 = 3 * act_size;                    // two of Wt (h x hin), b (h)
+    act_size = hp * LD;                   // three activation buffers, or two
+    w0 = (grads ? 3 : 2) * act_size;      // two of Wt (h x hin), b (h)
     w_size = hw * ((hp > 2 ? hp : 2) + 1);
     gu = w0 + 2 * w_size;                 // gU, S-rounded (n_out rows)
-    gb = gu + n_out * LD;                 // output bias adjoints
-    x = gb + n_out * T;                   // the inputs, S-rounded
+    gb = gu + (grads ? n_out * LD : 0);   // output bias adjoints
+    x = gb + (grads ? n_out * T : 0);     // the inputs, S-rounded
     part = x + 2 * T;                     // 4 parts of a weight gradient
-    floats = part + 4 * hw * hp;
+    floats = part + (grads ? 4 * hw * hp : 0);
   }
   __device__ __forceinline__ int act(int i) const { return i * act_size; }
   // The weight buffer of layer l: the two alternate.
@@ -151,9 +171,9 @@ __device__ __forceinline__ void pt_narrow_load_w(const PtNet& net, int l,
   }
 }
 
-// Hidden layer l >= 1: nxt <- its four output streams from cur, ws <-
-// its (t, z1, z11, z2).  pt_forward_hidden's arithmetic at each point.
-template <class S>
+// Hidden layer l >= 1: nxt <- its four output streams from cur and,
+// with kSave, ws <- its (t, z1, z11, z2).
+template <class S, bool kSave>
 __device__ __forceinline__ void pt_narrow_fwd_layer(const PtNet& net, int l,
                                                     const float* w_s,
                                                     const float* cur,
@@ -181,11 +201,13 @@ __device__ __forceinline__ void pt_narrow_fwd_layer(const PtNet& net, int l,
     const float t = tanhf(zv);
     const float sp = 1.0f - t * t;
     const float spp = -2.0f * t * sp;
-    S* sv = ws + (size_t)(net.s_off[l] + j) * cols + col0 + p;
-    sv[0] = St::put(t);
-    sv[(size_t)h * cols] = St::put(z1);
-    sv[(size_t)2 * h * cols] = St::put(z11);
-    sv[(size_t)3 * h * cols] = St::put(z2);
+    if (kSave) {
+      S* sv = ws + (size_t)(net.s_off[l] + j) * cols + col0 + p;
+      sv[0] = St::put(t);
+      sv[(size_t)h * cols] = St::put(z1);
+      sv[(size_t)2 * h * cols] = St::put(z11);
+      sv[(size_t)3 * h * cols] = St::put(z2);
+    }
     float* o = nxt + j * LD + p;
     o[0 * TS] = St::rnd(t);
     o[1 * TS] = St::rnd(sp * z1);
@@ -195,7 +217,9 @@ __device__ __forceinline__ void pt_narrow_fwd_layer(const PtNet& net, int l,
 }
 
 // g <- the adjoints gz of hidden layer l's pre-activation streams, in
-// place over the adjoints of its outputs (pt_layer_bwd's arithmetic).
+// place over the adjoints of its outputs: the derivative of the stream
+// recombination (tanh and its first two derivatives) at the saved (t,
+// z1, z11, z2), S-rounded.
 template <class S>
 __device__ __forceinline__ void pt_narrow_gz(const PtNet& net, int l,
                                              float* g, const S* ws, int cols,
@@ -306,33 +330,24 @@ __device__ __forceinline__ void pt_narrow_adj(const float* w, const float* g,
   }
 }
 
-// Loss, every gradient and the head's extras of tile blockIdx.x into
-// partials row blockIdx.x (1 + n_weights + kExtra floats).
-template <class Head, class S>
-__global__ void __launch_bounds__(kPtNarrowThreads)
-pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
-                           const float* __restrict__ wpack, int n_pts,
-                           typename Head::Args args, S* __restrict__ ws,
-                           float* __restrict__ partials) {
+// The forward of tile blockIdx.x (col0 its first point): x_s <- its
+// two inputs, S-rounded; layer 0, then each hidden layer, in shared
+// memory; with kSave each hidden neuron's (t, z1, z11, z2) to ws.
+// Returns the activation buffer that holds the last hidden layer's
+// outputs (its index in ic); w(L) then holds Wt_out and b_out.  kSave is
+// a template argument: with a runtime test both versions of each loop
+// would stay in the code.
+template <class S, bool kSave>
+__device__ __forceinline__ float* pt_narrow_forward(
+    const PtNet& net, const float* __restrict__ a0,
+    const float* __restrict__ wpack, int n_pts, float* smem,
+    const PtNarrowSmem& sm, S* ws, int cols, int col0, int& ic) {
   using St = PtStream<S>;
   constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
-  constexpr int NO = Head::kOut;
-  extern __shared__ float pt_narrow_buf[];
-  float* const smem = pt_narrow_buf;
-  const PtNarrowSmem sm(hp, NO);
-  float* const gu_s = smem + sm.gu;
-  float* const gb_s = smem + sm.gb;
   float* const x_s = smem + sm.x;
-  float* const part_s = smem + sm.part;
   auto wbuf = [&](int l) { return smem + sm.w(l); };
-
   const int tid = threadIdx.x, nth = blockDim.x;
   const int L = net.n_layers - 1;   // the output layer
-  const int tile = blockIdx.x;
-  const int col0 = tile * T;
-  const int cols = gridDim.x * T;
-  float* const part =
-      partials + (size_t)tile * (1 + net.n_weights + Head::kExtra) + 1;
 
   // ---- inputs and Wt_0 ----
   for (int p = tid; p < T; p += nth) {
@@ -359,11 +374,13 @@ pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
       const float t = tanhf(zv);
       const float sp = 1.0f - t * t;
       const float spp = -2.0f * t * sp;
-      S* sv = ws + (size_t)(net.s_off[0] + j) * cols + col0 + p;
-      sv[0] = St::put(t);
-      sv[(size_t)h * cols] = St::put(z1);
-      sv[(size_t)2 * h * cols] = St::put(0.0f);
-      sv[(size_t)3 * h * cols] = St::put(z2);
+      if (kSave) {
+        S* sv = ws + (size_t)(net.s_off[0] + j) * cols + col0 + p;
+        sv[0] = St::put(t);
+        sv[(size_t)h * cols] = St::put(z1);
+        sv[(size_t)2 * h * cols] = St::put(0.0f);
+        sv[(size_t)3 * h * cols] = St::put(z2);
+      }
       float* o = cur + j * LD + p;
       o[0 * TS] = St::rnd(t);
       o[1 * TS] = St::rnd(sp * z1);
@@ -375,40 +392,84 @@ pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
   __syncthreads();
 
   // ---- hidden layers 1 .. L-1; Wt_{l+1} loads beside layer l ----
-  int ic = 0;   // the buffer that holds cur
+  ic = 0;
   for (int l = 1; l < L; ++l) {
     float* nxt = smem + sm.act(ic ^ 1);
-    pt_narrow_fwd_layer<S>(net, l, wbuf(l), cur, nxt, ws, cols, col0);
+    pt_narrow_fwd_layer<S, kSave>(net, l, wbuf(l), cur, nxt, ws, cols, col0);
     pt_narrow_load_w<S>(net, l + 1, wpack, wbuf(l + 1));
     __syncthreads();
     ic ^= 1;
     cur = nxt;
   }
+  return cur;
+}
+
+// U[o][s] = sum over k < hin, ascending, of Wt_out[o][k] a[k][s][p],
+// plus b_o on the value stream (s = 0): point p's output streams from
+// the last hidden layer's outputs a, w_out = Wt_out then b_out.
+template <int NO>
+__device__ __forceinline__ void pt_narrow_output(const float* w_out,
+                                                 const float* a, int p,
+                                                 int hin, float U[NO][4]) {
+  constexpr int TS = kPtNarrowTS, LD = kPtNarrowLD;
+  for (int o = 0; o < NO; ++o) {
+    const float* Wo = w_out + o * hin;
+    const float* ap = a + p;
+    float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f, u3 = 0.0f;
+    for (int k = 0; k < hin; ++k) {
+      const float wk = Wo[k];
+      const float* ak = ap + k * LD;
+      u0 = fmaf(wk, ak[0 * TS], u0);
+      u1 = fmaf(wk, ak[1 * TS], u1);
+      u2 = fmaf(wk, ak[2 * TS], u2);
+      u3 = fmaf(wk, ak[3 * TS], u3);
+    }
+    U[o][0] = u0 + w_out[NO * hin + o];
+    U[o][1] = u1;
+    U[o][2] = u2;
+    U[o][3] = u3;
+  }
+}
+
+// Loss, every gradient and the head's extras of tile blockIdx.x into
+// partials row blockIdx.x (1 + n_weights + kExtra floats).
+template <class Head, class S>
+__global__ void __launch_bounds__(kPtNarrowThreads)
+pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
+                           const float* __restrict__ wpack, int n_pts,
+                           typename Head::Args args, S* __restrict__ ws,
+                           float* __restrict__ partials) {
+  using St = PtStream<S>;
+  constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
+  constexpr int NO = Head::kOut;
+  extern __shared__ float pt_narrow_buf[];
+  float* const smem = pt_narrow_buf;
+  const PtNarrowSmem sm(hp, NO, true);
+  float* const gu_s = smem + sm.gu;
+  float* const gb_s = smem + sm.gb;
+  float* const x_s = smem + sm.x;
+  float* const part_s = smem + sm.part;
+  auto wbuf = [&](int l) { return smem + sm.w(l); };
+
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int L = net.n_layers - 1;   // the output layer
+  const int tile = blockIdx.x;
+  const int col0 = tile * T;
+  const int cols = gridDim.x * T;
+  float* const part =
+      partials + (size_t)tile * (1 + net.n_weights + Head::kExtra) + 1;
+
+  int ic = 0;   // the buffer that holds cur
+  float* cur = pt_narrow_forward<S, true>(net, a0, wpack, n_pts, smem, sm,
+                                          ws, cols, col0, ic);
 
   // ---- output layer and head: one warp, a lane a point ----
   const int hin_L = net.width[L];
   if (tid < T) {
     const int p = tid, col = col0 + p;
     const typename Head::Point pt = Head::load(args, n_pts, col, col < n_pts);
-    const float* w_out = wbuf(L);
     float U[NO][4], gU[NO][4], ex[Head::kExtra + 1];
-    for (int o = 0; o < NO; ++o) {
-      const float* Wo = w_out + o * hin_L;
-      const float* a = cur + p;
-      float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f, u3 = 0.0f;
-      for (int k = 0; k < hin_L; ++k) {
-        const float wk = Wo[k];
-        const float* ak = a + k * LD;
-        u0 = fmaf(wk, ak[0 * TS], u0);
-        u1 = fmaf(wk, ak[1 * TS], u1);
-        u2 = fmaf(wk, ak[2 * TS], u2);
-        u3 = fmaf(wk, ak[3 * TS], u3);
-      }
-      U[o][0] = u0 + w_out[NO * hin_L + o];
-      U[o][1] = u1;
-      U[o][2] = u2;
-      U[o][3] = u3;
-    }
+    pt_narrow_output<NO>(wbuf(L), cur, p, hin_L, U);
     const float loss = Head::eval(args, pt, U, gU, ex);
     const float loss_tile = pt_warp_sum(loss);
     if (p == 0) part[-1] = loss_tile;
@@ -485,6 +546,35 @@ pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
   }
 }
 
+// The loss alone of tile blockIdx.x into partials[blockIdx.x]: the
+// loss+grad kernel's forward with nothing saved, and its head's loss.
+template <class Head, class S>
+__global__ void __launch_bounds__(kPtNarrowLossThreads)
+pt_narrow_loss_kernel(PtNet net, int hp, const float* __restrict__ a0,
+                      const float* __restrict__ wpack, int n_pts,
+                      typename Head::Args args, float* __restrict__ partials) {
+  constexpr int T = PT_TILE, NO = Head::kOut;
+  extern __shared__ float pt_narrow_buf[];
+  float* const smem = pt_narrow_buf;
+  const PtNarrowSmem sm(hp, NO, false);
+  const int L = net.n_layers - 1;   // the output layer
+  const int col0 = blockIdx.x * T;
+
+  int ic = 0;
+  const float* cur = pt_narrow_forward<S, false>(
+      net, a0, wpack, n_pts, smem, sm, static_cast<S*>(nullptr), 0, col0, ic);
+
+  // ---- output layer and head: one warp, a lane a point ----
+  if (threadIdx.x < T) {
+    const int p = threadIdx.x, col = col0 + p;
+    const typename Head::Point pt = Head::load(args, n_pts, col, col < n_pts);
+    float U[NO][4], gU[NO][4], ex[Head::kExtra + 1];
+    pt_narrow_output<NO>(smem + sm.w(L), cur, p, net.width[L], U);
+    const float loss_tile = pt_warp_sum(Head::eval(args, pt, U, gU, ex));
+    if (p == 0) partials[blockIdx.x] = loss_tile;
+  }
+}
+
 // The dynamic shared memory of one kernel instance on one device at
 // one hidden width: each instance keeps the last one it launched with,
 // so the attribute is set only when the device or the size changes.
@@ -494,12 +584,39 @@ struct PtNarrowCache {
   size_t smem = 0;
 };
 
+// What both launches share: the net of a layer list with hidden widths
+// <= max_width, its widest hidden layer hp, the dynamic shared memory
+// of `kernel` (with or without the gradients' buffers), set on the
+// device when it changes.  Nonzero on what the kernels do not take.
+int pt_narrow_plan(const int* widths, int n_layers, int n_out, int max_width,
+                   int n_pts, const void* kernel, bool grads,
+                   PtNarrowCache* cache, PtNet* net, int* hp, size_t* smem) {
+  int err = pt_make_net(widths, n_layers, n_out, max_width, net);
+  if (err) return err;
+  if (n_pts < 1) return (int)cudaErrorInvalidValue;
+  *hp = 1;
+  for (int l = 1; l < n_layers; ++l) *hp = widths[l] > *hp ? widths[l] : *hp;
+  *smem = sizeof(float) * PtNarrowSmem(*hp, n_out, grads).floats;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(cache->mu);
+  if (cache->dev != dev || cache->smem != *smem) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
+    if (e != cudaSuccess) return (int)e;
+    cache->dev = dev;
+    cache->smem = *smem;
+  }
+  return 0;
+}
+
 // Loss, every gradient and the head's extras, through the narrow kernel
-// at hidden width <= W.  The buffers are pt_launch_loss_grad's (ws:
-// ws_rows * n_tiles * 32 values of S; partials: n_tiles * (1 + n_weights
-// + kExtra) floats; out: 1 + n_weights + kExtra floats, n_tiles =
-// ceil(n_pts / 32)).  A launch the card refuses (shared memory,
-// threads) returns its error; there is no fallback.
+// at hidden width <= W.  ws: ws_rows * n_tiles * 32 values of S;
+// partials: n_tiles * (1 + n_weights + kExtra) floats; out: 1 +
+// n_weights + kExtra floats, n_tiles = ceil(n_pts / 32).  A launch the
+// card refuses (shared memory, threads) returns its error; there is no
+// fallback.
 template <class Head, int W, class S>
 int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
                                const float* a0, const float* wpack, int n_pts,
@@ -507,27 +624,12 @@ int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
                                float* partials, float* out, void* stream) {
   static PtNarrowCache cache;
   PtNet net;
-  int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
+  int hp = 0;
+  size_t smem = 0;
+  int err = pt_narrow_plan(widths, n_layers, Head::kOut, W, n_pts,
+                           (const void*)pt_narrow_loss_grad_kernel<Head, S>,
+                           true, &cache, &net, &hp, &smem);
   if (err) return err;
-  if (n_pts < 1) return (int)cudaErrorInvalidValue;
-  int hp = 1;
-  for (int l = 1; l < n_layers; ++l) hp = widths[l] > hp ? widths[l] : hp;
-  const size_t smem = sizeof(float) * PtNarrowSmem(hp, Head::kOut).floats;
-  const void* kernel = (const void*)pt_narrow_loss_grad_kernel<Head, S>;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  {
-    std::lock_guard<std::mutex> lock(cache.mu);
-    if (cache.dev != dev || cache.smem != smem) {
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      cache.dev = dev;
-      cache.smem = smem;
-    }
-  }
   const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
   cudaStream_t s = (cudaStream_t)stream;
   pt_narrow_loss_grad_kernel<Head, S><<<n_tiles, kPtNarrowThreads, smem, s>>>(
@@ -536,6 +638,30 @@ int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
   if (err) return err;
   return pt_reduce(partials, n_tiles, 1 + net.n_weights + Head::kExtra, out,
                    s);
+}
+
+// The loss alone, through the narrow loss-only kernel at hidden width
+// <= W.  partials: n_tiles floats; out: 1 float.  No fallback, as above.
+template <class Head, int W, class S>
+int pt_narrow_launch_loss(const int* widths, int n_layers, const float* a0,
+                          const float* wpack, int n_pts,
+                          typename Head::Args args, float* partials,
+                          float* out, void* stream) {
+  static PtNarrowCache cache;
+  PtNet net;
+  int hp = 0;
+  size_t smem = 0;
+  int err = pt_narrow_plan(widths, n_layers, Head::kOut, W, n_pts,
+                           (const void*)pt_narrow_loss_kernel<Head, S>, false,
+                           &cache, &net, &hp, &smem);
+  if (err) return err;
+  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
+  cudaStream_t s = (cudaStream_t)stream;
+  pt_narrow_loss_kernel<Head, S><<<n_tiles, kPtNarrowLossThreads, smem, s>>>(
+      net, hp, a0, wpack, n_pts, args, partials);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return pt_reduce(partials, n_tiles, 1, out, s);
 }
 
 }  // namespace

@@ -1,18 +1,18 @@
 // Block-tiled kernels of the fused PINN losses (sm_90a), for nets with
 // wide hidden layers: the Schrodinger net [2, 100x4, 2] and any hidden
-// width up to 128.  pt_tile_loss_grad_kernel computes what
-// pt_loss_grad_kernel (pt_mlp.cuh) computes, pt_tile_loss_kernel what
-// pt_loss_kernel computes, with the same Head, PtNet, weight pack,
-// stream type S and rounding points, but shaped as the TPU kernels
+// width up to 128.  pt_tile_loss_grad_kernel computes the loss and
+// every parameter gradient, pt_tile_loss_kernel the loss alone, with
+// pt_mlp.cuh's Head, PtNet, weight pack, stream type S, rounding points
+// and buffers, shaped as the TPU kernels
 // (_make_fwd_bwd_kernel and _fwd_kernel, pinn/ops/pallas_schrodinger.py:95
 // and :70) shape them: each layer of a tile is one matrix product over
 // the four streams.
 //
-// Why.  One thread a point (pt_mlp.cuh) keeps a point's 3 x 4W stream
-// floats in local memory and chains scalar FMAs on them; at width 100
-// the weights (124 KB) leave one block of 5 warps an SM.  Here the
-// streams of a tile live in shared memory and every thread of a block
-// works on every layer product.
+// Why.  One thread a point (as pt_mlp.cuh's loss-only kernel has it)
+// keeps a point's 2-3 x 4W stream floats in local memory and chains
+// scalar FMAs on them; at width 100 the weights (124 KB) leave one
+// block of 5 warps an SM.  Here the streams of a tile live in shared
+// memory and every thread of a block works on every layer product.
 //
 // Tile.  A block owns T = PT_TILE = 32 points, the points of one row
 // of the partials that pt_mlp.cuh's callers allocate, so the buffers of
@@ -110,11 +110,11 @@ __device__ __forceinline__ float4 pt_ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// The elementwise math of pt_mlp.cuh's pt_forward_hidden and
-// pt_layer_bwd, which keep their own inline copies: routing their loops
-// through these helpers changed the Burgers loss+grad kernel's code (56
-// to 48 registers) and made it 1.5x slower on the H100 (chip_smoke.py,
-// phase 3).
+// The elementwise math of the forward and backward, which pt_mlp.cuh
+// and pt_narrow.cuh keep as inline copies of their own: routing
+// pt_mlp.cuh's one-thread-a-point loops through these helpers changed
+// its loss+grad kernel's code (56 to 48 registers) and made it 1.5x
+// slower on the H100 (chip_smoke.py, phase 3).
 //
 // A hidden neuron's four output streams from its tanh value t and its
 // pre-activation tangents (z1, z11, z2), S-rounded: the recombination
@@ -302,8 +302,9 @@ __device__ void pt_tile_gz(const PtNet& net, int l, const S* slot, float* g) {
 // the value stream).  On return cur holds the last hidden layer's
 // outputs, nxt is the other activation buffer and w_s holds Wt_out.
 // With kSave each hidden neuron's (t, z1, z11, z2) go to slot.  kSave
-// is a template argument for pt_forward_hidden's reason (pt_mlp.cuh):
-// with a runtime test both versions of each loop stay in the code.
+// is a template argument: with a runtime test the compiler keeps both
+// versions of each loop (one thread a point, a runtime test of ws made
+// a loss+grad kernel 1.7x slower on the H100).
 template <int NO, class S, bool kSave>
 __device__ __forceinline__ void pt_tile_forward(
     const PtNet& net, const float* __restrict__ a0,
@@ -666,8 +667,8 @@ int pt_tile_plan(const int* widths, int n_layers, int n_out, int max_width,
 }
 
 // Loss, every gradient, through the tiled kernel at hidden width <= W.
-// The buffers are pt_launch_loss_grad's (ws: ws_rows * n_rows * 32
-// values of S; partials: n_rows * (1 + n_weights) floats, n_rows =
+// The buffers are pt_narrow_launch_loss_grad's (ws: ws_rows * n_rows *
+// 32 values of S; partials: n_rows * (1 + n_weights) floats, n_rows =
 // ceil(n_pts / 32)).  A launch the card refuses (shared memory,
 // threads) returns its error; there is no fallback.
 template <class Head, int W, class S>

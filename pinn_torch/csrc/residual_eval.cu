@@ -32,8 +32,8 @@
 // past N, so nothing is padded.
 //
 // Design.  One thread carries one point through pt_mlp.cuh's
-// pt_forward_hidden and pt_output (the train kernels' forward, without
-// the saved activations): no workspace, no partials, no reduction, no
+// pt_forward_hidden and pt_output (the loss-only kernel's forward): no
+// workspace, no partials, no reduction, no
 // atomics, so the output is bitwise repeatable.  The weights sit in
 // shared memory, loaded once per block: 128-thread blocks while they
 // fit in 48 KB (12.2 KB at [2, 20x8, 1]); above that one block fits on
@@ -157,8 +157,7 @@ __global__ void pt_eval_kernel(PtNet net, const float* __restrict__ X,
 
   float act[4 * W];
   float buf[4 * W];
-  pt_forward_hidden<W, false, float>(net, w_s, a0, a1, act, buf,
-                                     static_cast<float*>(nullptr), 0, i);
+  pt_forward_hidden<W, float>(net, w_s, a0, a1, act, buf);
   float U[Head::kOut][4];
   pt_output<W, Head::kOut>(net, w_s, act, U);
   Head::store(args, U, out, n_pts, i);

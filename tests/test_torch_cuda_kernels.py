@@ -13,7 +13,9 @@ bf16: the same tiled forward, grid and order of sums), and so is the
 Burgers inference one at [2, 20x8, 1] (the narrow kernel computes each
 point's forward and the sums over a tile and over the tiles as the
 loss-only kernel does), and the identification one at [2, 20x8, 1] on
-the same narrow kernel.  The bf16-stream
+the same narrow kernel, and the v1 SSE pair's at every shape (the
+narrow loss+grad kernel and the narrow loss-only kernel share one
+forward).  The bf16-stream
 kernels against their plain bf16 versions (the same roundings, summed
 in another order, which can move a rounding): loss rtol 2e-3, gradient
 rel-L2 <= 1e-2 and cosine >= 0.9999 (the net gradients and the lambda
@@ -417,22 +419,33 @@ def test_bf16_schrodinger_kernels_match_plain(layers, n):
 # The v1 SSE pair and the residual-evaluation kernels
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("layers,n", [
-    ([2] + [20] * 8 + [1], 10000),
-    ([2] + [40] * 8 + [1], 1124),    # ragged edge inside a 32-point tile
-    ([2, 16, 1], 1024),
-    ([2, 5, 1], 1),
-])
-def test_sse_kernels_match_plain(layers, n):
-    rng = np.random.RandomState(n)
+# The narrow kernels' edges for the v1 SSE pair (layers, N): the
+# flagship at one point, a tile less or more one point and its 316
+# tiles and 7 points more, then the widths and depths of NARROW_EDGES.
+SSE_EDGES = IDE_EDGES[:3] + [(FLAGSHIP, 316 * 32 + 7)] + IDE_EDGES[4:]
+
+
+def _sse_args(layers, n, seed):
+    """The v1 SSE kernels' arguments on the card: (a0, z1row, z2row,
+    wt_args) for ``n`` seeded collocation points."""
+    rng = np.random.RandomState(seed)
     pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
              for a, b in zip(layers[:-1], layers[1:])]
     params = params_from_numpy(pairs, "cuda", torch.float32)
     X_f = torch.as_tensor(LB + (UB - LB) * rng.rand(n, 2), dtype=torch.float32,
                           device="cuda")
     lb, ub, vx, vt = ft._tangents(LB, UB, "cuda")
-    args = (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
+    return (ft._normalise(X_f, lb, ub), *ft._prep(params, vx, vt))
 
+
+@pytest.mark.parametrize("layers,n", [
+    ([2] + [20] * 8 + [1], 10000),
+    ([2] + [40] * 8 + [1], 1124),    # ragged edge inside a 32-point tile
+    ([2, 16, 1], 1024),
+    ([2, 5, 1], 1),
+] + SSE_EDGES)
+def test_sse_kernels_match_plain(layers, n):
+    args = _sse_args(layers, n, seed=n)
     n0 = dict(ft.launches)
     got = _flat(ft.burgers_sse_grad(*args, NU))
     again = _flat(ft.burgers_sse_grad(*args, NU))
@@ -442,6 +455,42 @@ def test_sse_kernels_match_plain(layers, n):
     assert _launched(ft, n0, "burgers_sse_grad", "burgers_sse",
                      "burgers_loss_grad", "burgers_loss") == (2, 1, 0, 0)
     _check_against_plain(got, again, want, loss_only)
+    assert torch.equal(loss_only.reshape(1), got[0])
+
+
+@pytest.mark.parametrize("n", [10000, 316 * 32 + 7])
+def test_sse_loss_only_is_the_loss_grad_loss_bitwise(n):
+    """At [2, 20x8, 1] (N = 10,000 and 10,119) burgers_sse's SSE is
+    burgers_sse_grad's bit for bit: both narrow kernels run one forward
+    and sum each tile and the tiles in one order."""
+    args = _sse_args(FLAGSHIP, n, seed=n + 3)
+    n0 = dict(ft.launches)
+    loss_only = ft.burgers_sse(*args, NU)
+    loss = ft.burgers_sse_grad(*args, NU)[0]
+    torch.cuda.synchronize()
+    assert _launched(ft, n0, "burgers_sse", "burgers_sse_grad") == (1, 1)
+    assert torch.equal(loss_only.reshape(1), loss.reshape(1))
+
+
+@pytest.mark.parametrize("n", [33, 316 * 32 + 7])
+def test_sse_launches_on_one_input_are_bitwise_equal(n):
+    """Two launches of each SSE kernel on the same inputs, with a launch
+    on other inputs between them, give the same outputs bit for bit: a
+    partials slot that a block does not write would carry the other
+    inputs' values into the second launch."""
+    args = _sse_args(FLAGSHIP, n, seed=n + 5)
+    other = _sse_args(FLAGSHIP, n, seed=n + 6)
+    first = _flat(ft.burgers_sse_grad(*args, NU))
+    first_loss = ft.burgers_sse(*args, NU)
+    between = _flat(ft.burgers_sse_grad(*other, NU))
+    between_loss = ft.burgers_sse(*other, NU)
+    second = _flat(ft.burgers_sse_grad(*args, NU))
+    second_loss = ft.burgers_sse(*args, NU)
+    torch.cuda.synchronize()
+    assert not torch.equal(first[0], between[0])
+    assert not torch.equal(first_loss, between_loss)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(first_loss, second_loss)
 
 
 def test_fused_sse_on_card_matches_cpu():

@@ -329,6 +329,11 @@ SSE_CASES = [
     ([2, 20, 20, 20, 1], 300),       # ragged: the TPU kernel's pad mask
     (FLAGSHIP, 2048),                # flagship depth
     ([2, 16, 1], 1024),              # single hidden layer
+    # The edges of the narrow kernels (32-point tiles):
+    (FLAGSHIP, 1),                   # one point, 31 masked
+    (FLAGSHIP, 33),                  # a tile and one point
+    ([2, 7, 33, 64, 1], 33),         # widths off 4, the widest layer
+    ([2] + [20] * 15 + [1], 64),     # the most hidden layers
 ]
 
 
