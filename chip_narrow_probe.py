@@ -19,25 +19,23 @@ at the facade's v1 SSE ([2, 20x8, 1], N = 10,000, the inputs of
 (CUDA events, 50 calls) and the device ms a call of each kernel the
 call launches (torch.profiler, 20 calls); so too for the residual
 evaluation (rows 9-11) at the inputs of phase 3e's times.  Rows 1, 1b,
-3, 3b and 5 run ``pt_narrow.cuh``'s loss+grad kernel, row 6 its
-loss-only kernel, rows 2, 2b, 4 and 4b ``pt_mlp.cuh``'s loss-only
-kernel.  It also prints, as
-hex floats, so that two trees' outputs can be compared bit for bit,
-the loss and the lambda adjoints (A1, -A2) of rows 3 and 3b and the
-loss of rows 5 and 6.
+3, 3b and 5 run ``pt_narrow.cuh``'s loss+grad kernel, rows 2, 2b, 4,
+4b and 6 its loss-only kernel.  It also prints, as hex floats, so that
+two trees' outputs can be compared bit for bit, the loss of each of
+rows 1-6 and the lambda adjoints (A1, -A2) of rows 3 and 3b.
 
 ``--tree DIR`` times the ``pinn_torch`` of the checkout at DIR (another
 commit unpacked there, say) with this script's measurement code, so
 that two trees are timed alike on one card, in turns.
 
 ``--sweep`` builds the tree's sources once for each block size in
-``SWEEP`` (a copy under ``build/``, both constants
-``kPtNarrowThreads`` and ``kPtNarrowLossThreads`` rewritten to it; the
-tree's own library is untouched), prints each build's ptxas lines for
-the narrow kernels on every head, checks that each gives the default
-build's outputs bit for bit for rows 1, 1b, 3, 3b, 5 and 6 (the block
-size changes the order of no sum), and times those six at each size in
-two interleaved rounds.
+``SWEEP`` (a copy under ``build/``, every block constant of
+``pt_narrow.cuh`` in ``CONSTANTS`` rewritten to it; the tree's own
+library is untouched), prints each build's ptxas lines for the narrow
+kernels on every head, checks that each gives the default build's
+outputs bit for bit for rows 1-6 (the block size changes the order of
+no sum), and times those ten, in the default build and at each size,
+in two interleaved rounds.
 
 ``--sass DIR`` builds this tree's kernels and those of the checkout at
 DIR, disassembles both libraries (``cuobjdump -sass``) and prints, for
@@ -63,14 +61,18 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 SWEEP = (128, 192, 256, 320, 384, 448, 512, 640)
 NARROW = ("burgers_loss_grad", "burgers_loss_grad_bf16",   # rows 1, 1b
+          "burgers_loss", "burgers_loss_bf16",             # 2, 2b
           "burgers_ide_loss_grad", "burgers_ide_loss_grad_bf16",   # 3, 3b
+          "burgers_ide_loss", "burgers_ide_loss_bf16",     # 4, 4b
           "burgers_sse_grad", "burgers_sse")                      # 5, 6
 # The narrow kernel templates and the heads they are built for.
-NARROW_KERNELS = (("pt_narrow_loss_grad_kernel", "BurgersInfHead"),
-                  ("pt_narrow_loss_grad_kernel", "BurgersIdeHead"),
-                  ("pt_narrow_loss_grad_kernel", "BurgersSseHead"),
-                  ("pt_narrow_loss_kernel", "BurgersSseHead"))
-CONSTANTS = ("kPtNarrowThreads", "kPtNarrowLossThreads")
+NARROW_KERNELS = tuple((kernel, head)
+                       for kernel in ("pt_narrow_loss_grad_kernel",
+                                      "pt_narrow_loss_kernel")
+                       for head in ("BurgersInfHead", "BurgersIdeHead",
+                                    "BurgersSseHead"))
+CONSTANTS = ("kPtNarrowThreads", "kPtNarrowLossThreads",
+             "kPtNarrowLossThreadsFew")
 
 
 def _smoke():
@@ -196,11 +198,13 @@ def _sweep(cs) -> None:
                                      "default build")
         print(f"[sweep] {nt} threads: {regs}; loss and gradients of "
               f"{', '.join(NARROW)} bitwise the default build's", flush=True)
+    libs = {"default": default, **{f"{nt} threads": lib
+                                   for nt, lib in libs.items()}}
     for rnd in range(2):
-        for nt, lib in libs.items():
+        for tag, lib in libs.items():
             _build._LIBRARY = lib
             for name in NARROW:
-                _time(cs, f"sweep round {rnd} {nt} threads", name, calls[name])
+                _time(cs, f"sweep round {rnd} {tag}", name, calls[name])
     _build._LIBRARY = default
 
 
@@ -284,14 +288,12 @@ def main() -> int:
     calls = _calls(cs)
     for name, fn in calls.items():
         _time(cs, tag, name, fn)
-    for name in NARROW[2:4]:
-        out = cs._flat(calls[name]())
-        print(f"[probe] {tag} {name} outputs: loss {float(out[0]).hex()}, "
-              f"glam {', '.join(float(v).hex() for v in out[-1])}", flush=True)
-    for name in NARROW[4:]:
+    for name in NARROW:
         out = _outputs(cs, calls[name])
-        print(f"[probe] {tag} {name} outputs: loss {float(out[0]).hex()}",
-              flush=True)
+        glam = (", glam " + ", ".join(float(v).hex() for v in out[-1])
+                if name.startswith("burgers_ide_loss_grad") else "")
+        print(f"[probe] {tag} {name} outputs: loss {float(out[0]).hex()}"
+              f"{glam}", flush=True)
     if opts.sweep:
         _sweep(cs)
     if opts.sass:

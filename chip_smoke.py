@@ -20,16 +20,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    widest pack [2, 64x14, 1] and the most layers [2, 20x15, 1]; at
    every shape the loss-only loss bitwise the loss+grad loss; bitwise
    repeatability; median times at the flagship; ptxas's lines of the
-   narrow kernel and of the loss-only kernel, their launch records and
-   the device ms a call of each kernel of a call (profiler trace).
+   two narrow kernels (``burgers_loss_grad`` runs
+   pt_narrow_loss_grad_kernel, ``burgers_loss`` pt_narrow_loss_kernel,
+   both on the inference head), their launch records and the device ms
+   a call of each kernel of a call (profiler trace).
 3b. Burgers identification kernels vs plain, at [2, 20x8, 1] (N =
    2,000), [2, 20, 20, 20, 1] (N = 300), [2, 16, 1] (N = 1,017) and the
    narrow kernel's edges (the flagship at N = 1, 31, 33 and 2,023,
    [2, 7, 33, 64, 1], [2, 64x14, 1], [2, 20x15, 1]), for (lambda1, log
    lambda2) = (0, -6) and (1.3, -4); at every shape the loss-only loss
-   bitwise the loss+grad loss; times at N = 2,000; the narrow kernel's
-   and the loss-only kernel's ptxas lines, launch records and device ms
-   a call, as in 3.
+   bitwise the loss+grad loss; times at N = 2,000; the ptxas lines,
+   launch records and device ms a call of pt_narrow_loss_grad_kernel
+   (``burgers_ide_loss_grad``) and pt_narrow_loss_kernel
+   (``burgers_ide_loss``) on the identification head, as in 3.
 3c. Schrödinger kernels vs plain, at [2, 100x4, 2] (N = 20,000 and
    300), [2, 32, 2] (N = 512) and the edges of the tiled kernels
    (32-point tiles): [2, 100x4, 2] at N = 1, 31, 33 and 4,231 (more
@@ -42,9 +45,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    at [2, 100x4, 2] and [2, 128, 128, 2] from a profiler trace.
 3d. The six bf16-stream kernels vs their plain bf16 versions: the
    inference pair as in 3 (every shape, the loss bitwise, the ptxas
-   lines, launch records and device times), the identification pair
-   at [2, 20x8, 1] (N = 2,000), [2, 16, 1] (N = 1,017) and the edges
-   of 3b, as in 3b, the
+   lines, launch records and device times of the bf16 instances of
+   both narrow kernels), the identification pair at [2, 20x8, 1] (N =
+   2,000), [2, 16, 1] (N = 1,017) and the edges of 3b, as in 3b, the
    Schrödinger pair at [2, 100x4, 2] (N = 20,000), [2, 32, 2]
    (N = 512) and the six edges of 3c, the loss bitwise as in 3c;
    bitwise repeatability; times at each flagship.
@@ -419,8 +422,8 @@ def _shape_tag(layers, n):
 def phase_kernels(stats: dict, bf16: bool = False) -> None:
     """3 (3d with ``bf16``): the Burgers inference kernels against their
     plain versions, the loss-only loss bitwise the loss+grad one at
-    every shape; the narrow kernel's and the loss-only kernel's ptxas
-    lines, launch records and device times."""
+    every shape; the ptxas lines, launch records and device times of
+    both narrow kernels on the inference head."""
     from pinn_torch.ops import fused_train as ft
     sfx = "_bf16" if bf16 else ""
     plain_grad = (ft.burgers_loss_grad_bf16_plain if bf16
@@ -447,7 +450,7 @@ def phase_kernels(stats: dict, bf16: bool = False) -> None:
 
     _report_narrow(stats, bf16, "BurgersInfHead",
                    [("pt_narrow_loss_grad_kernel", "burgers_loss_grad", grad),
-                    ("pt_loss_kernel", "burgers_loss", loss)],
+                    ("pt_narrow_loss_kernel", "burgers_loss", loss)],
                    cases[0][2], _shape_tag(FLAGSHIP, cases[0][1]))
 
 
@@ -474,8 +477,9 @@ def phase_ide_kernels(stats: dict, bf16: bool = False,
                       shapes=IDE_SHAPES + IDE_EDGES) -> None:
     """3b (3d with ``bf16``): the identification kernels against their
     plain versions, the loss-only loss bitwise the loss+grad one at
-    every shape; the narrow kernel's and the loss-only kernel's ptxas
-    lines, launch records and device times at the first shape."""
+    every shape; the ptxas lines, launch records and device times of
+    both narrow kernels on the identification head at the first
+    shape."""
     from pinn_torch.ops import fused_train as ft
     sfx = "_bf16" if bf16 else ""
     plain_grad = (ft.burgers_ide_loss_grad_bf16_plain if bf16
@@ -500,7 +504,7 @@ def phase_ide_kernels(stats: dict, bf16: bool = False,
     layers, n = shapes[0]
     _report_narrow(stats, bf16, "BurgersIdeHead",
                    [("pt_narrow_loss_grad_kernel", "burgers_ide_loss_grad", grad),
-                    ("pt_loss_kernel", "burgers_ide_loss", loss)],
+                    ("pt_narrow_loss_kernel", "burgers_ide_loss", loss)],
                    _ide_inputs(layers, n, IDE_LAMBDAS[0], seed=200),
                    _shape_tag(layers, n))
 

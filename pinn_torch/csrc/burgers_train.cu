@@ -47,36 +47,34 @@
 // rather than being burgers_loss_grad with w = 1, d = 0: it reads no
 // aux rows and sums f^2, not a weighted mean.
 //
-// Two designs, one layout.  The five loss+grad entries,
+// One design.  Every entry launches one of pt_narrow.cuh's block-tiled
+// kernels: a block a 32-point tile, each layer one product over the
+// four streams in shared memory, the weights staged a layer at a time,
+// the head in one warp, the identification head's A1 and A2 summed
+// there beside the loss.  The five loss+grad entries,
 // burgers_loss_grad[_bf16], burgers_ide_loss_grad[_bf16] and
-// burgers_sse_grad, and the loss-only burgers_sse launch pt_narrow.cuh's
-// block-tiled kernels: a block a 32-point tile, each layer one product
-// over the four streams in shared memory, the weights staged a layer
-// at a time, 320 threads a block (42 KB of shared memory at [2, 20x8,
-// 1] with gradients, 25 KB without, so several blocks share an SM and
-// the inference flagship's 316 tiles run in one wave), the
-// identification head's A1 and A2 summed in the head's warp beside the
-// loss.  The loss of each loss+grad entry is its loss-only entry's bit
-// for bit.  The four other loss-only entries (burgers_loss[_bf16],
-// burgers_ide_loss[_bf16]) run pt_mlp.cuh's one thread a point, the
-// weights in shared memory (12.2 KB at [2, 20x8, 1], 46.9 KB at [2,
-// 40x8, 1]), one warp a block.  All read the same buffers: the
-// saved-activation workspace is 2,560 B a point at width 20 (25.9 MB
-// at the inference flagship's N = 10,100, inside the 50 MB L2), half
-// that with bf16 streams, and partials hold a row per 32-point tile.
-// All are instantiated at hidden width <= 64.
+// burgers_sse_grad, run pt_narrow_loss_grad_kernel (320 threads a
+// block, 42 KB of shared memory at [2, 20x8, 1], so several blocks
+// share an SM and the inference flagship's 316 tiles run in one wave);
+// the five loss-only entries, burgers_loss[_bf16],
+// burgers_ide_loss[_bf16] and burgers_sse, run pt_narrow_loss_kernel,
+// its forward with nothing saved (25 KB; its block size is fitted to
+// the grid at launch, pt_narrow.cuh says how).  The loss of each
+// loss+grad entry is its loss-only entry's bit for bit.  The
+// saved-activation workspace is 2,560 B a point at width 20 (25.9 MB at
+// the inference flagship's N = 10,100, inside the 50 MB L2), half that
+// with bf16 streams, and partials hold a row per 32-point tile.  All
+// are instantiated at hidden width <= 64.
 //
 // Bounds on this card.  The inference flagship step is ~0.7 GFLOP of
 // f32 FMA for ~26 MB of workspace traffic (0.0115 ms at 67 TFLOP/s).
 // The narrow kernels' products read both operands from shared memory,
 // so a block is bound by the shared-memory pipe and by the latency of
 // its phases, not by FLOP/s; at the identification flagship's N = 2,000
-// its 63 blocks fill under half of the 132 SMs.  pt_mlp.cuh's loss-only
-// kernel is bound by latency: one warp a tile, a point's serial chain
-// through every neuron, per-thread stream arrays in local memory.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W, by device time: the
-// narrow loss+grad kernel 0.114 ms at N = 10,100 (f32 and bf16), 0.071
-// ms (f32) and 0.062 ms (bf16) at N = 2,000; PERF.md has the rest.
+// its 63 blocks fill under half of the 132 SMs.  Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W, by device time: the narrow loss+grad kernel
+// 0.114 ms at N = 10,100 (f32 and bf16), 0.071 ms (f32) and 0.062 ms
+// (bf16) at N = 2,000; PERF.md has the rest.
 //
 // Every entry returns cudaGetLastError().
 
@@ -237,7 +235,7 @@ int burgers_loss(const float* a0, const float* aux, const float* wpack,
                  const int* widths, int n_layers, int n_pts, float nu,
                  float* partials, float* out, void* stream) {
   const BurgersInfHead::Args args = {aux, nu};
-  return pt_launch_loss<BurgersInfHead, BURGERS_MAX_WIDTH, float>(
+  return pt_narrow_launch_loss<BurgersInfHead, BURGERS_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
 }
 
@@ -245,8 +243,10 @@ int burgers_loss_bf16(const float* a0, const float* aux, const float* wpack,
                       const int* widths, int n_layers, int n_pts, float nu,
                       float* partials, float* out, void* stream) {
   const BurgersInfHead::Args args = {aux, nu};
-  return pt_launch_loss<BurgersInfHead, BURGERS_MAX_WIDTH, __nv_bfloat16>(
-      widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
+  return pt_narrow_launch_loss<BurgersInfHead, BURGERS_MAX_WIDTH,
+                               __nv_bfloat16>(widths, n_layers, a0, wpack,
+                                              n_pts, args, partials, out,
+                                              stream);
 }
 
 // Identification loss, all net gradients, then A1 and A2.  partials:
@@ -277,7 +277,7 @@ int burgers_ide_loss(const float* a0, const float* aux, const float* lam,
                      const float* wpack, const int* widths, int n_layers,
                      int n_pts, float* partials, float* out, void* stream) {
   const BurgersIdeHead::Args args = {aux, lam};
-  return pt_launch_loss<BurgersIdeHead, BURGERS_MAX_WIDTH, float>(
+  return pt_narrow_launch_loss<BurgersIdeHead, BURGERS_MAX_WIDTH, float>(
       widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
 }
 
@@ -286,8 +286,10 @@ int burgers_ide_loss_bf16(const float* a0, const float* aux, const float* lam,
                           int n_pts, float* partials, float* out,
                           void* stream) {
   const BurgersIdeHead::Args args = {aux, lam};
-  return pt_launch_loss<BurgersIdeHead, BURGERS_MAX_WIDTH, __nv_bfloat16>(
-      widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
+  return pt_narrow_launch_loss<BurgersIdeHead, BURGERS_MAX_WIDTH,
+                               __nv_bfloat16>(widths, n_layers, a0, wpack,
+                                              n_pts, args, partials, out,
+                                              stream);
 }
 
 // v1 residual SSE and all gradients.  ws: ws_rows * (n_tiles * 32)

@@ -1,9 +1,9 @@
-// Shared code of the fused PINN loss kernels (sm_90a): the net, head
-// and buffer conventions that every kernel of pt_narrow.cuh, pt_tile.cuh
+// Shared code of the fused PINN kernels (sm_90a): the net, head and
+// buffer conventions that every kernel of pt_narrow.cuh, pt_tile.cuh
 // and residual_eval.cu takes, the stream type's roundings, the
-// fixed-order reduction of the partials, and a loss-only kernel that
-// carries one point a thread through a tanh MLP with four Taylor
-// streams (value, d/dx, d2/dx2, d/dt).
+// fixed-order reduction of the partials, and the one-thread-a-point
+// forward of a tanh MLP with four Taylor streams (value, d/dx, d2/dx2,
+// d/dt) that residual_eval.cu's kernels run.
 //
 // Three things are template parameters:
 //
@@ -41,13 +41,12 @@
 // where eval returns the point's loss term; a point past the ragged
 // edge (live == false) must give 0 and zero adjoints.
 //
-// The loss-only kernel (pt_loss_kernel).  One thread carries one
-// point, a warp a tile of 32 points, whose loss pt_warp_sum sums in a
-// fixed butterfly.  The weights of the whole net sit in shared memory,
-// shared by the warps of a block: one warp a block while they fit in
-// 48 KB (many blocks per SM), and above that as many warps as keep the
-// grid within one wave of the SMs (pt_warps_per_block), since then
-// only one block fits on an SM.
+// The one-thread-a-point forward (pt_forward_hidden, pt_output).  One
+// thread carries one point through every neuron, its streams in
+// per-thread arrays of 4W floats (local memory), the weights of the
+// whole net in shared memory, shared by the threads of a block; past
+// 48 KB of weights one block fits on an SM, and pt_warps_per_block
+// sizes the block to keep the grid within one wave of the SMs.
 //
 // bf16 streams (S = __nv_bfloat16).  The TPU kernels round to bf16 at
 // fixed points (pinn/ops/pallas_train.py:121-274) and the kernels round
@@ -121,16 +120,6 @@ __device__ __forceinline__ float pt_warp_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 2);
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v;
-}
-
-template <class S>
-__device__ __forceinline__ void pt_load_weights(const PtNet& net,
-                                                const float* __restrict__ wpack,
-                                                float* w_s) {
-  for (int i = threadIdx.x; i < net.n_weights; i += blockDim.x) {
-    w_s[i] = PtStream<S>::rnd(wpack[i]);
-  }
-  __syncthreads();
 }
 
 // Forward of one point through the hidden stack.  On return act holds
@@ -215,36 +204,6 @@ __device__ __forceinline__ void pt_output(const PtNet& net, const float* w_s,
     U[o][2] = u2;
     U[o][3] = u3;
   }
-}
-
-// The loss alone: one partial per tile.
-template <class Head, int W, class S>
-__global__ void pt_loss_kernel(PtNet net, const float* __restrict__ a0,
-                               const float* __restrict__ wpack, int n_pts,
-                               typename Head::Args args,
-                               float* __restrict__ partials) {
-  using St = PtStream<S>;
-  extern __shared__ float w_s[];
-  pt_load_weights<S>(net, wpack, w_s);
-
-  const int lane = threadIdx.x & (PT_TILE - 1);
-  const int tile = blockIdx.x * (blockDim.x / PT_TILE) + threadIdx.x / PT_TILE;
-  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
-  if (tile >= n_tiles) return;
-  const int col = tile * PT_TILE + lane;
-  const bool live = col < n_pts;
-  const float x0 = St::rnd(live ? a0[col] : 0.0f);
-  const float x1 = St::rnd(live ? a0[n_pts + col] : 0.0f);
-  const typename Head::Point pt = Head::load(args, n_pts, col, live);
-
-  float act[4 * W];
-  float buf[4 * W];
-  pt_forward_hidden<W, S>(net, w_s, x0, x1, act, buf);
-  float U[Head::kOut][4], gU[Head::kOut][4];
-  float ex[Head::kExtra + 1];
-  pt_output<W, Head::kOut>(net, w_s, act, U);
-  const float loss_tile = pt_warp_sum(Head::eval(args, pt, U, gU, ex));
-  if (lane == 0) partials[tile] = loss_tile;
 }
 
 // out[p] = sum over rows r = 0, 1, ... of partials[r, p], in row order.
@@ -339,31 +298,6 @@ int pt_reduce(const float* partials, int rows, int n_cols, float* out,
   pt_reduce_rows_kernel<<<blocks, threads, 0, stream>>>(partials, rows,
                                                         n_cols, out);
   return (int)cudaGetLastError();
-}
-
-// Loss only.  partials: n_tiles floats; out: 1 float.
-template <class Head, int W, class S>
-int pt_launch_loss(const int* widths, int n_layers, const float* a0,
-                   const float* wpack, int n_pts, typename Head::Args args,
-                   float* partials, float* out, void* stream) {
-  PtNet net;
-  int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
-  if (err) return err;
-  if (n_pts < 1) return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  err = pt_smem_bytes(net, (const void*)pt_loss_kernel<Head, W, S>, &smem);
-  if (err) return err;
-  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
-  int warps = 1;
-  err = pt_warps_per_block(smem, n_tiles, &warps);
-  if (err) return err;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (n_tiles + warps - 1) / warps;
-  pt_loss_kernel<Head, W, S><<<blocks, warps * PT_TILE, smem, s>>>(
-      net, a0, wpack, n_pts, args, partials);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return pt_reduce(partials, n_tiles, 1, out, s);
 }
 
 }  // namespace

@@ -7,24 +7,27 @@
 // burgers_ide_loss_grad[_bf16] on the identification head
 // (BurgersIdeHead, two extra accumulators A1, A2) and burgers_sse_grad
 // on the v1 residual-SSE head (BurgersSseHead).  pt_narrow_loss_kernel
-// gives the loss alone, with the same forward and nothing saved;
-// burgers_sse launches it.  They replace the TPU kernels
-// _make_train_kernel (pinn/ops/pallas_train.py:524), _make_ide_kernel
-// (:847), _make_fwd_bwd_kernel (:305) and _fwd_kernel (:277), and are
+// gives the loss alone, with the same forward and nothing saved; the
+// five loss-only entries launch it on the same heads: burgers_loss[_bf16],
+// burgers_ide_loss[_bf16] and burgers_sse.  They replace the TPU
+// kernels _make_train_kernel (pinn/ops/pallas_train.py:524),
+// _fwd_train_kernel (:576), _make_ide_kernel (:847), _fwd_ide_kernel
+// (:906), _make_fwd_bwd_kernel (:305) and _fwd_kernel (:277), and are
 // shaped as those are: each layer of a tile is one product over the
 // four stacked streams.  They take pt_mlp.cuh's Head, PtNet, weight
 // pack, stream type S, rounding points and buffers.
 //
-// Why.  One thread a point (pt_mlp.cuh) gives the inference flagship's
-// N = 10,100 points 316 one-warp blocks, 2.4 warps an SM, and the
-// identification flagship's N = 2,000 only 63, with nothing to hide
-// latency; its stream arrays are sized for width 64 (3 KB of local
-// memory a thread, 80 floats of each used at width 20); a weight
-// gradient summed by shuffles is a five-step butterfly over the tile
-// (3,061 of them a warp at width 20); and with bf16 streams a rounding
-// sits inside every dependency chain.  pt_tile.cuh's layout does not
-// fit width 20 as it is (800 threads and one block an SM for 4 x 4
-// outputs a thread: at width 20 most of them would idle).
+// Why not one thread a point (pt_mlp.cuh's forward, which the residual
+// kernels run).  It gives the inference flagship's N = 10,100 points
+// 316 one-warp blocks, 2.4 warps an SM, and the identification
+// flagship's N = 2,000 only 63, with nothing to hide latency; its
+// stream arrays are sized for width 64 (3 KB of local memory a thread,
+// 80 floats of each used at width 20); a weight gradient summed by
+// shuffles is a five-step butterfly over the tile (3,061 of them a warp
+// at width 20); and with bf16 streams a rounding sits inside every
+// dependency chain.  pt_tile.cuh's layout does not fit width 20 as it
+// is (800 threads and one block an SM for 4 x 4 outputs a thread: at
+// width 20 most of them would idle).
 //
 // Tile and block.  A block owns one tile of T = PT_TILE = 32 points,
 // the points of one row of the partials that the C interface's callers
@@ -33,8 +36,10 @@
 // of shared memory and 32 registers (width 20) up to five blocks share
 // an SM, so the inference flagship's 316 tiles run in one wave on 132
 // SMs, and the identification flagship's 63 leave 69 SMs idle.  The
-// loss-only kernel has kPtNarrowLossThreads threads and 25 KB at width
-// 20.  Activations are the TPU kernel's a_cat: a row per neuron,
+// loss-only kernel has 25 KB at width 20 and a block size chosen at
+// launch from the grid and the SM count (kPtNarrowLossThreads while
+// blocks share SMs, kPtNarrowLossThreadsFew when each has one to
+// itself).  Activations are the TPU kernel's a_cat: a row per neuron,
 // stream-major then point (value, d/dx, d2/dx2, d/dt), each stream
 // padded to 33 floats and a row to 132, so that a warp reading one
 // point of 32 (neuron, stream) rows, as the weight gradients do, hits
@@ -78,10 +83,10 @@
 //   layer 0: dW0 on the value stream, the tangent rows' adjoints as
 //     column sums of gz_1 and gz_2.
 // Each point's forward and head are the same expressions in both
-// kernels and in pt_mlp.cuh's pt_loss_kernel, each tile's loss the same
-// pt_warp_sum, and pt_reduce sums the tiles in row order, so the loss
-// of the two kernels is the same bit for bit, and pt_loss_kernel's on
-// the same head.  Every gradient is a fixed-order sum (the four stream
+// kernels, each tile's loss the same pt_warp_sum, and pt_reduce sums
+// the tiles in row order, so the loss of the two kernels is the same
+// bit for bit on the same head; the block size changes the order of no
+// sum.  Every gradient is a fixed-order sum (the four stream
 // parts added in stream order), no atomics: two launches on the same
 // inputs are bitwise equal.
 //
@@ -100,8 +105,10 @@
 // identification flagship's 63 tiles) is bound by its phases' latency
 // instead.  The loss-only call is a third of the FFMA and of the
 // shared-memory loads.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (PERF.md): 0.114 ms of device time at the inference flagship; 0.071
-// ms (f32) and 0.062 ms (bf16) at the identification flagship.
+// (PERF.md), by device time: the loss+grad kernel 0.114 ms at the
+// inference flagship, 0.071 ms (f32) and 0.062 ms (bf16) at the
+// identification flagship; the loss-only kernel 0.031 ms and, with 640
+// threads a block, 0.015 ms.
 // Precision: IEEE f32 (fmaf, tanhf); build without --use_fast_math.
 
 #pragma once
@@ -121,12 +128,23 @@ namespace {
 // threads are faster, 0.044 ms at 640 against 0.067 at 320.
 constexpr int kPtNarrowThreads = 320;
 
-// Threads a block of the loss-only kernel, a constant of its own (its
-// block does a third of the loss+grad kernel's work): ten warps, two
-// rounds of a width-20 layer's (neuron, point) pairs.  PERF.md has the
-// sweep of 128 to 640 threads at [2, 20x8, 1], N = 10,000.
+// Threads a block of the loss-only kernel, constants of its own (its
+// block does a third of the loss+grad kernel's work), chosen at launch:
+// kPtNarrowLossThreads, ten warps, two rounds of a width-20 layer's 640
+// (neuron, point) pairs, while the grid is larger than the SM count and
+// blocks share SMs; kPtNarrowLossThreadsFew, twenty warps, one round,
+// when it is not, so that each block has an SM to itself and only its
+// phases' latency bounds it.  The block size changes the order of no
+// sum.  The sweep of 128 to 640 threads (chip_narrow_probe.py --sweep,
+// PERF.md; an NVIDIA H100 80GB HBM3 at 700 W) at [2, 20x8, 1]: at N =
+// 10,100 (316 blocks) flat within 5% from 320 up, 128 slowest; at N =
+// 2,000 (63 blocks) 0.014-0.015 ms of device time at 640 against
+// 0.017-0.021 at 320.
 constexpr int kPtNarrowLossThreads = 320;
+constexpr int kPtNarrowLossThreadsFew = 640;
 static_assert(kPtNarrowLossThreads >= PT_TILE, "a tile's head in one warp");
+static_assert(kPtNarrowLossThreadsFew >= kPtNarrowLossThreads,
+              "the kernel's __launch_bounds__");
 
 constexpr int kPtNarrowTS = PT_TILE + 1;       // stream stride in a row
 constexpr int kPtNarrowLD = 4 * kPtNarrowTS;   // row stride
@@ -549,7 +567,7 @@ pt_narrow_loss_grad_kernel(PtNet net, int hp, const float* __restrict__ a0,
 // The loss alone of tile blockIdx.x into partials[blockIdx.x]: the
 // loss+grad kernel's forward with nothing saved, and its head's loss.
 template <class Head, class S>
-__global__ void __launch_bounds__(kPtNarrowLossThreads)
+__global__ void __launch_bounds__(kPtNarrowLossThreadsFew)
 pt_narrow_loss_kernel(PtNet net, int hp, const float* __restrict__ a0,
                       const float* __restrict__ wpack, int n_pts,
                       typename Head::Args args, float* __restrict__ partials) {
@@ -576,21 +594,26 @@ pt_narrow_loss_kernel(PtNet net, int hp, const float* __restrict__ a0,
 }
 
 // The dynamic shared memory of one kernel instance on one device at
-// one hidden width: each instance keeps the last one it launched with,
-// so the attribute is set only when the device or the size changes.
+// one hidden width, and the device's SM count: each instance keeps the
+// last device and size it launched with, so the attribute is set only
+// when the device or the size changes, and the SM count read only when
+// the device does.
 struct PtNarrowCache {
   std::mutex mu;
   int dev = -1;
   size_t smem = 0;
+  int n_sm = 0;
 };
 
 // What both launches share: the net of a layer list with hidden widths
 // <= max_width, its widest hidden layer hp, the dynamic shared memory
 // of `kernel` (with or without the gradients' buffers), set on the
-// device when it changes.  Nonzero on what the kernels do not take.
+// device when it changes, and the device's SM count (n_sm, where not
+// null).  Nonzero on what the kernels do not take.
 int pt_narrow_plan(const int* widths, int n_layers, int n_out, int max_width,
                    int n_pts, const void* kernel, bool grads,
-                   PtNarrowCache* cache, PtNet* net, int* hp, size_t* smem) {
+                   PtNarrowCache* cache, PtNet* net, int* hp, size_t* smem,
+                   int* n_sm) {
   int err = pt_make_net(widths, n_layers, n_out, max_width, net);
   if (err) return err;
   if (n_pts < 1) return (int)cudaErrorInvalidValue;
@@ -601,6 +624,11 @@ int pt_narrow_plan(const int* widths, int n_layers, int n_out, int max_width,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   std::lock_guard<std::mutex> lock(cache->mu);
+  if (cache->dev != dev) {
+    e = cudaDeviceGetAttribute(&cache->n_sm, cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (cache->dev != dev || cache->smem != *smem) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)*smem);
@@ -608,6 +636,7 @@ int pt_narrow_plan(const int* widths, int n_layers, int n_out, int max_width,
     cache->dev = dev;
     cache->smem = *smem;
   }
+  if (n_sm) *n_sm = cache->n_sm;
   return 0;
 }
 
@@ -628,7 +657,7 @@ int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
   size_t smem = 0;
   int err = pt_narrow_plan(widths, n_layers, Head::kOut, W, n_pts,
                            (const void*)pt_narrow_loss_grad_kernel<Head, S>,
-                           true, &cache, &net, &hp, &smem);
+                           true, &cache, &net, &hp, &smem, nullptr);
   if (err) return err;
   const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
   cudaStream_t s = (cudaStream_t)stream;
@@ -641,7 +670,9 @@ int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
 }
 
 // The loss alone, through the narrow loss-only kernel at hidden width
-// <= W.  partials: n_tiles floats; out: 1 float.  No fallback, as above.
+// <= W, kPtNarrowLossThreadsFew threads a block when the n_tiles blocks
+// fit the SMs one each, else kPtNarrowLossThreads.  partials: n_tiles
+// floats; out: 1 float.  No fallback, as above.
 template <class Head, int W, class S>
 int pt_narrow_launch_loss(const int* widths, int n_layers, const float* a0,
                           const float* wpack, int n_pts,
@@ -651,13 +682,16 @@ int pt_narrow_launch_loss(const int* widths, int n_layers, const float* a0,
   PtNet net;
   int hp = 0;
   size_t smem = 0;
+  int n_sm = 0;
   int err = pt_narrow_plan(widths, n_layers, Head::kOut, W, n_pts,
                            (const void*)pt_narrow_loss_kernel<Head, S>, false,
-                           &cache, &net, &hp, &smem);
+                           &cache, &net, &hp, &smem, &n_sm);
   if (err) return err;
   const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
+  const int threads =
+      n_tiles <= n_sm ? kPtNarrowLossThreadsFew : kPtNarrowLossThreads;
   cudaStream_t s = (cudaStream_t)stream;
-  pt_narrow_loss_kernel<Head, S><<<n_tiles, kPtNarrowLossThreads, smem, s>>>(
+  pt_narrow_loss_kernel<Head, S><<<n_tiles, threads, smem, s>>>(
       net, hp, a0, wpack, n_pts, args, partials);
   err = (int)cudaGetLastError();
   if (err) return err;

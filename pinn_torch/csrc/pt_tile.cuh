@@ -8,7 +8,7 @@
 // and :70) shape them: each layer of a tile is one matrix product over
 // the four streams.
 //
-// Why.  One thread a point (as pt_mlp.cuh's loss-only kernel has it)
+// Why.  One thread a point (as pt_mlp.cuh's residual forward has it)
 // keeps a point's 2-3 x 4W stream floats in local memory and chains
 // scalar FMAs on them; at width 100 the weights (124 KB) leave one
 // block of 5 warps an SM.  Here the streams of a tile live in shared
@@ -692,8 +692,8 @@ int pt_tile_launch_loss_grad(const int* widths, int n_layers, const float* a0,
   return pt_reduce(partials, grid, 1 + net.n_weights, out, s);
 }
 
-// The loss alone, through the tiled kernel at hidden width <= W.  The
-// buffers are pt_launch_loss's (partials: n_rows floats; out: 1 float).
+// The loss alone, through the tiled kernel at hidden width <= W.
+// partials: n_rows floats; out: 1 float.
 template <class Head, int W, class S>
 int pt_tile_launch_loss(const int* widths, int n_layers, const float* a0,
                         const float* wpack, int n_pts,

@@ -32,9 +32,9 @@
 // past N, so nothing is padded.
 //
 // Design.  One thread carries one point through pt_mlp.cuh's
-// pt_forward_hidden and pt_output (the loss-only kernel's forward): no
-// workspace, no partials, no reduction, no
-// atomics, so the output is bitwise repeatable.  The weights sit in
+// pt_forward_hidden and pt_output (the hidden stack's four streams,
+// then the output layer's): no workspace, no partials, no reduction,
+// no atomics, so the output is bitwise repeatable.  The weights sit in
 // shared memory, loaded once per block: 128-thread blocks while they
 // fit in 48 KB (12.2 KB at [2, 20x8, 1]); above that one block fits on
 // an SM ([2, 100x4, 2] holds 31,002 floats, 124 KB), and a block takes

@@ -9,13 +9,11 @@ Bars as in tests/test_pallas_train.py: loss rtol 1e-5, gradients rtol
 5e-4 with atol 5e-6 * max|g|, identification lambda adjoints rtol 1e-4;
 two launches are bitwise equal; at [2, 100x4, 2] the Schrödinger
 loss-only kernel's loss is the loss+grad kernel's bit for bit (f32 and
-bf16: the same tiled forward, grid and order of sums), and so is the
-Burgers inference one at [2, 20x8, 1] (the narrow kernel computes each
-point's forward and the sums over a tile and over the tiles as the
-loss-only kernel does), and the identification one at [2, 20x8, 1] on
-the same narrow kernel, and the v1 SSE pair's at every shape (the
-narrow loss+grad kernel and the narrow loss-only kernel share one
-forward).  The bf16-stream
+bf16: the same tiled forward, grid and order of sums), and so are the
+Burgers inference, identification and v1 SSE pairs' at [2, 20x8, 1]
+and at every edge of the narrow kernels, f32 and bf16 (the narrow
+loss+grad kernel and the narrow loss-only kernel share one forward,
+head and order of sums).  The bf16-stream
 kernels against their plain bf16 versions (the same roundings, summed
 in another order, which can move a rounding): loss rtol 2e-3, gradient
 rel-L2 <= 1e-2 and cosine >= 0.9999 (the net gradients and the lambda
@@ -128,13 +126,19 @@ def test_kernels_match_plain(layers, n_u, n_f, n):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("n_f", [10000, 1948])
-def test_inference_loss_only_is_the_loss_grad_loss_bitwise(n_f, bf16):
-    """At [2, 20x8, 1] (N = 10,100 and 2,048) burgers_loss's loss is
-    burgers_loss_grad's bit for bit: the L-BFGS line search compares
-    loss-only trials with loss+grad values."""
-    params, batch = _case(FLAGSHIP, 100, n_f, seed=n_f + 3, device="cuda")
-    args = _kernel_args(params, batch)
+@pytest.mark.parametrize("layers,n_u,n_f,n", [
+    (FLAGSHIP, 100, 10000, None),
+    (FLAGSHIP, 100, 1948, None),
+] + NARROW_EDGES)
+def test_inference_loss_only_is_the_loss_grad_loss_bitwise(layers, n_u, n_f,
+                                                           n, bf16):
+    """At [2, 20x8, 1] (N = 10,100 and 2,048) and at the narrow kernels'
+    edges burgers_loss's loss is burgers_loss_grad's bit for bit: the
+    L-BFGS line search compares loss-only trials with loss+grad
+    values."""
+    params, batch = _case(layers, n_u, n_f, seed=len(layers) + n_f + 3,
+                          device="cuda")
+    args = _kernel_args(params, batch, n)
     n0 = dict(ft.launches)
     loss_only = ft.burgers_loss(*args, NU, bf16=bf16)
     loss = ft.burgers_loss_grad(*args, NU, bf16=bf16)[0]
@@ -238,12 +242,12 @@ def test_ide_kernels_match_plain(layers, n, l1, logl2):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("n", [2000, 63 * 32 + 7])
-def test_ide_loss_only_is_the_loss_grad_loss_bitwise(n, bf16):
-    """At [2, 20x8, 1] (N = 2,000 and 2,023) burgers_ide_loss's loss is
-    burgers_ide_loss_grad's bit for bit: the narrow kernel evaluates
-    the identification head as the loss-only kernel does."""
-    args = _ide_args(FLAGSHIP, n, 1.3, -4.0, seed=n + 3)
+@pytest.mark.parametrize("layers,n", [(FLAGSHIP, 2000)] + IDE_EDGES)
+def test_ide_loss_only_is_the_loss_grad_loss_bitwise(layers, n, bf16):
+    """At [2, 20x8, 1] (N = 2,000) and at the narrow kernels' edges
+    burgers_ide_loss's loss is burgers_ide_loss_grad's bit for bit: both
+    narrow kernels evaluate the identification head alike."""
+    args = _ide_args(layers, n, 1.3, -4.0, seed=len(layers) + n + 3)
     n0 = dict(ft.launches)
     loss_only = ft.burgers_ide_loss(*args, bf16=bf16)
     loss = ft.burgers_ide_loss_grad(*args, bf16=bf16)[0]
@@ -270,6 +274,39 @@ def test_ide_launches_on_one_input_are_bitwise_equal(n, bf16):
     torch.cuda.synchronize()
     assert not torch.equal(first[-1], between[-1])
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _loss_only_args(entry, n, seed):
+    """Arguments of a loss-only entry at [2, 20x8, 1] on ``n`` points:
+    the inference kernels' (a third data points) or the identification
+    kernels'."""
+    if entry == "burgers_loss":
+        params, batch = _case(FLAGSHIP, max(1, n // 3), n - n // 3 + 1,
+                              seed=seed, device="cuda")
+        return _kernel_args(params, batch, n) + (NU,)
+    return _ide_args(FLAGSHIP, n, 1.3, -4.0, seed=seed)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("entry,n", [
+    ("burgers_loss", 33), ("burgers_loss", 316 * 32 + 7),
+    ("burgers_ide_loss", 33), ("burgers_ide_loss", 63 * 32 + 7),
+])
+def test_loss_only_launches_on_one_input_are_bitwise_equal(entry, n, bf16):
+    """Two launches of a loss-only entry on the same inputs, with a
+    launch on other inputs between them, give the same loss bit for
+    bit: the partials are fresh torch.empty memory each call, so a
+    tile's slot that no block writes would carry the other inputs'
+    value into the second launch."""
+    fn = getattr(ft, entry)
+    args = _loss_only_args(entry, n, seed=n + 5)
+    other = _loss_only_args(entry, n, seed=n + 6)
+    first = fn(*args, bf16=bf16)
+    between = fn(*other, bf16=bf16)
+    second = fn(*args, bf16=bf16)
+    torch.cuda.synchronize()
+    assert not torch.equal(first, between)
+    assert torch.equal(first, second)
 
 
 # The edges of the tiled loss+grad kernel (pt_tile.cuh, 32-point tiles):

@@ -194,6 +194,35 @@ def test_fused_ide_edge_widths_match_jax(stream_dtype, n, l1, logl2):
         np.testing.assert_allclose(g, w, rtol=1e-4)
 
 
+@pytest.mark.parametrize("layers,n,stream_dtype", [
+    ([2] + [20] * 8 + [1], 33, None),      # a tile and one point
+    ([2, 7, 33, 64, 1], 100, None),        # widths off 4, the widest layer
+    ([2] + [20] * 15 + [1], 64, None),     # the most hidden layers
+    ([2, 7, 33, 64, 1], 1031, "bfloat16"),  # two JAX tiles (XLA CPU and bf16)
+])
+def test_fused_ide_loss_only_matches_jax(layers, n, stream_dtype):
+    """Under torch.no_grad() the fused identification loss takes the
+    loss-only branch (the narrow loss-only kernel's plain version here):
+    its value against the JAX primal of make_burgers_ide_loss in
+    interpret mode (float32 rtol 1e-5; bf16 streams the module's 2e-3)
+    and against the loss+grad branch's value (rtol 1e-6), at the shapes
+    where the narrow kernel cuts its work."""
+    jp = _jax_params(layers, 1.3, -4.0, jnp.float32, seed=n + 1)
+    X, u = _points(n, n + 1, np.float32)
+    jloss = pallas_train.make_burgers_ide_loss(LB, UB, interpret=True,
+                                               stream_dtype=stream_dtype)
+    want = float(jloss(jp, {"X_u": jnp.asarray(X), "u": jnp.asarray(u)}))
+    tp = _torch_params(jp, torch.float32)
+    loss = fused_train.make_burgers_ide_loss(LB, UB, stream_dtype)
+    batch = {"X_u": torch.as_tensor(X), "u": torch.as_tensor(u)}
+    with torch.no_grad():
+        v_nograd = float(loss(tp, batch))
+    np.testing.assert_allclose(v_nograd, want,
+                               rtol=1e-5 if stream_dtype is None else 2e-3)
+    np.testing.assert_allclose(v_nograd, float(loss(tp, batch).detach()),
+                               rtol=1e-6)
+
+
 def test_fused_ide_refuses_bf16_streams():
     """Once refused, bf16 streams now run: the plain bf16 version
     against make_burgers_ide_loss(stream_dtype="bfloat16",
