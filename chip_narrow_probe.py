@@ -18,11 +18,18 @@ at the facade's v1 SSE ([2, 20x8, 1], N = 10,000, the inputs of
 ``burgers_sse`` (rows 5, 6), the median ms a call through the wrapper
 (CUDA events, 50 calls) and the device ms a call of each kernel the
 call launches (torch.profiler, 20 calls); so too for the residual
-evaluation (rows 9-11) at the inputs of phase 3e's times.  Rows 1, 1b,
-3, 3b and 5 run ``pt_narrow.cuh``'s loss+grad kernel, rows 2, 2b, 4,
-4b and 6 its loss-only kernel.  It also prints, as hex floats, so that
-two trees' outputs can be compared bit for bit, the loss of each of
-rows 1-6 and the lambda adjoints (A1, -A2) of rows 3 and 3b.
+evaluation (rows 9-11) at the inputs of phase 3e's times (both Burgers
+layouts on the 200,000-point pool, Schrödinger's on its grid) and row 9
+also on the Burgers grid.  Rows 1, 1b, 3, 3b and 5 run
+``pt_narrow.cuh``'s loss+grad kernel, rows 2, 2b, 4, 4b and 6 its
+loss-only kernel, row 9 its eval kernel; row 10 runs
+``residual_eval.cu``'s one-thread-a-point kernel and row 11
+``pt_tile.cuh``'s eval kernel.  So that two trees' outputs can be
+compared bit for bit, it prints the loss of each of rows 1-6 and the
+lambda adjoints (A1, -A2) of rows 3 and 3b as hex floats, and the
+SHA-256 of the bytes of rows 9-11's outputs at each of phase 3e's
+residual inputs (``chip_smoke._residual_cases``: the pool, both grids,
+the edges).
 
 ``--tree DIR`` times the ``pinn_torch`` of the checkout at DIR (another
 commit unpacked there, say) with this script's measurement code, so
@@ -33,9 +40,9 @@ that two trees are timed alike on one card, in turns.
 ``pt_narrow.cuh`` in ``CONSTANTS`` rewritten to it; the tree's own
 library is untouched), prints each build's ptxas lines for the narrow
 kernels on every head, checks that each gives the default build's
-outputs bit for bit for rows 1-6 (the block size changes the order of
-no sum), and times those ten, in the default build and at each size,
-in two interleaved rounds.
+outputs bit for bit for rows 1-6 and row 9 on the 200,000-point pool
+(the block size changes the order of no sum), and times those eleven,
+in the default build and at each size, in two interleaved rounds.
 
 ``--sass DIR`` builds this tree's kernels and those of the checkout at
 DIR, disassembles both libraries (``cuobjdump -sass``) and prints, for
@@ -49,6 +56,7 @@ exits with code 2.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import os
 import re
@@ -65,12 +73,14 @@ NARROW = ("burgers_loss_grad", "burgers_loss_grad_bf16",   # rows 1, 1b
           "burgers_ide_loss_grad", "burgers_ide_loss_grad_bf16",   # 3, 3b
           "burgers_ide_loss", "burgers_ide_loss_bf16",     # 4, 4b
           "burgers_sse_grad", "burgers_sse")                      # 5, 6
+SWEPT = NARROW + ("burgers_residual",)                            # and 9
 # The narrow kernel templates and the heads they are built for.
 NARROW_KERNELS = tuple((kernel, head)
                        for kernel in ("pt_narrow_loss_grad_kernel",
                                       "pt_narrow_loss_kernel")
                        for head in ("BurgersInfHead", "BurgersIdeHead",
-                                    "BurgersSseHead"))
+                                    "BurgersSseHead")) \
+    + (("pt_narrow_eval_kernel", "BurgersResidual"),)
 CONSTANTS = ("kPtNarrowThreads", "kPtNarrowLossThreads",
              "kPtNarrowLossThreadsFew")
 
@@ -85,34 +95,41 @@ def _smoke():
     return mod
 
 
+def _residual_fns(cs):
+    """[(tag, entry, call)] of rows 9-11 at each of phase 3e's residual
+    inputs, in its order."""
+    import torch
+    from pinn_torch.ops import residual as rs
+    fns = []
+    for layers, params, X, lb, ub in cs._residual_cases("burgers"):
+        tag = cs._shape_tag(layers, X.shape[0])
+        for name in ("burgers_residual", "burgers_residual_fmajor"):
+            fns.append((tag, name, lambda f=getattr(rs, name), p=params, x=X,
+                        lb=lb, ub=ub: f(p, x, lb, ub, cs.NU)))
+    for layers, params, X, lb, ub in cs._residual_cases("schrodinger"):
+        fns.append((cs._shape_tag(layers, X.shape[0]), "schrodinger_residual",
+                    lambda p=params, x=X, lb=lb, ub=ub: torch.cat(
+                        rs.schrodinger_residual(p, x, lb, ub), dim=1)))
+    return fns
+
+
 def _calls(cs):
     """The timed calls by entry point: rows 1-2b at the inference
     flagship, rows 3-4b at identification's (N = 2,000), rows 5-6 at
     the facade's v1 SSE (N = 10,000), rows 9-11 where phase 3e times
     them (both Burgers layouts on the 200,000-point pool, Schrödinger's
-    on its grid)."""
-    import numpy as np
-    import torch
+    on its grid), and row 9 on the Burgers grid."""
     from pinn_torch.ops import fused_train as ft
-    from pinn_torch.ops import residual as rs
     args = cs._kernel_inputs(cs.FLAGSHIP, 100, 10000, seed=100)
     ide = cs._ide_inputs(cs.FLAGSHIP, 2000, cs.IDE_LAMBDAS[0], seed=200)
     layers, n = cs.SSE_SHAPES[0]
     sse = cs._sse_inputs(layers, n, seed=400)
     calls = {"burgers_sse_grad": lambda: ft.burgers_sse_grad(*sse, cs.NU),
              "burgers_sse": lambda: ft.burgers_sse(*sse, cs.NU)}
-    _, lb, ub = cs._grid("burgers")
-    rng = np.random.RandomState(500)
-    params = cs._weights(cs.FLAGSHIP, rng)
-    pool = torch.as_tensor(lb + (ub - lb) * rng.rand(cs.RAR_POOL, 2),
-                           dtype=torch.float32, device="cuda")
-    for name in ("burgers_residual", "burgers_residual_fmajor"):
-        calls[name] = lambda f=getattr(rs, name): f(params, pool, lb, ub, cs.NU)
-    X_s, slb, sub = cs._grid("schrodinger")
-    s_params = cs._weights(cs.S_FLAGSHIP, np.random.RandomState(600))
-    X_s = torch.as_tensor(X_s, dtype=torch.float32, device="cuda")
-    calls["schrodinger_residual"] = lambda: rs.schrodinger_residual(
-        s_params, X_s, slb, sub)
+    fns = _residual_fns(cs)
+    for _, name, fn in fns:   # each entry at its problem's first shape
+        calls.setdefault(name, fn)
+    calls["burgers_residual (grid)"] = fns[2][2]   # 3e's second shape
     for sfx, bf16 in (("", False), ("_bf16", True)):
         calls.update({
             "burgers_loss_grad" + sfx:
@@ -127,9 +144,10 @@ def _calls(cs):
 
 
 def _outputs(cs, fn):
-    """A call's outputs as flat pieces: [loss, *grads, ...] or [loss]."""
+    """A call's outputs as flat pieces: [loss, *grads, ...], [loss] or
+    [residuals]."""
     out = fn()
-    return cs._flat(out) if isinstance(out, tuple) else [out.reshape(1)]
+    return cs._flat(out) if isinstance(out, tuple) else [out.reshape(-1)]
 
 
 def _time(cs, tag, name, fn):
@@ -185,25 +203,25 @@ def _sweep(cs) -> None:
     calls = _calls(cs)
     default = _build.library()
     libs = _variants(SWEEP)
-    want = {name: _outputs(cs, calls[name]) for name in NARROW}
+    want = {name: _outputs(cs, calls[name]) for name in SWEPT}
     for nt, lib in libs.items():
         _build._LIBRARY = lib
         regs = {f"{kernel} {head}": cs._ptxas_lines(kernel, False, head)
                 for kernel, head in NARROW_KERNELS}
-        for name in NARROW:
+        for name in SWEPT:
             got = _outputs(cs, calls[name])
             torch.cuda.synchronize()
             if not all(torch.equal(g, w) for g, w in zip(got, want[name])):
                 raise AssertionError(f"{nt} threads: {name} differs from the "
                                      "default build")
-        print(f"[sweep] {nt} threads: {regs}; loss and gradients of "
-              f"{', '.join(NARROW)} bitwise the default build's", flush=True)
+        print(f"[sweep] {nt} threads: {regs}; outputs of "
+              f"{', '.join(SWEPT)} bitwise the default build's", flush=True)
     libs = {"default": default, **{f"{nt} threads": lib
                                    for nt, lib in libs.items()}}
     for rnd in range(2):
         for tag, lib in libs.items():
             _build._LIBRARY = lib
-            for name in NARROW:
+            for name in SWEPT:
                 _time(cs, f"sweep round {rnd} {tag}", name, calls[name])
     _build._LIBRARY = default
 
@@ -294,6 +312,10 @@ def main() -> int:
                 if name.startswith("burgers_ide_loss_grad") else "")
         print(f"[probe] {tag} {name} outputs: loss {float(out[0]).hex()}"
               f"{glam}", flush=True)
+    for shape, name, fn in _residual_fns(cs):
+        out = fn().float().contiguous().cpu().numpy()
+        print(f"[probe] {tag} {name} {shape} outputs: sha256 "
+              f"{hashlib.sha256(out.tobytes()).hexdigest()}", flush=True)
     if opts.sweep:
         _sweep(cs)
     if opts.sass:

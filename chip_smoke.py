@@ -57,12 +57,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    (N = 1,124), [2, 16, 1] (N = 1,024) and the narrow kernels' edges of
    3, at every shape the loss-only loss bitwise the loss+grad loss, and
    at N = 10,000 both kernels' ptxas lines, launch records and device
-   ms a call, as in 3; both Burgers residual layouts at [2, 20x8, 1]
-   on the flagship grid (25,600 points) and on a 200,000-point pool,
-   and at [2, 20, 20, 1] (N = 700); the Schrödinger residual at [2,
-   100x4, 2] on its grid (51,456 points) and [2, 32, 32, 2] (N = 600);
+   ms a call, as in 3; both Burgers residual layouts
+   (``burgers_residual`` on pt_narrow.cuh's pt_narrow_eval_kernel,
+   ``burgers_residual_fmajor`` on residual_eval.cu's one-thread-a-point
+   pt_eval_kernel) at [2, 20x8, 1] on a 200,000-point pool and on the
+   flagship grid (25,600 points), at [2, 20, 20, 1] (N = 700) and at
+   the narrow kernel's edges (the flagship at N = 1, 31, 33; [2, 7, 33,
+   64, 1]; [2, 64x14, 1]); the Schrödinger residual (pt_tile.cuh's
+   pt_tile_eval_kernel) at [2, 100x4, 2] on its grid (51,456 points),
+   [2, 32, 32, 2] (N = 600) and the tiled kernel's edges ([2, 100x4, 2]
+   at N = 1, 33; [2, 30, 30, 2]; [2, 100, 2]; [2, 128, 128, 2]);
    bitwise repeatability; times at the first shape of each (the
-   residuals at the pool and the grid).
+   residuals at the pool and the grid); the ptxas lines, launch record
+   and device ms a call of both block-tiled residual kernels there, and
+   for the persistent one its rounds of tiles and the device ms of its
+   last, partly full round.
 4. Burgers inference main path: ``pinn_torch.experiments
    .inf_cont_burgers.run`` twice at the flagship width, a fused float32
    stage (Adam, then mixed-precision L-BFGS with a Wolfe search and
@@ -85,8 +94,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    run (Adam at lr 0.005).  The warmup takes the recipe's Adam; its
    final loss, after L-BFGS, must fall below its first.
 4g. RAR on the inference flagship: a fused float32 stage with
-   ``rar_pool: 200000`` (every resampling scores the pool with the
-   residual kernel, at least 3 draws), the same stage without RAR as
+   ``rar_pool: 200000`` (every resampling scores the pool with
+   ``burgers_residual``, pt_narrow_eval_kernel, at least 3 draws), the same stage without RAR as
    the control of its rates, then a float64 ``rar_init`` stage from its
    checkpoint, scored by the eager residual; and the top-k set of one
    pool from the kernel's residuals against the plain version's.
@@ -94,10 +103,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    loss is data MSE + ``make_burgers_sse`` / N_f at the flagship, Adam
    then L-BFGS; ``predict`` and ``export_serving`` round trip.
 4i. The serving example: two members at the flagship width, scored by
-   the residual kernel, exported as one artifact and served.
-4j. Residual diagnostics: the features-major Burgers residual on the
-   flagship grid and the Schrödinger residual on its grid, under the
-   nets trained in 4 and 4c, against the eager residuals.
+   ``burgers_residual`` (pt_narrow_eval_kernel), exported as one
+   artifact and served.
+4j. Residual diagnostics: the features-major Burgers residual
+   (pt_eval_kernel) on the flagship grid and the Schrödinger residual
+   (pt_tile_eval_kernel) on its grid, under the nets trained in 4 and
+   4c, against the eager residuals.
 Each main path runs with every launch count set to 0 just before its
 fused stage; every kernel of the path must have launched by its end,
 the logged loss must fall and every reported number must be finite.
@@ -156,9 +167,17 @@ IDE_LAMBDAS = [(0.0, -6.0), (1.3, -4.0)]
 SCHRODINGER_SHAPES = [(S_FLAGSHIP, 20000), (S_FLAGSHIP, 300), ([2, 32, 2], 512)]
 SSE_SHAPES = [(FLAGSHIP, 10000), (WIDE, 1124), ([2, 16, 1], 1024)]
 RAR_POOL = 200000            # the P9 probe's candidate pool
+# The residual entries' shapes, the main paths' first, then the block-
+# tiled kernels' edges: one point, a tile less or more one point, hidden
+# widths that are not multiples of 4, the widest pack (Burgers), one
+# hidden layer and the widest net (Schrödinger).
 RESIDUAL_SHAPES = [(FLAGSHIP, RAR_POOL), (FLAGSHIP, "grid"),
-                   ([2, 20, 20, 1], 700)]
-S_RESIDUAL_SHAPES = [(S_FLAGSHIP, "grid"), ([2, 32, 32, 2], 600)]
+                   ([2, 20, 20, 1], 700), (FLAGSHIP, 1), (FLAGSHIP, 31),
+                   (FLAGSHIP, 33), ([2, 7, 33, 64, 1], 1000),
+                   ([2] + [64] * 14 + [1], 1000)]
+S_RESIDUAL_SHAPES = [(S_FLAGSHIP, "grid"), ([2, 32, 32, 2], 600),
+                     (S_FLAGSHIP, 1), (S_FLAGSHIP, 33), ([2, 30, 30, 2], 1000),
+                     ([2, 100, 2], 1000), ([2, 128, 128, 2], 4231)]
 WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke")
 BURGERS_SRC = "pinn_torch/csrc/burgers_train.cu"
@@ -669,6 +688,55 @@ def _grid(problem):
             data.ub.astype(np.float32))
 
 
+def _residual_cases(problem):
+    """Phase 3e's seeded inputs of a problem's residual entries, one
+    (layers, params, X, lb, ub) for each of its shapes (RESIDUAL_SHAPES,
+    S_RESIDUAL_SHAPES): "grid" is the problem's full grid, a number that
+    many points drawn in the box."""
+    import torch
+    X_grid, lb, ub = _grid(problem)
+    shapes, seed = ((RESIDUAL_SHAPES, 500) if problem == "burgers"
+                    else (S_RESIDUAL_SHAPES, 600))
+    for i, (layers, n) in enumerate(shapes):
+        rng = np.random.RandomState(seed + i)
+        params = _weights(layers, rng)
+        X = X_grid if n == "grid" else lb + (ub - lb) * rng.rand(n, 2)
+        yield (layers, params,
+               torch.as_tensor(X, dtype=torch.float32, device="cuda"), lb, ub)
+
+
+def _report_residual(name, kernel, head, fn, shape, n_tiles=None):
+    """ptxas's lines of a residual entry's kernel (on ``head``), its
+    launch record in one call ``fn`` and the device ms a call of each
+    kernel the call launches (profiler traces).  With ``n_tiles`` (a
+    persistent grid): the rounds of tiles the grid takes, and the device
+    ms of the kernel over the full rounds alone (N = rounds x grid x 32)
+    beside the call's, the cost of a last, partly full round."""
+    from pinn_torch.ops.fused_train import TILE
+    for line in _ptxas_lines(kernel, False, head):
+        log(f"[kernels] {name} ptxas ({kernel}): {line}")
+    rec, = _launch_records(kernel, [fn])
+    log(f"[kernels] {name} launch of {kernel} at {shape} (profiler trace): "
+        f"{rec}")
+    dev = _device_ms(fn)
+    log(f"[kernels] {name} device ms a call at {shape} (profiler trace): "
+        f"total {sum(dev.values()):.5f}; "
+        + ", ".join(f"{k} {v:.5f}" for k, v in dev.items()))
+    if n_tiles is None or not isinstance(rec, dict):
+        return
+    grid = rec["grid"][0]
+    full, rest = divmod(n_tiles, grid)
+    log(f"[kernels] {name} at {shape}: {n_tiles} tiles on {grid} persistent "
+        f"blocks, {full} full rounds and one {rest / grid:.0%} full")
+    if rest and kernel in dev:
+        full_ms = _device_ms(lambda: fn(full * grid * TILE)).get(kernel)
+        if full_ms is not None:
+            log(f"[kernels] {name} {kernel} device ms at {full} full rounds "
+                f"(N = {full * grid * TILE}): {full_ms:.5f}, against "
+                f"{dev[kernel]:.5f} with the last round: it costs "
+                f"{dev[kernel] - full_ms:.5f} ms")
+
+
 def _check_residual(stats, tag, name, kernel, plain, params, X, layers, rtol,
                     atol, time_it=False):
     """A residual kernel against its plain version on the same inputs
@@ -706,8 +774,8 @@ def phase_v1_kernels(stats: dict) -> None:
     their plain versions; the SSE pair also at the narrow kernels'
     edges, the loss-only loss bitwise the loss+grad one at every shape,
     and both narrow kernels' ptxas lines, launch records and device
-    times at the first shape."""
-    import torch
+    times at the first shape; the same report for the residual entries'
+    block-tiled kernels at the pool and the Schrödinger grid."""
     from pinn_torch.ops import fused_train as ft
     from pinn_torch.ops import residual as rs
 
@@ -730,30 +798,34 @@ def phase_v1_kernels(stats: dict) -> None:
                     ("pt_narrow_loss_kernel", "burgers_sse", loss)],
                    _sse_inputs(layers, n, seed=400), _shape_tag(layers, n))
 
-    X_grid, lb, ub = _grid("burgers")
-    for i, (layers, n) in enumerate(RESIDUAL_SHAPES):
-        rng = np.random.RandomState(500 + i)
-        params = _weights(layers, rng)
-        X = X_grid if n == "grid" else lb + (ub - lb) * rng.rand(n, 2)
-        X = torch.as_tensor(X, dtype=torch.float32, device="cuda")
+    for i, (layers, params, X, lb, ub) in enumerate(_residual_cases("burgers")):
         for name in ("burgers_residual", "burgers_residual_fmajor"):
             kernel, plain = getattr(rs, name), getattr(rs, name + "_plain")
             _check_residual(stats, f"{name} {_shape_tag(layers, X.shape[0])}",
                             name, lambda p, x: kernel(p, x, lb, ub, NU),
                             lambda p, x: plain(p, x, lb, ub, NU), params, X,
                             layers, rtol=2e-5, atol=1e-6, time_it=i == 0)
+        if i == 0:
+            pool = (params, X, lb, ub, _shape_tag(layers, X.shape[0]))
+    params, X, lb, ub, shape = pool
+    _report_residual("burgers_residual", "pt_narrow_eval_kernel",
+                     "BurgersResidual",
+                     lambda: rs.burgers_residual(params, X, lb, ub, NU), shape)
 
-    X_grid, lb, ub = _grid("schrodinger")
-    for i, (layers, n) in enumerate(S_RESIDUAL_SHAPES):
-        rng = np.random.RandomState(600 + i)
-        params = _weights(layers, rng)
-        X = X_grid if n == "grid" else lb + (ub - lb) * rng.rand(n, 2)
-        X = torch.as_tensor(X, dtype=torch.float32, device="cuda")
+    for i, (layers, params, X, lb, ub) in enumerate(_residual_cases("schrodinger")):
         _check_residual(stats, "schrodinger_residual "
                         + _shape_tag(layers, X.shape[0]), "schrodinger_residual",
                         lambda p, x: rs.schrodinger_residual(p, x, lb, ub),
                         lambda p, x: rs.schrodinger_residual_plain(p, x, lb, ub),
                         params, X, layers, rtol=2e-4, atol=2e-6, time_it=i == 0)
+        if i == 0:
+            grid = (params, X, lb, ub, _shape_tag(layers, X.shape[0]))
+    params, X, lb, ub, shape = grid
+    n = X.shape[0]
+    _report_residual("schrodinger_residual", "pt_tile_eval_kernel",
+                     "SchrodingerResidual",
+                     lambda m=n: rs.schrodinger_residual(params, X[:m], lb, ub),
+                     shape, n_tiles=-(-n // 32))
 
 
 def _logged_runs(path):

@@ -3,7 +3,10 @@
 // and residual_eval.cu takes, the stream type's roundings, the
 // fixed-order reduction of the partials, and the one-thread-a-point
 // forward of a tanh MLP with four Taylor streams (value, d/dx, d2/dx2,
-// d/dt) that residual_eval.cu's kernels run.
+// d/dt) that residual_eval.cu's pt_eval_kernel runs for one entry,
+// burgers_residual_fmajor.  The other entries run pt_narrow.cuh's
+// kernels (the Burgers losses and burgers_residual) or pt_tile.cuh's
+// (the Schrodinger losses and schrodinger_residual).
 //
 // Three things are template parameters:
 //
@@ -41,12 +44,13 @@
 // where eval returns the point's loss term; a point past the ragged
 // edge (live == false) must give 0 and zero adjoints.
 //
-// The one-thread-a-point forward (pt_forward_hidden, pt_output).  One
-// thread carries one point through every neuron, its streams in
-// per-thread arrays of 4W floats (local memory), the weights of the
-// whole net in shared memory, shared by the threads of a block; past
-// 48 KB of weights one block fits on an SM, and pt_warps_per_block
-// sizes the block to keep the grid within one wave of the SMs.
+// The one-thread-a-point forward (pt_forward_hidden, pt_output), which
+// the block-tiled forwards reproduce sum for sum.  One thread carries
+// one point through every neuron, its streams in per-thread arrays of
+// 4W floats (local memory), the weights of the whole net in shared
+// memory, shared by the threads of a block; past 48 KB of weights one
+// block fits on an SM, and pt_warps_per_block sizes the block to keep
+// the grid within one wave of the SMs.
 //
 // bf16 streams (S = __nv_bfloat16).  The TPU kernels round to bf16 at
 // fixed points (pinn/ops/pallas_train.py:121-274) and the kernels round

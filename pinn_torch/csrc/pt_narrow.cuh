@@ -16,11 +16,17 @@
 // shaped as those are: each layer of a tile is one product over the
 // four stacked streams.  They take pt_mlp.cuh's Head, PtNet, weight
 // pack, stream type S, rounding points and buffers.
+// pt_narrow_eval_kernel runs the loss-only kernel's forward (f32) and
+// stores a per-point value in place of the loss sum: residual_eval.cu's
+// burgers_residual launches it (replacing _residual_kernel,
+// pinn/ops/pallas_residual.py:55) with an input policy that normalises
+// the raw points and stages the JAX layout of the weights (below).
 //
-// Why not one thread a point (pt_mlp.cuh's forward, which the residual
-// kernels run).  It gives the inference flagship's N = 10,100 points
-// 316 one-warp blocks, 2.4 warps an SM, and the identification
-// flagship's N = 2,000 only 63, with nothing to hide latency; its
+// Why not one thread a point (pt_mlp.cuh's forward, which
+// burgers_residual_fmajor still runs).  It gives the inference
+// flagship's N = 10,100 points 316 one-warp blocks, 2.4 warps an SM,
+// and the identification flagship's N = 2,000 only 63, with nothing to
+// hide latency; its
 // stream arrays are sized for width 64 (3 KB of local memory a thread,
 // 80 floats of each used at width 20); a weight gradient summed by
 // shuffles is a five-step butterfly over the tile (3,061 of them a warp
@@ -36,10 +42,11 @@
 // of shared memory and 32 registers (width 20) up to five blocks share
 // an SM, so the inference flagship's 316 tiles run in one wave on 132
 // SMs, and the identification flagship's 63 leave 69 SMs idle.  The
-// loss-only kernel has 25 KB at width 20 and a block size chosen at
-// launch from the grid and the SM count (kPtNarrowLossThreads while
-// blocks share SMs, kPtNarrowLossThreadsFew when each has one to
-// itself).  Activations are the TPU kernel's a_cat: a row per neuron,
+// loss-only and eval kernels have 25 KB at width 20 and a block size
+// chosen at launch from the grid and the SM count (kPtNarrowLossThreads
+// while blocks share SMs, kPtNarrowLossThreadsFew when each has one to
+// itself); the RAR pool's 200,000 points are 6,250 blocks.
+// Activations are the TPU kernel's a_cat: a row per neuron,
 // stream-major then point (value, d/dx, d2/dx2, d/dt), each stream
 // padded to 33 floats and a row to 132, so that a warp reading one
 // point of 32 (neuron, stream) rows, as the weight gradients do, hits
@@ -48,9 +55,10 @@
 // Shared memory (PtNarrowSmem, the one carve-up), at hp = the widest
 // hidden layer: activation buffers of hp rows (three with gradients,
 // two without); two weight buffers, each one layer's Wt and b
-// (S-rounded as they load), so the next layer's load shares a phase
-// with this layer's product; with gradients the output adjoints gU and
-// the output bias adjoints; the two inputs; with gradients the 4 x h x
+// (S-rounded as they load, or transposed from W by the residual's
+// policy), so the next layer's load shares a phase with this layer's
+// product; with gradients the output adjoints gU and the output bias
+// adjoints; the two inputs; with gradients the 4 x h x
 // hin partial sums of a weight gradient.  With gradients 42,352 bytes
 // at [2, 20x8, 1] and 201,104 at [2, 64x14, 1], the widest pack the
 // entry points take (its 213 KB of weights would not fit beside the
@@ -59,10 +67,12 @@
 // Phases, each between block barriers; threads take (neuron, point)
 // pairs, a warp one neuron and a lane one point, so a weight is a
 // warp-wide broadcast and an activation a conflict-free row:
-//   forward (pt_narrow_forward, one template for both kernels), per
-//     hidden layer: the four pre-activation streams as fmaf chains over
-//     the inputs k ascending from 0.0f, then + b, tanh and the stream
-//     recombination; the loss+grad kernel saves (t, z1, z11, z2) to ws,
+//   forward (pt_narrow_forward, one template for both loss kernels;
+//     the eval kernel's pt_narrow_eval_forward has the same phases on
+//     an input policy's loads), per hidden layer: the four
+//     pre-activation streams as fmaf chains over the inputs k ascending
+//     from 0.0f, then + b, tanh and the stream recombination; the
+//     loss+grad kernel saves (t, z1, z11, z2) to ws,
 //     [layer][stream][neuron][point] at PtNet's row offsets, coalesced
 //     over the tile's points, L2-resident;
 //   head: one warp, a lane a point: the output streams as fmaf chains
@@ -70,7 +80,7 @@
 //     summed by pt_warp_sum into its partials row and, with gradients,
 //     each of the head's kExtra accumulators likewise into the slots
 //     after the weight gradients (a row is 1 + n_weights + kExtra
-//     floats);
+//     floats); the eval kernel's head stores each live point's value;
 //   backward (loss+grad), per hidden layer l = L-1 .. 1:
 //     A: the adjoints gz in place over the output adjoints (the TPU
 //        kernels' _layer_bwd; fused_train.py's _layer_bwd is the plain
@@ -82,13 +92,15 @@
 //        Wt_l^T gz into the free buffer;
 //   layer 0: dW0 on the value stream, the tangent rows' adjoints as
 //     column sums of gz_1 and gz_2.
-// Each point's forward and head are the same expressions in both
+// Each point's forward and head are the same expressions in both loss
 // kernels, each tile's loss the same pt_warp_sum, and pt_reduce sums
 // the tiles in row order, so the loss of the two kernels is the same
 // bit for bit on the same head; the block size changes the order of no
-// sum.  Every gradient is a fixed-order sum (the four stream
-// parts added in stream order), no atomics: two launches on the same
-// inputs are bitwise equal.
+// sum.  The forward's sums are also pt_mlp.cuh's per-point forward's,
+// in its order, so each residual is bitwise what that forward gives.
+// Every gradient is a fixed-order sum (the four stream parts added in
+// stream order), no atomics: two launches on the same inputs are
+// bitwise equal.
 //
 // bf16 streams (S = __nv_bfloat16): each value is rounded once, where
 // pt_mlp.cuh's header says, as it is stored to a shared buffer or to
@@ -103,12 +115,13 @@
 // FFMA dispatch, so the shared-memory pipe, not the FMA units, bounds a
 // block while several blocks share an SM; a block alone on its SM (the
 // identification flagship's 63 tiles) is bound by its phases' latency
-// instead.  The loss-only call is a third of the FFMA and of the
-// shared-memory loads.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (PERF.md), by device time: the loss+grad kernel 0.114 ms at the
+// instead.  The loss-only and eval calls are a third of the FFMA and
+// of the shared-memory loads.  Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md), by device time: the loss+grad kernel 0.114 ms at the
 // inference flagship, 0.071 ms (f32) and 0.062 ms (bf16) at the
 // identification flagship; the loss-only kernel 0.031 ms and, with 640
-// threads a block, 0.015 ms.
+// threads a block, 0.015 ms; the eval kernel 0.41 ms on the RAR pool's
+// 6,250 tiles and 0.065 ms on the Burgers grid's 800.
 // Precision: IEEE f32 (fmaf, tanhf); build without --use_fast_math.
 
 #pragma once
@@ -593,6 +606,100 @@ pt_narrow_loss_kernel(PtNet net, int hp, const float* __restrict__ a0,
   }
 }
 
+// The eval kernel's forward of tile blockIdx.x (col0 its first
+// point), f32, nothing saved: pt_narrow_forward's phases and
+// expressions, with the input policy In reading the points (x0, x1),
+// staging each layer's Wt and b (load_w) and giving the first layer's
+// tangent rows from the staged Wt_0 (z1, z2).  A forward of its own,
+// not a policy argument of pt_narrow_forward: that argument, empty by
+// default, still changed two of the loss kernels' instances (an FMUL's
+// operands swapped in their SASS).  Returns the buffer that holds the
+// last hidden layer's outputs; w(L) then holds Wt_out and b_out.
+template <class In>
+__device__ __forceinline__ const float* pt_narrow_eval_forward(
+    const PtNet& net, const In& in, const float* __restrict__ X,
+    const float* __restrict__ wpack, int n_pts, float* smem,
+    const PtNarrowSmem& sm, int col0) {
+  constexpr int T = PT_TILE, TS = kPtNarrowTS, LD = kPtNarrowLD;
+  float* const x_s = smem + sm.x;
+  auto wbuf = [&](int l) { return smem + sm.w(l); };
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int L = net.n_layers - 1;   // the output layer
+
+  for (int p = tid; p < T; p += nth) {
+    const int col = col0 + p;
+    const bool live = col < n_pts;
+    x_s[p] = live ? in.x0(X, n_pts, col) : 0.0f;
+    x_s[T + p] = live ? in.x1(X, n_pts, col) : 0.0f;
+  }
+  in.load_w(net, 0, wpack, wbuf(0));
+  __syncthreads();
+
+  // ---- layer 0: two inputs, constant tangent rows, z11 = 0 ----
+  float* cur = smem + sm.act(0);
+  {
+    const int h = net.width[1];
+    const float* Wt = wbuf(0);
+    const float* b = Wt + 2 * h;
+    for (int idx = tid; idx < h * T; idx += nth) {
+      const int j = idx / T, p = idx - j * T;
+      const float x0 = x_s[p], x1 = x_s[T + p];
+      const float zv = Wt[2 * j] * x0 + Wt[2 * j + 1] * x1 + b[j];
+      const float z1 = in.z1(Wt, j);
+      const float z2 = in.z2(Wt, j);
+      const float t = tanhf(zv);
+      const float sp = 1.0f - t * t;
+      const float spp = -2.0f * t * sp;
+      float* o = cur + j * LD + p;
+      o[0 * TS] = t;
+      o[1 * TS] = sp * z1;
+      o[2 * TS] = spp * z1 * z1;
+      o[3 * TS] = sp * z2;
+    }
+    in.load_w(net, 1, wpack, wbuf(1));
+  }
+  __syncthreads();
+
+  // ---- hidden layers 1 .. L-1; Wt_{l+1} loads beside layer l ----
+  int ic = 0;
+  for (int l = 1; l < L; ++l) {
+    float* nxt = smem + sm.act(ic ^ 1);
+    pt_narrow_fwd_layer<float, false>(net, l, wbuf(l), cur, nxt,
+                                      static_cast<float*>(nullptr), 0, col0);
+    in.load_w(net, l + 1, wpack, wbuf(l + 1));
+    __syncthreads();
+    ic ^= 1;
+    cur = nxt;
+  }
+  return cur;
+}
+
+// The per-point values of tile blockIdx.x: pt_narrow_eval_forward, then
+// in warp 0, a lane a point, each live point's output streams and
+// Head::store's values at out (no sum across points, no partials).
+template <class Head, class In>
+__global__ void __launch_bounds__(kPtNarrowLossThreadsFew)
+pt_narrow_eval_kernel(PtNet net, int hp, In in, const float* __restrict__ X,
+                      const float* __restrict__ wpack, int n_pts,
+                      typename Head::Args args, float* __restrict__ out) {
+  constexpr int T = PT_TILE, NO = Head::kOut;
+  extern __shared__ float pt_narrow_buf[];
+  float* const smem = pt_narrow_buf;
+  const PtNarrowSmem sm(hp, NO, false);
+  const int L = net.n_layers - 1;   // the output layer
+  const int col0 = blockIdx.x * T;
+
+  const float* cur =
+      pt_narrow_eval_forward<In>(net, in, X, wpack, n_pts, smem, sm, col0);
+
+  const int p = threadIdx.x, col = col0 + p;
+  if (p < T && col < n_pts) {
+    float U[NO][4];
+    pt_narrow_output<NO>(smem + sm.w(L), cur, p, net.width[L], U);
+    Head::store(args, U, out, n_pts, col);
+  }
+}
+
 // The dynamic shared memory of one kernel instance on one device at
 // one hidden width, and the device's SM count: each instance keeps the
 // last device and size it launched with, so the attribute is set only
@@ -696,6 +803,34 @@ int pt_narrow_launch_loss(const int* widths, int n_layers, const float* a0,
   err = (int)cudaGetLastError();
   if (err) return err;
   return pt_reduce(partials, n_tiles, 1, out, s);
+}
+
+// Head's per-point values (out: Head::kOut * n_pts floats) through the
+// narrow eval kernel at hidden width <= W, with In's inputs (X, wpack),
+// in the loss-only kernel's blocks: a 32-point tile each,
+// kPtNarrowLossThreadsFew threads when the tiles fit the SMs one each,
+// else kPtNarrowLossThreads.  No fallback, as above.
+template <class Head, int W, class In>
+int pt_narrow_launch_eval(const int* widths, int n_layers, const In& in,
+                          const float* X, const float* wpack, int n_pts,
+                          typename Head::Args args, float* out,
+                          void* stream) {
+  static PtNarrowCache cache;
+  PtNet net;
+  int hp = 0;
+  size_t smem = 0;
+  int n_sm = 0;
+  int err = pt_narrow_plan(widths, n_layers, Head::kOut, W, n_pts,
+                           (const void*)pt_narrow_eval_kernel<Head, In>, false,
+                           &cache, &net, &hp, &smem, &n_sm);
+  if (err) return err;
+  const int n_tiles = (n_pts + PT_TILE - 1) / PT_TILE;
+  const int threads =
+      n_tiles <= n_sm ? kPtNarrowLossThreadsFew : kPtNarrowLossThreads;
+  pt_narrow_eval_kernel<Head, In><<<n_tiles, threads, smem,
+                                    (cudaStream_t)stream>>>(
+      net, hp, in, X, wpack, n_pts, args, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

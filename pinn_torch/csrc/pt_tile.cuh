@@ -1,14 +1,23 @@
 // Block-tiled kernels of the fused PINN losses (sm_90a), for nets with
 // wide hidden layers: the Schrodinger net [2, 100x4, 2] and any hidden
 // width up to 128.  pt_tile_loss_grad_kernel computes the loss and
-// every parameter gradient, pt_tile_loss_kernel the loss alone, with
-// pt_mlp.cuh's Head, PtNet, weight pack, stream type S, rounding points
-// and buffers, shaped as the TPU kernels
+// every parameter gradient (schrodinger_train.cu's
+// schrodinger_sse_grad[_bf16]), pt_tile_loss_kernel the loss alone
+// (schrodinger_sse[_bf16]), with pt_mlp.cuh's Head, PtNet, weight pack,
+// stream type S, rounding points and buffers, shaped as the TPU kernels
 // (_make_fwd_bwd_kernel and _fwd_kernel, pinn/ops/pallas_schrodinger.py:95
 // and :70) shape them: each layer of a tile is one matrix product over
-// the four streams.
+// the four streams.  pt_tile_eval_kernel runs the loss-only kernel's
+// forward (f32) and stores per-point values from warp 0 in place of the
+// loss sum: residual_eval.cu's schrodinger_residual launches it
+// (replacing _schrodinger_kernel_fmajor, pinn/ops/pallas_residual.py:248)
+// with an input policy that normalises the raw points and builds the
+// tangent rows from Wt_0; at its grid's 51,456 points that is 1,608
+// tiles on 132 blocks, 12 full rounds and one 18% full: 0.60 ms of
+// device time, of which the last round 0.04 ms (PERF.md; an NVIDIA H100
+// 80GB HBM3 at 700 W).
 //
-// Why.  One thread a point (as pt_mlp.cuh's residual forward has it)
+// Why.  One thread a point (as pt_mlp.cuh's per-point forward has it)
 // keeps a point's 2-3 x 4W stream floats in local memory and chains
 // scalar FMAs on them; at width 100 the weights (124 KB) leave one
 // block of 5 warps an SM.  Here the streams of a tile live in shared
@@ -43,8 +52,12 @@
 // adjoint of that; the rematerialised layer inputs) run one thread per
 // (neuron, point) with pt_streams / pt_gz, the math of pt_mlp.cuh's
 // per-point loops.  The forward (pt_tile_forward) is one template for
-// both kernels; the loss-only kernel runs it with nothing saved and
-// has no backward.
+// the three kernels; the loss-only and eval kernels run it with nothing
+// saved and have no backward.  Its input policy In reads the points and
+// the tangent rows (PtTilePackIn, the default: the loss kernels' a0 and
+// pack).  Its sums are pt_mlp.cuh's per-point forward's, in that order
+// (a zero-padded column leaves a nonzero sum as it is), so each
+// residual is bitwise what that forward gives.
 //
 // Saved activations (loss+grad).  (t, z1, z11, z2) of every hidden
 // neuron go to the block's own slot of ws, [slot][layer][stream]
@@ -295,6 +308,33 @@ __device__ void pt_tile_gz(const PtNet& net, int l, const S* slot, float* g) {
   }
 }
 
+// What pt_tile_forward reads besides the pack's Wt and b: the loss
+// kernels' inputs, a0 (2, N) holding the normalised points and the
+// first layer's tangent rows from the pack.  Another policy
+// (residual_eval.cu's) normalises raw points (2, N) and builds the
+// tangent rows from Wt_0; it has the same members.
+struct PtTilePackIn {
+  __device__ __forceinline__ float x0(const float* a0, int, int col) const {
+    return a0[col];
+  }
+  __device__ __forceinline__ float x1(const float* a0, int n_pts,
+                                      int col) const {
+    return a0[n_pts + col];
+  }
+  template <class S>
+  __device__ __forceinline__ float z1(const PtNet& net,
+                                      const float* __restrict__ wpack,
+                                      int j) const {
+    return PtStream<S>::rnd(wpack[net.z1_off + j]);
+  }
+  template <class S>
+  __device__ __forceinline__ float z2(const PtNet& net,
+                                      const float* __restrict__ wpack,
+                                      int j) const {
+    return PtStream<S>::rnd(wpack[net.z2_off + j]);
+  }
+};
+
 // The forward of tile `tile`, the TPU kernels' _layer_fwd on a_cat:
 // x_s <- its two inputs, S-rounded; layer 0 elementwise; each hidden
 // layer one product over the 4T columns, then bias, tanh and the
@@ -304,12 +344,14 @@ __device__ void pt_tile_gz(const PtNet& net, int l, const S* slot, float* g) {
 // With kSave each hidden neuron's (t, z1, z11, z2) go to slot.  kSave
 // is a template argument: with a runtime test the compiler keeps both
 // versions of each loop (one thread a point, a runtime test of ws made
-// a loss+grad kernel 1.7x slower on the H100).
-template <int NO, class S, bool kSave>
+// a loss+grad kernel 1.7x slower on the H100).  `in` reads the inputs
+// and the tangent rows.
+template <int NO, class S, bool kSave, class In = PtTilePackIn>
 __device__ __forceinline__ void pt_tile_forward(
     const PtNet& net, const float* __restrict__ a0,
     const float* __restrict__ wpack, int n_pts, int tile, float* smem,
-    const PtTileSmem& sm, S* slot, float*& cur, float*& nxt) {
+    const PtTileSmem& sm, S* slot, float*& cur, float*& nxt,
+    const In& in = In()) {
   using St = PtStream<S>;
   constexpr int T = PT_TILE, M = 4 * T, LD = M + 4;
   float* const w_s = smem + sm.w;
@@ -322,8 +364,8 @@ __device__ __forceinline__ void pt_tile_forward(
   for (int p = tid; p < T; p += nth) {
     const int col = tile * T + p;
     const bool live = col < n_pts;
-    x_s[p] = St::rnd(live ? a0[col] : 0.0f);
-    x_s[T + p] = St::rnd(live ? a0[n_pts + col] : 0.0f);
+    x_s[p] = St::rnd(live ? in.x0(a0, n_pts, col) : 0.0f);
+    x_s[T + p] = St::rnd(live ? in.x1(a0, n_pts, col) : 0.0f);
   }
   pt_tile_load_w<S>(net, 1, wpack, w_s);
   __syncthreads();
@@ -340,8 +382,8 @@ __device__ __forceinline__ void pt_tile_forward(
         const float zv = w_at(net.w_off[0] + 2 * j) * x_s[p]
                          + w_at(net.w_off[0] + 2 * j + 1) * x_s[T + p]
                          + w_at(net.b_off[0] + j);
-        const float z1 = w_at(net.z1_off + j);
-        const float z2 = w_at(net.z2_off + j);
+        const float z1 = in.template z1<S>(net, wpack, j);
+        const float z2 = in.template z2<S>(net, wpack, j);
         const float t = tanhf(zv);
         if (kSave) {
           S* sv = slot + (size_t)(net.s_off[0] + j) * T + p;
@@ -597,6 +639,43 @@ pt_tile_loss_kernel(PtNet net, int hp_max, const float* __restrict__ a0,
   }
 }
 
+// Head's per-point values (Head::store at out) in pt_tile_loss_kernel's
+// tiles, grid and order: its forward (f32 streams, nothing saved) on
+// In's inputs, then in warp 0, a lane a point, each live point's output
+// streams from u_s.  No sum crosses points: no partials.
+template <class Head, class In>
+__global__ void __launch_bounds__(kPtTileThreads)
+pt_tile_eval_kernel(PtNet net, int hp_max, In in, const float* __restrict__ X,
+                    const float* __restrict__ wpack, int n_pts,
+                    typename Head::Args args, float* __restrict__ out) {
+  static_assert(kPtTileThreads >= PT_TILE, "a tile's points in one pass");
+  constexpr int T = PT_TILE, M = 4 * T, NO = Head::kOut;
+  extern __shared__ float4 pt_tile_buf[];
+  float* const smem = reinterpret_cast<float*>(pt_tile_buf);
+  const PtTileSmem sm(hp_max, NO, false);
+  const float* const u_s = smem + sm.u;
+
+  const int p = threadIdx.x;
+  const int n_tiles = (n_pts + T - 1) / T;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    float* cur;
+    float* nxt;
+    pt_tile_forward<NO, float, false, In>(net, X, wpack, n_pts, tile, smem,
+                                          sm, static_cast<float*>(nullptr),
+                                          cur, nxt, in);
+    // Only warp 0 reads u_s; the next tile writes it after barriers
+    // that warp 0 reaches first.
+    const int col = tile * T + p;
+    if (p < T && col < n_pts) {
+      float U[NO][4];
+      for (int o = 0; o < NO; ++o) {
+        for (int s = 0; s < 4; ++s) U[o][s] = u_s[o * M + s * T + p];
+      }
+      Head::store(args, U, out, n_pts, col);
+    }
+  }
+}
+
 // The launch shape of one kernel instance on one device at one hidden
 // width hp (padded): its dynamic shared memory, the SM count and the
 // blocks an SM.  Each instance keeps the last one it launched with in
@@ -713,6 +792,27 @@ int pt_tile_launch_loss(const int* widths, int n_layers, const float* a0,
   err = (int)cudaGetLastError();
   if (err) return err;
   return pt_reduce(partials, grid, 1, out, s);
+}
+
+// Head's per-point values (out: Head::kOut * n_pts floats) through the
+// tiled eval kernel at hidden width <= W, with In's inputs (X, wpack:
+// Wt_l then b_l, no tangent rows).  No fallback, as above.
+template <class Head, int W, class In>
+int pt_tile_launch_eval(const int* widths, int n_layers, const In& in,
+                        const float* X, const float* wpack, int n_pts,
+                        typename Head::Args args, float* out, void* stream) {
+  static PtTileCache cache;
+  PtNet net;
+  PtTileShape sh;
+  int grid = 0;
+  int err = pt_tile_plan(widths, n_layers, Head::kOut, W, n_pts,
+                         (const void*)pt_tile_eval_kernel<Head, In>, false,
+                         &cache, &net, &sh, &grid);
+  if (err) return err;
+  pt_tile_eval_kernel<Head, In><<<grid, kPtTileThreads, sh.smem,
+                                  (cudaStream_t)stream>>>(
+      net, sh.hp, in, X, wpack, n_pts, args, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -7,56 +7,62 @@
 //   Schrodinger  f_u = u_t + 0.5 v_xx + (u^2 + v^2) v,
 //                f_v = v_t - 0.5 u_xx - (u^2 + v^2) u       (2 x N values)
 //
-// Replaces (pinn/ops/pallas_residual.py):
+// Replaces (pinn/ops/pallas_residual.py), each entry on its kernel:
 //   burgers_residual         <- _residual_kernel (:55), launched by
-//                               burgers_residual (:231)
+//                               burgers_residual (:231); runs
+//                               pt_narrow.cuh's pt_narrow_eval_kernel
 //   burgers_residual_fmajor  <- _residual_kernel_fmajor (:107), launched
-//                               by burgers_residual_fmajor (:188)
+//                               by burgers_residual_fmajor (:188); runs
+//                               pt_eval_kernel below (pt_mlp.cuh's one
+//                               thread a point)
 //   schrodinger_residual     <- _schrodinger_kernel_fmajor (:248),
-//                               launched by schrodinger_residual (:331)
+//                               launched by schrodinger_residual (:331);
+//                               runs pt_tile.cuh's pt_tile_eval_kernel
 //
 // As in the TPU kernels, the inputs are the raw points and the box
-// (lb, ub): each thread normalises its point as 2 (x - lb) / (ub - lb)
-// - 1, and each block builds the first layer's constant tangent rows
-// z1row = scale_x W0[0, :], z2row = scale_t W0[1, :] with scale =
-// 2 / (ub - lb), in that order, with IEEE division (no fast math).
+// (lb, ub): each point is normalised as 2 (x - lb) / (ub - lb) - 1, and
+// the first layer's constant tangent rows are built as z1row = scale_x
+// W0[0, :], z2row = scale_t W0[1, :] with scale = 2 / (ub - lb), in
+// that order, with IEEE division (no fast math).  On the block-tiled
+// kernels an input policy does this in the block's load (RawPointsMajor,
+// RawFeaturesMajor); the weight packs carry no tangent rows.
 //
-// Layouts.  The points-major kernel takes X (N, 2) interleaved and the
-// weights as the JAX parameters hold them, W_l (h_in, h_out) then
-// b_l (h_out), and transposes them as it loads them into shared
-// memory; the features-major kernels take X^T (2, N) and W_l^T
-// (h_out, h_in), which is pt_mlp.cuh's layout.  The output is (N, 1)
-// or (1, N) (both f[i] at i) and (2, N) for Schrodinger (f_u[i],
-// f_v[N + i]).  The TPU wrappers pad N to a tile of 2,048 points and
-// slice; here each live thread writes its own point and none writes
-// past N, so nothing is padded.
+// Layouts.  burgers_residual takes X (N, 2) interleaved and the weights
+// as the JAX parameters hold them, W_l (h_in, h_out) then b_l (h_out),
+// and transposes them as it stages them into shared memory; the
+// features-major entries take X^T (2, N) and W_l^T (h_out, h_in), which
+// is pt_mlp.cuh's layout.  The output is (N, 1) or (1, N) (both f[i]
+// at i) and (2, N) for Schrodinger (f_u[i], f_v[N + i]).  The TPU
+// wrappers pad N to a tile of 2,048 points and slice; here only live
+// points are written and nothing past N, so nothing is padded.
 //
-// Design.  One thread carries one point through pt_mlp.cuh's
-// pt_forward_hidden and pt_output (the hidden stack's four streams,
-// then the output layer's): no workspace, no partials, no reduction,
-// no atomics, so the output is bitwise repeatable.  The weights sit in
-// shared memory, loaded once per block: 128-thread blocks while they
-// fit in 48 KB (12.2 KB at [2, 20x8, 1]); above that one block fits on
-// an SM ([2, 100x4, 2] holds 31,002 floats, 124 KB), and a block takes
-// the train kernels' shape (pt_warps_per_block: 8 warps x 201 blocks
-// at Schrodinger's 51,456 grid points).  13 warps x 124 blocks, one
-// wave, measured no faster on the H100: the per-thread stream arrays,
-// not the waves, bound it.  The Schrodinger head reads no d/dx output
-// stream; pt_output computes it all the same (1/150 of the work at
-// [2, 100x4, 2]).
+// Design.  burgers_residual runs the narrow loss-only kernel's phases
+// (pt_narrow_eval_forward: a block a 32-point tile, a warp a neuron, a
+// lane a point, the streams in shared memory, Wt staged a layer at a
+// time; 320 threads a block, 640 when the tiles fit the SMs one each)
+// and stores f from warp 0; schrodinger_residual runs the tiled
+// loss-only kernel's forward (132 persistent blocks of 800 threads at
+// width 100, 4 x 4 FFMA outputs a thread) and stores f_u, f_v from
+// warp 0.  Each pre-activation is the
+// same fmaf chain, in the same order, as pt_mlp.cuh's per-point forward
+// (pt_forward_hidden, pt_output), so every f is bitwise what that
+// forward gives.  burgers_residual_fmajor still runs that forward: one
+// thread carries one point through every neuron, its streams (2 x 4 x
+// 64 floats) in local memory, the weights in shared memory (128-thread
+// blocks while they fit in 48 KB).  No partials, no reduction, no
+// atomics: each output is bitwise repeatable.
 //
 // Bounds on this card.  Per point ~25 kFLOP of f32 FMA and tanh at
 // [2, 20x8, 1] and ~247 kFLOP at [2, 100x4, 2], for 12-16 bytes of
-// input and output: bound by operations (0.075 ms for 200,000 Burgers
-// points, 0.19 ms for Schrodinger's 51,456 at 67 TFLOP/s f32).  What
-// holds it back is the per-thread stream arrays (2 x 4 x W floats) in
-// local memory and one thread's serial chain through every neuron; a
-// later design would spread a point's neurons over lanes and run the
-// layer products on the tensor cores.
+// input and output: bound by operations (0.073 ms for 200,000 Burgers
+// points, 0.19 ms for Schrodinger's 51,456 at 67 TFLOP/s f32).  PERF.md
+// records each entry's device time on an NVIDIA H100 80GB HBM3 (700 W).
 //
 // Every entry returns cudaGetLastError().
 
 #include "pt_mlp.cuh"
+#include "pt_narrow.cuh"
+#include "pt_tile.cuh"
 
 #define RESIDUAL_BURGERS_MAX_WIDTH 64
 #define RESIDUAL_SCHRODINGER_MAX_WIDTH 128
@@ -68,31 +74,76 @@ struct PtBox {
   float lb0, lb1, ub0, ub1;
 };
 
-// X (N, 2) and W_l (h_in, h_out): the layout of _residual_kernel.
-struct PointsMajor {
-  static __device__ __forceinline__ void point(const float* X, int, int i,
-                                               float* x0, float* x1) {
-    *x0 = X[2 * (size_t)i];
-    *x1 = X[2 * (size_t)i + 1];
+// A raw coordinate on [lb, ub] normalised to [-1, 1], and the tangent
+// rows' scale 2 / (ub - lb): the expressions of the TPU kernels.
+__device__ __forceinline__ float pt_normalise(float x, float lb, float ub) {
+  return 2.0f * (x - lb) / (ub - lb) - 1.0f;
+}
+
+__device__ __forceinline__ float pt_scale(float lb, float ub) {
+  return 2.0f / (ub - lb);
+}
+
+// pt_narrow_eval_forward's inputs for burgers_residual: X (N, 2) raw,
+// and W_l (h_in, h_out) then b_l, staged as Wt_l (h_out, h_in) then
+// b_l; the tangent rows from the staged Wt_0.
+struct RawPointsMajor {
+  PtBox box;
+  __device__ __forceinline__ float x0(const float* X, int, int col) const {
+    return pt_normalise(X[2 * (size_t)col], box.lb0, box.ub0);
   }
-  static __device__ void load_weights(const PtNet& net, const float* wpack,
-                                      float* w_s) {
-    for (int l = 0; l < net.n_layers; ++l) {
-      const int hin = net.width[l], hout = net.width[l + 1];
-      const float* W = wpack + net.w_off[l];
-      float* Wt = w_s + net.w_off[l];
-      for (int t = threadIdx.x; t < hin * hout; t += blockDim.x) {
-        const int j = t / hin, k = t - j * hin;
-        Wt[t] = W[k * hout + j];
-      }
-      for (int j = threadIdx.x; j < hout; j += blockDim.x) {
-        w_s[net.b_off[l] + j] = wpack[net.b_off[l] + j];
-      }
+  __device__ __forceinline__ float x1(const float* X, int, int col) const {
+    return pt_normalise(X[2 * (size_t)col + 1], box.lb1, box.ub1);
+  }
+  // Read in W's order (coalesced), written transposed; b_l follows W_l
+  // at the same offset in both layouts.
+  __device__ __forceinline__ void load_w(const PtNet& net, int l,
+                                         const float* __restrict__ wpack,
+                                         float* w_s) const {
+    const int hin = net.width[l], hout = net.width[l + 1];
+    const int n = hin * hout;
+    const float* W = wpack + net.w_off[l];
+    for (int t = threadIdx.x; t < n + hout; t += blockDim.x) {
+      const int k = t / hout, j = t - k * hout;
+      w_s[t < n ? j * hin + k : t] = W[t];
     }
+  }
+  __device__ __forceinline__ float z1(const float* Wt0, int j) const {
+    return pt_scale(box.lb0, box.ub0) * Wt0[2 * j];
+  }
+  __device__ __forceinline__ float z2(const float* Wt0, int j) const {
+    return pt_scale(box.lb1, box.ub1) * Wt0[2 * j + 1];
   }
 };
 
-// X^T (2, N) and W_l^T (h_out, h_in): the layout of the fmajor kernels.
+// pt_tile_forward's inputs for schrodinger_residual: X^T (2, N) raw,
+// the pack W_l^T then b_l (pt_tile's layout); the tangent rows from
+// Wt_0 in the pack.  f32 only.
+struct RawFeaturesMajor {
+  PtBox box;
+  __device__ __forceinline__ float x0(const float* X, int, int col) const {
+    return pt_normalise(X[col], box.lb0, box.ub0);
+  }
+  __device__ __forceinline__ float x1(const float* X, int n_pts,
+                                      int col) const {
+    return pt_normalise(X[(size_t)n_pts + col], box.lb1, box.ub1);
+  }
+  template <class S>
+  __device__ __forceinline__ float z1(const PtNet& net,
+                                      const float* __restrict__ wpack,
+                                      int j) const {
+    return pt_scale(box.lb0, box.ub0) * wpack[net.w_off[0] + 2 * j];
+  }
+  template <class S>
+  __device__ __forceinline__ float z2(const PtNet& net,
+                                      const float* __restrict__ wpack,
+                                      int j) const {
+    return pt_scale(box.lb1, box.ub1) * wpack[net.w_off[0] + 2 * j + 1];
+  }
+};
+
+// X^T (2, N) and W_l^T (h_out, h_in): burgers_residual_fmajor's layout
+// on pt_eval_kernel.
 struct FeaturesMajor {
   static __device__ __forceinline__ void point(const float* X, int n_pts,
                                                int i, float* x0, float* x1) {
@@ -107,6 +158,8 @@ struct FeaturesMajor {
   }
 };
 
+// The heads: a point's residual(s) from its output streams U[o][s],
+// stored at out.
 struct BurgersResidual {
   static constexpr int kOut = 1;
   struct Args {
@@ -204,11 +257,10 @@ extern "C" {
 int burgers_residual(const float* X, const float* wpack, const int* widths,
                      int n_layers, int n_pts, float lb0, float lb1, float ub0,
                      float ub1, float nu, float* out, void* stream) {
-  const PtBox box = {lb0, lb1, ub0, ub1};
+  const RawPointsMajor in = {{lb0, lb1, ub0, ub1}};
   const BurgersResidual::Args args = {nu};
-  return pt_launch_eval<BurgersResidual, RESIDUAL_BURGERS_MAX_WIDTH,
-                        PointsMajor>(widths, n_layers, X, wpack, n_pts, box,
-                                     args, out, stream);
+  return pt_narrow_launch_eval<BurgersResidual, RESIDUAL_BURGERS_MAX_WIDTH>(
+      widths, n_layers, in, X, wpack, n_pts, args, out, stream);
 }
 
 int burgers_residual_fmajor(const float* X, const float* wpack,
@@ -225,11 +277,11 @@ int burgers_residual_fmajor(const float* X, const float* wpack,
 int schrodinger_residual(const float* X, const float* wpack, const int* widths,
                          int n_layers, int n_pts, float lb0, float lb1,
                          float ub0, float ub1, float* out, void* stream) {
-  const PtBox box = {lb0, lb1, ub0, ub1};
-  return pt_launch_eval<SchrodingerResidual, RESIDUAL_SCHRODINGER_MAX_WIDTH,
-                        FeaturesMajor>(widths, n_layers, X, wpack, n_pts, box,
-                                       SchrodingerResidual::Args{}, out,
-                                       stream);
+  const RawFeaturesMajor in = {{lb0, lb1, ub0, ub1}};
+  return pt_tile_launch_eval<SchrodingerResidual,
+                             RESIDUAL_SCHRODINGER_MAX_WIDTH>(
+      widths, n_layers, in, X, wpack, n_pts, SchrodingerResidual::Args{}, out,
+      stream);
 }
 
 }  // extern "C"

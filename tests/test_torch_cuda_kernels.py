@@ -569,6 +569,14 @@ def _residual_case(layers, n, lb, ub, seed):
     ([2, 20, 20, 1], 700),
     ([2, 20, 1], 2048),
     ([2, 5, 1], 1),
+    # the narrow kernel's edges: one point, a tile less or more one
+    # point, widths not multiples of 4, the widest pack, the pool
+    ([2] + [20] * 8 + [1], 1),
+    ([2] + [20] * 8 + [1], 31),
+    ([2] + [20] * 8 + [1], 33),
+    ([2, 7, 33, 64, 1], 1000),
+    ([2] + [64] * 14 + [1], 1000),
+    ([2] + [20] * 8 + [1], 200000),
 ])
 @pytest.mark.parametrize("name", ["burgers_residual", "burgers_residual_fmajor"])
 def test_burgers_residual_kernels_match_plain(layers, n, name):
@@ -585,7 +593,13 @@ def test_burgers_residual_kernels_match_plain(layers, n, name):
 
 
 @pytest.mark.parametrize("layers,n", [([2, 100, 100, 100, 100, 2], 51456),
-                                      ([2, 32, 32, 2], 600)])
+                                      ([2, 32, 32, 2], 600),
+                                      # the tiled kernel's edges
+                                      ([2, 100, 100, 100, 100, 2], 1),
+                                      ([2, 100, 100, 100, 100, 2], 33),
+                                      ([2, 30, 30, 2], 1000),
+                                      ([2, 100, 2], 1000),
+                                      ([2, 128, 128, 2], 4231)])
 def test_schrodinger_residual_kernel_matches_plain(layers, n):
     lbs, ubs = np.array([-5.0, 0.0], np.float32), np.array([5.0, np.pi / 2], np.float32)
     params, X = _residual_case(layers, n, lbs, ubs, seed=n)
@@ -599,6 +613,38 @@ def test_schrodinger_residual_kernel_matches_plain(layers, n):
     assert torch.equal(got, again)
 
 
+S_LB = np.array([-5.0, 0.0], np.float32)
+S_UB = np.array([5.0, np.pi / 2], np.float32)
+
+
+def _residual_call(name, params, X):
+    if name == "schrodinger_residual":
+        return torch.cat(rs.schrodinger_residual(params, X, S_LB, S_UB), dim=1)
+    return getattr(rs, name)(params, X, LB, UB, NU)
+
+
+@pytest.mark.parametrize("n", [33, 6250 * 32 + 7, 1608 * 32 + 7])
+@pytest.mark.parametrize("name", ["burgers_residual", "burgers_residual_fmajor",
+                                  "schrodinger_residual"])
+def test_residual_kernels_leave_nothing_stale(name, n):
+    """Two launches on one input, with a launch on another N and net
+    between them, are bitwise equal: nothing of one call (a cached
+    launch shape, shared memory, a tile past N) leaks into the next.
+    N = 33 and the flagships' tile counts plus 7 (the RAR pool's 6,250
+    tiles, the Schrödinger grid's 1,608)."""
+    schrodinger = name == "schrodinger_residual"
+    lb, ub = (S_LB, S_UB) if schrodinger else (LB, UB)
+    layers = [2, 100, 100, 100, 100, 2] if schrodinger else [2] + [20] * 8 + [1]
+    other = [2, 30, 30, 2] if schrodinger else [2, 7, 33, 64, 1]
+    params, X = _residual_case(layers, n, lb, ub, seed=n)
+    params2, X2 = _residual_case(other, n // 3 + 5, lb, ub, seed=n + 1)
+    first = _residual_call(name, params, X)
+    _residual_call(name, params2, X2)
+    again = _residual_call(name, params, X)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
 def test_residual_wrappers_raise_instead_of_falling_back():
     params, X = _residual_case([2, 8, 1], 40, LB, UB, seed=1)
     with pytest.raises(TypeError, match="float32"):
@@ -607,3 +653,8 @@ def test_residual_wrappers_raise_instead_of_falling_back():
     wide, Xw = _residual_case([2, 65, 1], 40, LB, UB, seed=2)
     with pytest.raises(ValueError, match="widths"):
         rs.burgers_residual_fmajor(wide, Xw, LB, UB, NU)
+    with pytest.raises(ValueError, match="widths"):
+        rs.burgers_residual(wide, Xw, LB, UB, NU)
+    s_wide, Xs = _residual_case([2, 129, 2], 40, S_LB, S_UB, seed=3)
+    with pytest.raises(ValueError, match="widths"):
+        rs.schrodinger_residual(s_wide, Xs, S_LB, S_UB)

@@ -71,6 +71,46 @@ def test_schrodinger_residual_matches_jax(layers, n):
                                atol=2e-6)
 
 
+# The shapes the block-tiled residual kernels cut (pt_narrow.cuh: a
+# block a 32-point tile, hidden width <= 64): one point, a tile less or
+# more one point, hidden widths that are not multiples of 4, the widest
+# pack and the most hidden layers the Burgers entries take.
+@pytest.mark.parametrize("layers,n", [
+    (FLAGSHIP, 1), (FLAGSHIP, 31), (FLAGSHIP, 33),
+    ([2, 7, 33, 64, 1], 100),
+    ([2] + [64] * 14 + [1], 40),
+])
+@pytest.mark.parametrize("layout", ["burgers_residual", "burgers_residual_fmajor"])
+def test_burgers_residual_tile_edges_match_jax(layers, n, layout):
+    pairs, X = _case(layers, n, LB, UB, seed=10 * n + len(layers))
+    want = np.asarray(getattr(pallas_residual, layout)(
+        _jax(pairs), jnp.asarray(X), LB, UB, 0.01 / np.pi, interpret=True))
+    got = getattr(residual, layout)(params_from_numpy(pairs, "cpu"),
+                                    torch.as_tensor(X), LB, UB, 0.01 / np.pi)
+    assert tuple(got.shape) == want.shape == (n, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-6)
+
+
+# The shapes the tiled Schrödinger kernel cuts (pt_tile.cuh: 32-point
+# tiles, hidden widths padded to 4): one point, a tile and one point,
+# widths that are not multiples of 4, one hidden layer, the widest net.
+@pytest.mark.parametrize("layers,n", [
+    ([2, 100, 100, 100, 100, 2], 1), ([2, 100, 100, 100, 100, 2], 33),
+    ([2, 30, 30, 2], 100), ([2, 100, 2], 50), ([2, 128, 128, 2], 70),
+])
+def test_schrodinger_residual_tile_edges_match_jax(layers, n):
+    pairs, X = _case(layers, n, S_LB, S_UB, seed=10 * n + len(layers))
+    fu_want, fv_want = pallas_residual.schrodinger_residual(
+        _jax(pairs), jnp.asarray(X), S_LB, S_UB, interpret=True)
+    fu, fv = residual.schrodinger_residual(params_from_numpy(pairs, "cpu"),
+                                           torch.as_tensor(X), S_LB, S_UB)
+    assert tuple(fu.shape) == tuple(fv.shape) == (n, 1)
+    np.testing.assert_allclose(fu.numpy(), np.asarray(fu_want), rtol=2e-4,
+                               atol=2e-6)
+    np.testing.assert_allclose(fv.numpy(), np.asarray(fv_want), rtol=2e-4,
+                               atol=2e-6)
+
+
 def test_plain_versions_are_the_eager_residuals_in_float64():
     """The kernels' arithmetic, run in float64 (the plain versions
     called directly: the wrappers take float32 only), is the eager
