@@ -19,12 +19,12 @@ at the facade's v1 SSE ([2, 20x8, 1], N = 10,000, the inputs of
 (CUDA events, 50 calls) and the device ms a call of each kernel the
 call launches (torch.profiler, 20 calls); so too for the residual
 evaluation (rows 9-11) at the inputs of phase 3e's times (both Burgers
-layouts on the 200,000-point pool, Schrödinger's on its grid) and row 9
-also on the Burgers grid.  Rows 1, 1b, 3, 3b and 5 run
+layouts on the 200,000-point pool, Schrödinger's on its grid) and rows 9
+and 10 also on the Burgers grid.  Rows 1, 1b, 3, 3b and 5 run
 ``pt_narrow.cuh``'s loss+grad kernel, rows 2, 2b, 4, 4b and 6 its
-loss-only kernel, row 9 its eval kernel; row 10 runs
-``residual_eval.cu``'s one-thread-a-point kernel and row 11
-``pt_tile.cuh``'s eval kernel.  So that two trees' outputs can be
+loss-only kernel, rows 9 and 10 its eval kernel (on the points-major
+and the features-major input policy) and row 11 ``pt_tile.cuh``'s eval
+kernel.  So that two trees' outputs can be
 compared bit for bit, it prints the loss of each of rows 1-6 and the
 lambda adjoints (A1, -A2) of rows 3 and 3b as hex floats, and the
 SHA-256 of the bytes of rows 9-11's outputs at each of phase 3e's
@@ -40,13 +40,16 @@ that two trees are timed alike on one card, in turns.
 ``pt_narrow.cuh`` in ``CONSTANTS`` rewritten to it; the tree's own
 library is untouched), prints each build's ptxas lines for the narrow
 kernels on every head, checks that each gives the default build's
-outputs bit for bit for rows 1-6 and row 9 on the 200,000-point pool
-(the block size changes the order of no sum), and times those eleven,
-in the default build and at each size, in two interleaved rounds.
+outputs bit for bit for rows 1-6 and rows 9 and 10 on the
+200,000-point pool (the block size changes the order of no sum), and
+times those twelve, in the default build and at each size, in two
+interleaved rounds.
 
-``--sass DIR`` builds this tree's kernels and those of the checkout at
-DIR, disassembles both libraries (``cuobjdump -sass``) and prints, for
-each kernel function, whether its instructions are identical in both,
+``--sass DIR`` builds each source of this tree and of the checkout at
+DIR ``SASS_BUILDS`` times as a cubin with the library's flags, sixteen
+side by side, disassembles them (``cuobjdump -sass``) and prints, for
+each kernel function, whether its instructions are identical in both
+trees, share a form (a function the compiler gave more than one form),
 differ (with the differing lines) or are in one only.
 
 The last line is the card's nvidia-smi line.  Without a CUDA device it
@@ -73,16 +76,23 @@ NARROW = ("burgers_loss_grad", "burgers_loss_grad_bf16",   # rows 1, 1b
           "burgers_ide_loss_grad", "burgers_ide_loss_grad_bf16",   # 3, 3b
           "burgers_ide_loss", "burgers_ide_loss_bf16",     # 4, 4b
           "burgers_sse_grad", "burgers_sse")                      # 5, 6
-SWEPT = NARROW + ("burgers_residual",)                            # and 9
-# The narrow kernel templates and the heads they are built for.
+SWEPT = NARROW + ("burgers_residual", "burgers_residual_fmajor")  # 9, 10
+# The narrow kernel templates and the heads (the eval kernel: the input
+# policies) they are built for.
 NARROW_KERNELS = tuple((kernel, head)
                        for kernel in ("pt_narrow_loss_grad_kernel",
                                       "pt_narrow_loss_kernel")
                        for head in ("BurgersInfHead", "BurgersIdeHead",
                                     "BurgersSseHead")) \
-    + (("pt_narrow_eval_kernel", "BurgersResidual"),)
+    + tuple(("pt_narrow_eval_kernel", policy)
+            for policy in ("RawPointsMajor", "RawFeaturesMajor"))
 CONSTANTS = ("kPtNarrowThreads", "kPtNarrowLossThreads",
              "kPtNarrowLossThreadsFew")
+# Builds of each source a tree for --sass: nvcc does not always give a
+# function the same SASS from the same source (two FMULs' operands
+# swapped from one build to the next, PERF.md), so one build a tree can
+# show a difference that no source change made.
+SASS_BUILDS = 12
 
 
 def _smoke():
@@ -118,7 +128,7 @@ def _calls(cs):
     flagship, rows 3-4b at identification's (N = 2,000), rows 5-6 at
     the facade's v1 SSE (N = 10,000), rows 9-11 where phase 3e times
     them (both Burgers layouts on the 200,000-point pool, Schrödinger's
-    on its grid), and row 9 on the Burgers grid."""
+    on its grid), and rows 9 and 10 on the Burgers grid."""
     from pinn_torch.ops import fused_train as ft
     args = cs._kernel_inputs(cs.FLAGSHIP, 100, 10000, seed=100)
     ide = cs._ide_inputs(cs.FLAGSHIP, 2000, cs.IDE_LAMBDAS[0], seed=200)
@@ -129,7 +139,8 @@ def _calls(cs):
     fns = _residual_fns(cs)
     for _, name, fn in fns:   # each entry at its problem's first shape
         calls.setdefault(name, fn)
-    calls["burgers_residual (grid)"] = fns[2][2]   # 3e's second shape
+    for _, name, fn in fns[2:4]:   # 3e's second shape
+        calls[name + " (grid)"] = fn
     for sfx, bf16 in (("", False), ("_bf16", True)):
         calls.update({
             "burgers_loss_grad" + sfx:
@@ -252,33 +263,74 @@ def _sass_functions(lib_path: Path) -> dict:
     return funcs
 
 
+def _sass_forms(trees: dict) -> dict:
+    """{tree: {"<source>: <function>": Counter of its SASS forms}}: each
+    ``*.cu`` of each tree's csrc directory built SASS_BUILDS times as a
+    cubin with the library's flags, sixteen builds side by side."""
+    from collections import Counter
+    from pinn_torch.ops import _build
+    nvcc = _build.find_nvcc()
+    root = _build.BUILD_DIR.parent / "sass"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cmds, outs = [], []
+    for t, (tag, csrc) in enumerate(trees.items()):
+        for src in sorted(Path(csrc).glob("*.cu")):
+            for k in range(SASS_BUILDS):
+                out = root / f"{t}.{src.stem}.{k}.cubin"
+                cmds.append([nvcc, *_build.NVCC_FLAGS, "-cubin", "-o",
+                             str(out), str(src)])
+                outs.append((tag, src.stem, out))
+    steps = []
+    for i in range(0, len(cmds), 16):   # 16 nvcc processes at a time
+        steps += _build._run_all(cmds[i:i + 16])
+    for cmd, rc, text in steps:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{text}")
+    forms = {tag: {} for tag in trees}
+    for tag, stem, out in outs:
+        for name, lines in _sass_functions(out).items():
+            forms[tag].setdefault(f"{stem}: {name}", Counter())[tuple(lines)] += 1
+    return forms
+
+
 def _sass(other: str) -> None:
     """Compare the SASS of this tree's kernels with the checkout at
-    ``other``'s, function by function."""
+    ``other``'s, function by function, over SASS_BUILDS builds of each
+    source in each tree: identical (one form, the same in both), a form
+    in both trees (the compiler gave some function more than one form),
+    differs (no form in common: the diff of each tree's most frequent
+    form) or in one tree only.  A form is named by the first ten hex
+    digits of its SHA-256."""
     import difflib
     from pinn_torch.ops import _build
-    theirs = subprocess.run(
-        [sys.executable, "-c", "from pinn_torch.ops import _build; "
-         "print(_build.library().path)"], cwd=os.path.abspath(other),
-        capture_output=True, text=True, check=True).stdout.strip()
-    a = _sass_functions(Path(theirs))
-    b = _sass_functions(_build.library().path)
+    forms = _sass_forms({other: Path(other) / "pinn_torch" / "csrc",
+                         "this tree": _build.CSRC_DIR})
+    a, b = forms[other], forms["this tree"]
+
+    def counts(c):
+        return ", ".join(
+            f"{hashlib.sha256(chr(10).join(f).encode()).hexdigest()[:10]} x{n}"
+            for f, n in c.most_common())
+
     for name in sorted(set(a) | set(b)):
-        if name not in b:
-            print(f"[sass] only in {other}: {name} ({len(a[name])} "
+        if name not in a or name not in b:
+            where, c = (other, a) if name in a else ("this tree", b)
+            print(f"[sass] only in {where}: {name} "
+                  f"({len(next(iter(c[name])))} instructions)", flush=True)
+            continue
+        fa, fb = a[name], b[name]
+        if len(fa) == len(fb) == 1 and fa.keys() == fb.keys():
+            print(f"[sass] identical: {name} ({len(next(iter(fa)))} "
                   "instructions)", flush=True)
-        elif name not in a:
-            print(f"[sass] only in this tree: {name} ({len(b[name])} "
-                  "instructions)", flush=True)
-        elif a[name] == b[name]:
-            print(f"[sass] identical: {name} ({len(a[name])} instructions)",
-                  flush=True)
-        else:
-            diff = [d for d in difflib.unified_diff(a[name], b[name],
-                                                    lineterm="", n=0)
-                    if d[:1] in "+-" and d[:3] not in ("---", "+++")]
-            print(f"[sass] DIFFERS: {name} ({len(a[name])} / {len(b[name])} "
-                  f"instructions, {len(diff)} lines differ)", flush=True)
+            continue
+        verdict = "a form in both trees" if fa.keys() & fb.keys() else "DIFFERS"
+        print(f"[sass] {verdict}: {name} (over {SASS_BUILDS} builds each; "
+              f"{other}: {counts(fa)}; this tree: {counts(fb)})", flush=True)
+        if verdict == "DIFFERS":
+            diff = [d for d in difflib.unified_diff(
+                list(fa.most_common(1)[0][0]), list(fb.most_common(1)[0][0]),
+                lineterm="", n=0) if d[:1] in "+-" and d[:3] not in ("---", "+++")]
             for d in diff[:40]:
                 print(f"[sass]   {d}", flush=True)
 

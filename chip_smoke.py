@@ -57,21 +57,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    (N = 1,124), [2, 16, 1] (N = 1,024) and the narrow kernels' edges of
    3, at every shape the loss-only loss bitwise the loss+grad loss, and
    at N = 10,000 both kernels' ptxas lines, launch records and device
-   ms a call, as in 3; both Burgers residual layouts
-   (``burgers_residual`` on pt_narrow.cuh's pt_narrow_eval_kernel,
-   ``burgers_residual_fmajor`` on residual_eval.cu's one-thread-a-point
-   pt_eval_kernel) at [2, 20x8, 1] on a 200,000-point pool and on the
-   flagship grid (25,600 points), at [2, 20, 20, 1] (N = 700) and at
-   the narrow kernel's edges (the flagship at N = 1, 31, 33; [2, 7, 33,
-   64, 1]; [2, 64x14, 1]); the Schrödinger residual (pt_tile.cuh's
+   ms a call, as in 3; both Burgers residual layouts (pt_narrow.cuh's
+   pt_narrow_eval_kernel, ``burgers_residual`` on the points-major
+   policy, ``burgers_residual_fmajor`` on the features-major one, the
+   two bitwise equal at every shape) at [2, 20x8, 1] on a
+   200,000-point pool and on the flagship grid (25,600 points), at [2,
+   20, 20, 1] (N = 700) and at the narrow kernel's edges (the flagship
+   at N = 1, 31, 33; [2, 7, 33, 64, 1]; [2, 64x14, 1]); the
+   Schrödinger residual (pt_tile.cuh's
    pt_tile_eval_kernel) at [2, 100x4, 2] on its grid (51,456 points),
    [2, 32, 32, 2] (N = 600) and the tiled kernel's edges ([2, 100x4, 2]
    at N = 1, 33; [2, 30, 30, 2]; [2, 100, 2]; [2, 128, 128, 2]);
    bitwise repeatability; times at the first shape of each (the
    residuals at the pool and the grid); the ptxas lines, launch record
-   and device ms a call of both block-tiled residual kernels there, and
-   for the persistent one its rounds of tiles and the device ms of its
-   last, partly full round.
+   and device ms a call of both Burgers layouts' eval kernels at the
+   pool and on the grid, and of the Schrödinger one on its grid, with
+   its rounds of persistent tiles and the device ms of its last,
+   partly full round.
 4. Burgers inference main path: ``pinn_torch.experiments
    .inf_cont_burgers.run`` twice at the flagship width, a fused float32
    stage (Adam, then mixed-precision L-BFGS with a Wolfe search and
@@ -106,7 +108,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``burgers_residual`` (pt_narrow_eval_kernel), exported as one
    artifact and served.
 4j. Residual diagnostics: the features-major Burgers residual
-   (pt_eval_kernel) on the flagship grid and the Schrödinger residual
+   (pt_narrow_eval_kernel) on the flagship grid and the Schrödinger residual
    (pt_tile_eval_kernel) on its grid, under the nets trained in 4 and
    4c, against the eager residuals.
 Each main path runs with every launch count set to 0 just before its
@@ -774,8 +776,11 @@ def phase_v1_kernels(stats: dict) -> None:
     their plain versions; the SSE pair also at the narrow kernels'
     edges, the loss-only loss bitwise the loss+grad one at every shape,
     and both narrow kernels' ptxas lines, launch records and device
-    times at the first shape; the same report for the residual entries'
-    block-tiled kernels at the pool and the Schrödinger grid."""
+    times at the first shape; the two Burgers residual layouts bitwise
+    equal at every shape, and the same report for the residual entries'
+    kernels at the pool and the Burgers grid (both layouts) and on the
+    Schrödinger grid."""
+    import torch
     from pinn_torch.ops import fused_train as ft
     from pinn_torch.ops import residual as rs
 
@@ -798,19 +803,30 @@ def phase_v1_kernels(stats: dict) -> None:
                     ("pt_narrow_loss_kernel", "burgers_sse", loss)],
                    _sse_inputs(layers, n, seed=400), _shape_tag(layers, n))
 
+    layouts = (("burgers_residual", "RawPointsMajor"),
+               ("burgers_residual_fmajor", "RawFeaturesMajor"))
+    reported = []
     for i, (layers, params, X, lb, ub) in enumerate(_residual_cases("burgers")):
-        for name in ("burgers_residual", "burgers_residual_fmajor"):
+        shape = _shape_tag(layers, X.shape[0])
+        for name, _ in layouts:
             kernel, plain = getattr(rs, name), getattr(rs, name + "_plain")
-            _check_residual(stats, f"{name} {_shape_tag(layers, X.shape[0])}",
+            _check_residual(stats, f"{name} {shape}",
                             name, lambda p, x: kernel(p, x, lb, ub, NU),
                             lambda p, x: plain(p, x, lb, ub, NU), params, X,
                             layers, rtol=2e-5, atol=1e-6, time_it=i == 0)
-        if i == 0:
-            pool = (params, X, lb, ub, _shape_tag(layers, X.shape[0]))
-    params, X, lb, ub, shape = pool
-    _report_residual("burgers_residual", "pt_narrow_eval_kernel",
-                     "BurgersResidual",
-                     lambda: rs.burgers_residual(params, X, lb, ub, NU), shape)
+        f_points, f_features = (getattr(rs, name)(params, X, lb, ub, NU)
+                                for name, _ in layouts)
+        if not torch.equal(f_points, f_features):
+            raise AssertionError(f"burgers residual {shape}: the two layouts "
+                                 "differ bitwise")
+        log(f"[kernels] burgers residual {shape}: both layouts bitwise equal")
+        if i < 2:   # the pool and the grid
+            reported.append((params, X, lb, ub, shape))
+    for params, X, lb, ub, shape in reported:
+        for name, policy in layouts:
+            _report_residual(name, "pt_narrow_eval_kernel", policy,
+                             lambda f=getattr(rs, name), p=params, x=X, lb=lb,
+                             ub=ub: f(p, x, lb, ub, NU), shape)
 
     for i, (layers, params, X, lb, ub) in enumerate(_residual_cases("schrodinger")):
         _check_residual(stats, "schrodinger_residual "

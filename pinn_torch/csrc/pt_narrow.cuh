@@ -18,17 +18,23 @@
 // pack, stream type S, rounding points and buffers.
 // pt_narrow_eval_kernel runs the loss-only kernel's forward (f32) and
 // stores a per-point value in place of the loss sum: residual_eval.cu's
-// burgers_residual launches it (replacing _residual_kernel,
-// pinn/ops/pallas_residual.py:55) with an input policy that normalises
-// the raw points and stages the JAX layout of the weights (below).
+// two Burgers residual entries launch it, each with an input policy
+// that normalises the raw points and stages its layout of the weights:
+// burgers_residual (replacing _residual_kernel,
+// pinn/ops/pallas_residual.py:55) on X (N, 2) and W_l (h_in, h_out),
+// transposed as they stage; burgers_residual_fmajor (replacing
+// _residual_kernel_fmajor, :107) on X^T (2, N) and W_l^T (h_out, h_in),
+// staged as they are.
 //
-// Why not one thread a point (pt_mlp.cuh's forward, which
-// burgers_residual_fmajor still runs).  It gives the inference
+// Why not one thread a point (the port's first design: a thread
+// carries a point through every layer).  It gives the inference
 // flagship's N = 10,100 points 316 one-warp blocks, 2.4 warps an SM,
 // and the identification flagship's N = 2,000 only 63, with nothing to
 // hide latency; its
 // stream arrays are sized for width 64 (3 KB of local memory a thread,
-// 80 floats of each used at width 20); a weight gradient summed by
+// 80 floats of each used at width 20); its products are serial fmaf
+// chains a thread, with nothing shared across a warp's points; a
+// weight gradient summed by
 // shuffles is a five-step butterfly over the tile (3,061 of them a warp
 // at width 20); and with bf16 streams a rounding sits inside every
 // dependency chain.  pt_tile.cuh's layout does not fit width 20 as it
@@ -96,8 +102,9 @@
 // kernels, each tile's loss the same pt_warp_sum, and pt_reduce sums
 // the tiles in row order, so the loss of the two kernels is the same
 // bit for bit on the same head; the block size changes the order of no
-// sum.  The forward's sums are also pt_mlp.cuh's per-point forward's,
-// in its order, so each residual is bitwise what that forward gives.
+// sum.  The eval kernel's forward makes the same sums in the same order
+// whatever its input policy, so the two Burgers residual layouts give
+// the same values bit for bit on the same points and weights.
 // Every gradient is a fixed-order sum (the four stream parts added in
 // stream order), no atomics: two launches on the same inputs are
 // bitwise equal.
@@ -120,8 +127,9 @@
 // 700 W (PERF.md), by device time: the loss+grad kernel 0.114 ms at the
 // inference flagship, 0.071 ms (f32) and 0.062 ms (bf16) at the
 // identification flagship; the loss-only kernel 0.031 ms and, with 640
-// threads a block, 0.015 ms; the eval kernel 0.41 ms on the RAR pool's
-// 6,250 tiles and 0.065 ms on the Burgers grid's 800.
+// threads a block, 0.015 ms; the eval kernel 0.39-0.42 ms on the RAR
+// pool's 6,250 tiles and 0.061-0.065 ms on the Burgers grid's 800, in
+// either layout.
 // Precision: IEEE f32 (fmaf, tanhf); build without --use_fast_math.
 
 #pragma once

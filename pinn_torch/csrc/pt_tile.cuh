@@ -17,7 +17,7 @@
 // device time, of which the last round 0.04 ms (PERF.md; an NVIDIA H100
 // 80GB HBM3 at 700 W).
 //
-// Why.  One thread a point (as pt_mlp.cuh's per-point forward has it)
+// Why.  One thread a point (the port's first design of these kernels)
 // keeps a point's 2-3 x 4W stream floats in local memory and chains
 // scalar FMAs on them; at width 100 the weights (124 KB) leave one
 // block of 5 warps an SM.  Here the streams of a tile live in shared
@@ -50,14 +50,15 @@
 //   inputs   G (hin x 4T) = Wt^T . gz, written over A's buffer
 // The elementwise passes (bias, tanh, stream recombination; the
 // adjoint of that; the rematerialised layer inputs) run one thread per
-// (neuron, point) with pt_streams / pt_gz, the math of pt_mlp.cuh's
+// (neuron, point) with pt_streams / pt_gz, the math of pt_narrow.cuh's
 // per-point loops.  The forward (pt_tile_forward) is one template for
 // the three kernels; the loss-only and eval kernels run it with nothing
 // saved and have no backward.  Its input policy In reads the points and
 // the tangent rows (PtTilePackIn, the default: the loss kernels' a0 and
-// pack).  Its sums are pt_mlp.cuh's per-point forward's, in that order
-// (a zero-padded column leaves a nonzero sum as it is), so each
-// residual is bitwise what that forward gives.
+// pack).  Each of its sums is an fmaf chain over the inputs in
+// ascending order, as in pt_narrow.cuh's forward (a zero-padded column
+// leaves a nonzero sum as it is), so a residual does not depend on the
+// grid.
 //
 // Saved activations (loss+grad).  (t, z1, z11, z2) of every hidden
 // neuron go to the block's own slot of ws, [slot][layer][stream]
@@ -123,11 +124,11 @@ __device__ __forceinline__ float4 pt_ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// The elementwise math of the forward and backward, which pt_mlp.cuh
-// and pt_narrow.cuh keep as inline copies of their own: routing
-// pt_mlp.cuh's one-thread-a-point loops through these helpers changed
-// its loss+grad kernel's code (56 to 48 registers) and made it 1.5x
-// slower on the H100 (chip_smoke.py, phase 3).
+// The elementwise math of the forward and backward, which pt_narrow.cuh
+// keeps as inline copies of its own: routing the per-point loops of the
+// port's first, one-thread-a-point kernels through these helpers
+// changed a loss+grad kernel's code (56 to 48 registers) and made it
+// 1.5x slower on the H100 (chip_smoke.py, phase 3).
 //
 // A hidden neuron's four output streams from its tanh value t and its
 // pre-activation tangents (z1, z11, z2), S-rounded: the recombination

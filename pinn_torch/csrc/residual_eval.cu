@@ -11,46 +11,46 @@
 //   burgers_residual         <- _residual_kernel (:55), launched by
 //                               burgers_residual (:231); runs
 //                               pt_narrow.cuh's pt_narrow_eval_kernel
+//                               on the RawPointsMajor policy
 //   burgers_residual_fmajor  <- _residual_kernel_fmajor (:107), launched
 //                               by burgers_residual_fmajor (:188); runs
-//                               pt_eval_kernel below (pt_mlp.cuh's one
-//                               thread a point)
+//                               pt_narrow_eval_kernel on the
+//                               RawFeaturesMajor policy
 //   schrodinger_residual     <- _schrodinger_kernel_fmajor (:248),
 //                               launched by schrodinger_residual (:331);
 //                               runs pt_tile.cuh's pt_tile_eval_kernel
+//                               on the RawFeaturesMajor policy
 //
 // As in the TPU kernels, the inputs are the raw points and the box
 // (lb, ub): each point is normalised as 2 (x - lb) / (ub - lb) - 1, and
 // the first layer's constant tangent rows are built as z1row = scale_x
 // W0[0, :], z2row = scale_t W0[1, :] with scale = 2 / (ub - lb), in
-// that order, with IEEE division (no fast math).  On the block-tiled
-// kernels an input policy does this in the block's load (RawPointsMajor,
-// RawFeaturesMajor); the weight packs carry no tangent rows.
+// that order, with IEEE division (no fast math).  An input policy does
+// this in the block's load (RawPointsMajor, RawFeaturesMajor); the
+// weight packs carry no tangent rows.
 //
 // Layouts.  burgers_residual takes X (N, 2) interleaved and the weights
 // as the JAX parameters hold them, W_l (h_in, h_out) then b_l (h_out),
 // and transposes them as it stages them into shared memory; the
 // features-major entries take X^T (2, N) and W_l^T (h_out, h_in), which
-// is pt_mlp.cuh's layout.  The output is (N, 1) or (1, N) (both f[i]
-// at i) and (2, N) for Schrodinger (f_u[i], f_v[N + i]).  The TPU
-// wrappers pad N to a tile of 2,048 points and slice; here only live
-// points are written and nothing past N, so nothing is padded.
+// is pt_mlp.cuh's layout and is staged as it is.  The output is (N, 1)
+// or (1, N) (both f[i] at i) and (2, N) for Schrodinger (f_u[i],
+// f_v[N + i]).  The TPU wrappers pad N to a tile of 2,048 points and
+// slice; here only live points are written and nothing past N, so
+// nothing is padded.
 //
-// Design.  burgers_residual runs the narrow loss-only kernel's phases
-// (pt_narrow_eval_forward: a block a 32-point tile, a warp a neuron, a
-// lane a point, the streams in shared memory, Wt staged a layer at a
-// time; 320 threads a block, 640 when the tiles fit the SMs one each)
-// and stores f from warp 0; schrodinger_residual runs the tiled
-// loss-only kernel's forward (132 persistent blocks of 800 threads at
-// width 100, 4 x 4 FFMA outputs a thread) and stores f_u, f_v from
-// warp 0.  Each pre-activation is the
-// same fmaf chain, in the same order, as pt_mlp.cuh's per-point forward
-// (pt_forward_hidden, pt_output), so every f is bitwise what that
-// forward gives.  burgers_residual_fmajor still runs that forward: one
-// thread carries one point through every neuron, its streams (2 x 4 x
-// 64 floats) in local memory, the weights in shared memory (128-thread
-// blocks while they fit in 48 KB).  No partials, no reduction, no
-// atomics: each output is bitwise repeatable.
+// Design.  Both Burgers entries run the narrow loss-only kernel's
+// phases (pt_narrow_eval_forward: a block a 32-point tile, a warp a
+// neuron, a lane a point, the streams in shared memory, Wt staged a
+// layer at a time; 320 threads a block, 640 when the tiles fit the SMs
+// one each) and store f from warp 0; they differ only in their policy's
+// loads, so on the same points and weights they give the same f bit for
+// bit.  schrodinger_residual runs the tiled loss-only kernel's forward
+// (132 persistent blocks of 800 threads at width 100, 4 x 4 FFMA
+// outputs a thread) and stores f_u, f_v from warp 0.  Each
+// pre-activation is an fmaf chain over the inputs in ascending order,
+// so an f does not depend on the block size.  No partials, no
+// reduction, no atomics: each output is bitwise repeatable.
 //
 // Bounds on this card.  Per point ~25 kFLOP of f32 FMA and tanh at
 // [2, 20x8, 1] and ~247 kFLOP at [2, 100x4, 2], for 12-16 bytes of
@@ -66,7 +66,6 @@
 
 #define RESIDUAL_BURGERS_MAX_WIDTH 64
 #define RESIDUAL_SCHRODINGER_MAX_WIDTH 128
-#define RESIDUAL_THREADS 128  // threads a block while the weights fit in 48 KB
 
 namespace {
 
@@ -116,9 +115,12 @@ struct RawPointsMajor {
   }
 };
 
-// pt_tile_forward's inputs for schrodinger_residual: X^T (2, N) raw,
-// the pack W_l^T then b_l (pt_tile's layout); the tangent rows from
-// Wt_0 in the pack.  f32 only.
+// The features-major inputs, X^T (2, N) raw and the pack W_l^T then
+// b_l, f32 only.  pt_tile_forward (schrodinger_residual) reads the
+// tangent rows from Wt_0 in the pack (the template z1, z2);
+// pt_narrow_eval_forward (burgers_residual_fmajor) stages each layer as
+// the pack holds it, the narrow stage buffer's own layout (load_w), and
+// reads the tangent rows from the staged Wt_0 (z1, z2 of Wt0).
 struct RawFeaturesMajor {
   PtBox box;
   __device__ __forceinline__ float x0(const float* X, int, int col) const {
@@ -140,21 +142,16 @@ struct RawFeaturesMajor {
                                       int j) const {
     return pt_scale(box.lb1, box.ub1) * wpack[net.w_off[0] + 2 * j + 1];
   }
-};
-
-// X^T (2, N) and W_l^T (h_out, h_in): burgers_residual_fmajor's layout
-// on pt_eval_kernel.
-struct FeaturesMajor {
-  static __device__ __forceinline__ void point(const float* X, int n_pts,
-                                               int i, float* x0, float* x1) {
-    *x0 = X[i];
-    *x1 = X[(size_t)n_pts + i];
+  __device__ __forceinline__ void load_w(const PtNet& net, int l,
+                                         const float* __restrict__ wpack,
+                                         float* w_s) const {
+    pt_narrow_load_w<float>(net, l, wpack, w_s);
   }
-  static __device__ void load_weights(const PtNet& net, const float* wpack,
-                                      float* w_s) {
-    for (int i = threadIdx.x; i < net.z1_off; i += blockDim.x) {
-      w_s[i] = wpack[i];
-    }
+  __device__ __forceinline__ float z1(const float* Wt0, int j) const {
+    return pt_scale(box.lb0, box.ub0) * Wt0[2 * j];
+  }
+  __device__ __forceinline__ float z2(const float* Wt0, int j) const {
+    return pt_scale(box.lb1, box.ub1) * Wt0[2 * j + 1];
   }
 };
 
@@ -183,66 +180,6 @@ struct SchrodingerResidual {
   }
 };
 
-template <class Head, int W, class Layout>
-__global__ void pt_eval_kernel(PtNet net, const float* __restrict__ X,
-                               const float* __restrict__ wpack, int n_pts,
-                               PtBox box, typename Head::Args args,
-                               float* __restrict__ out) {
-  extern __shared__ float w_s[];
-  const float sx = 2.0f / (box.ub0 - box.lb0);
-  const float st = 2.0f / (box.ub1 - box.lb1);
-  Layout::load_weights(net, wpack, w_s);
-  __syncthreads();
-  // The tangent rows from the transposed first layer, W0^T[j] = (w_x, w_t).
-  const float* Wt0 = w_s + net.w_off[0];
-  for (int j = threadIdx.x; j < net.width[1]; j += blockDim.x) {
-    w_s[net.z1_off + j] = sx * Wt0[2 * j];
-    w_s[net.z2_off + j] = st * Wt0[2 * j + 1];
-  }
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pts) return;  // no barrier follows
-  float x0, x1;
-  Layout::point(X, n_pts, i, &x0, &x1);
-  const float a0 = 2.0f * (x0 - box.lb0) / (box.ub0 - box.lb0) - 1.0f;
-  const float a1 = 2.0f * (x1 - box.lb1) / (box.ub1 - box.lb1) - 1.0f;
-
-  float act[4 * W];
-  float buf[4 * W];
-  pt_forward_hidden<W, float>(net, w_s, a0, a1, act, buf);
-  float U[Head::kOut][4];
-  pt_output<W, Head::kOut>(net, w_s, act, U);
-  Head::store(args, U, out, n_pts, i);
-}
-
-// out: Head::kOut * n_pts floats.
-template <class Head, int W, class Layout>
-int pt_launch_eval(const int* widths, int n_layers, const float* X,
-                   const float* wpack, int n_pts, PtBox box,
-                   typename Head::Args args, float* out, void* stream) {
-  PtNet net;
-  int err = pt_make_net(widths, n_layers, Head::kOut, W, &net);
-  if (err) return err;
-  if (n_pts < 1) return (int)cudaErrorInvalidValue;
-  const void* kernel = (const void*)pt_eval_kernel<Head, W, Layout>;
-  size_t smem = 0;
-  err = pt_smem_bytes(net, kernel, &smem);
-  if (err) return err;
-  int threads = RESIDUAL_THREADS;
-  if (smem > 48 * 1024) {
-    int warps = 1;
-    err = pt_warps_per_block(smem, (n_pts + PT_TILE - 1) / PT_TILE, &warps);
-    if (err) return err;
-    threads = warps * PT_TILE;
-  }
-  const int blocks = (n_pts + threads - 1) / threads;
-  pt_eval_kernel<Head, W, Layout><<<blocks, threads, smem,
-                                    (cudaStream_t)stream>>>(
-      net, X, wpack, n_pts, box, args, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // ---- host entry points (plain C interface, loaded with ctypes) ----
@@ -267,11 +204,10 @@ int burgers_residual_fmajor(const float* X, const float* wpack,
                             const int* widths, int n_layers, int n_pts,
                             float lb0, float lb1, float ub0, float ub1,
                             float nu, float* out, void* stream) {
-  const PtBox box = {lb0, lb1, ub0, ub1};
+  const RawFeaturesMajor in = {{lb0, lb1, ub0, ub1}};
   const BurgersResidual::Args args = {nu};
-  return pt_launch_eval<BurgersResidual, RESIDUAL_BURGERS_MAX_WIDTH,
-                        FeaturesMajor>(widths, n_layers, X, wpack, n_pts, box,
-                                       args, out, stream);
+  return pt_narrow_launch_eval<BurgersResidual, RESIDUAL_BURGERS_MAX_WIDTH>(
+      widths, n_layers, in, X, wpack, n_pts, args, out, stream);
 }
 
 int schrodinger_residual(const float* X, const float* wpack, const int* widths,

@@ -36,7 +36,7 @@
 // their activations to an L2-resident slot a block and run the
 // backward; the loss-only entries (rows 8 and 8b) run the same forward
 // with nothing saved, so at the same grid their loss is bitwise the
-// loss+grad entries'.  One thread a point, as pt_mlp.cuh has it, kept
+// loss+grad entries'.  One thread a point, the port's first design, kept
 // the streams in local memory: 6 KB a thread for loss+grad, 1.6-2.3x
 // the plain PyTorch version's time, and loss-only 1.7-2.5x its plain
 // version's.

@@ -17,13 +17,13 @@ with ``f = u_t + u u_x - nu u_xx`` for Burgers and ``f_u = u_t + 0.5
 v_xx + (u^2 + v^2) v``, ``f_v = v_t - 0.5 u_xx - (u^2 + v^2) u`` for the
 two-output Schrödinger net.  The entry points
 (``pinn_torch/csrc/residual_eval.cu``) take the raw points and the box
-(lb, ub) and normalise in the kernel, as the TPU ones do:
-``burgers_residual`` on ``pt_narrow.cuh``'s block-tiled eval kernel,
-``schrodinger_residual`` on ``pt_tile.cuh``'s, and
-``burgers_residual_fmajor`` on a one-thread-a-point kernel.  This is
-how the port scores points: residual-based adaptive refinement (RAR)
-ranks its candidate pool by |f|, and the serving example scores its
-members.
+(lb, ub) and normalise in the kernel, as the TPU ones do: both
+Burgers layouts on ``pt_narrow.cuh``'s block-tiled eval kernel, each
+with its own loads (the two give the same values bit for bit on the
+same inputs), and ``schrodinger_residual`` on ``pt_tile.cuh``'s.  This
+is how the port scores points: residual-based adaptive refinement
+(RAR) ranks its candidate pool by |f|, and the serving example scores
+its members.
 
 Each function takes float32 only, as the TPU kernels do, and raises on
 anything else.  For CPU tensors it runs its plain version (the TPU

@@ -19,7 +19,9 @@ in another order, which can move a rounding): loss rtol 2e-3, gradient
 rel-L2 <= 1e-2 and cosine >= 0.9999 (the net gradients and the lambda
 adjoints each).  The residual-evaluation kernels against theirs at the
 bars of tests/test_pallas.py: Burgers rtol 2e-5 / atol 1e-6,
-Schrödinger rtol 2e-4 / atol 2e-6.
+Schrödinger rtol 2e-4 / atol 2e-6; the two Burgers residual layouts
+(one eval kernel, two input policies) bitwise equal on the same
+inputs.
 """
 
 import numpy as np
@@ -42,6 +44,8 @@ pytestmark = [
 NU = 0.01 / np.pi
 LB = np.array([-1.0, 0.0], np.float32)
 UB = np.array([1.0, 1.0], np.float32)
+S_LB = np.array([-5.0, 0.0], np.float32)
+S_UB = np.array([5.0, np.pi / 2], np.float32)
 
 
 def _case(layers, n_u, n_f, seed, device):
@@ -564,7 +568,7 @@ def _residual_case(layers, n, lb, ub, seed):
     return params_from_numpy(pairs, "cuda", torch.float32), X
 
 
-@pytest.mark.parametrize("layers,n", [
+BURGERS_RESIDUAL_SHAPES = [
     ([2] + [20] * 8 + [1], 25600),
     ([2, 20, 20, 1], 700),
     ([2, 20, 1], 2048),
@@ -577,8 +581,12 @@ def _residual_case(layers, n, lb, ub, seed):
     ([2, 7, 33, 64, 1], 1000),
     ([2] + [64] * 14 + [1], 1000),
     ([2] + [20] * 8 + [1], 200000),
-])
-@pytest.mark.parametrize("name", ["burgers_residual", "burgers_residual_fmajor"])
+]
+BURGERS_LAYOUTS = ["burgers_residual", "burgers_residual_fmajor"]
+
+
+@pytest.mark.parametrize("layers,n", BURGERS_RESIDUAL_SHAPES)
+@pytest.mark.parametrize("name", BURGERS_LAYOUTS)
 def test_burgers_residual_kernels_match_plain(layers, n, name):
     params, X = _residual_case(layers, n, LB, UB, seed=n)
     n0 = dict(rs.launches)
@@ -590,6 +598,50 @@ def test_burgers_residual_kernels_match_plain(layers, n, name):
     assert tuple(got.shape) == (n, 1)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
     assert torch.equal(got, again)
+
+
+def _check_burgers_layouts(params, X, lb, ub):
+    """Both Burgers layouts at (lb, ub): each against its plain version
+    and twice bitwise equal, launched twice each; the two bitwise equal
+    (one eval kernel, the same sums in the same order, only the loads
+    differ)."""
+    n0 = dict(rs.launches)
+    outs = {}
+    for name in BURGERS_LAYOUTS:
+        got = getattr(rs, name)(params, X, lb, ub, NU)
+        again = getattr(rs, name)(params, X, lb, ub, NU)
+        want = getattr(rs, name + "_plain")(params, X, lb, ub, NU)
+        torch.cuda.synchronize()
+        assert tuple(got.shape) == (X.shape[0], 1)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+        assert torch.equal(got, again)
+        outs[name] = got
+    assert _launched(rs, n0, *BURGERS_LAYOUTS) == (2, 2)
+    assert torch.equal(*outs.values())
+
+
+@pytest.mark.parametrize("layers,n", BURGERS_RESIDUAL_SHAPES)
+@pytest.mark.parametrize("box", ["unit", "schrodinger"])
+def test_burgers_residual_layouts_bitwise_equal(layers, n, box):
+    """Row 10 (features-major) is row 9 (points-major) bit for bit on the
+    same weights and points, in the unit box and in a box whose tangent
+    scales are neither 1 nor 2 (Schrödinger's, (-5, 0) to (5, pi/2))."""
+    lb, ub = (LB, UB) if box == "unit" else (S_LB, S_UB)
+    _check_burgers_layouts(*_residual_case(layers, n, lb, ub, seed=n), lb, ub)
+
+
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("box", ["unit", "schrodinger"])
+def test_burgers_residual_block_rule_edge(past, box):
+    """The eval kernel's launch takes 640 threads a block while its
+    ceil(N / 32) blocks fit the SMs one each, else 320: N = 32 x SMs
+    (the last grid on 640; 4,224 on 132 SMs) and one point more (the
+    first on 320)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n = 32 * n_sm + past
+    lb, ub = (LB, UB) if box == "unit" else (S_LB, S_UB)
+    _check_burgers_layouts(*_residual_case([2] + [20] * 8 + [1], n, lb, ub,
+                                           seed=n), lb, ub)
 
 
 @pytest.mark.parametrize("layers,n", [([2, 100, 100, 100, 100, 2], 51456),
@@ -611,10 +663,6 @@ def test_schrodinger_residual_kernel_matches_plain(layers, n):
     assert _launched(rs, n0, "schrodinger_residual") == (2,)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-6)
     assert torch.equal(got, again)
-
-
-S_LB = np.array([-5.0, 0.0], np.float32)
-S_UB = np.array([5.0, np.pi / 2], np.float32)
 
 
 def _residual_call(name, params, X):

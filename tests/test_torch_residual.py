@@ -74,19 +74,26 @@ def test_schrodinger_residual_matches_jax(layers, n):
 # The shapes the block-tiled residual kernels cut (pt_narrow.cuh: a
 # block a 32-point tile, hidden width <= 64): one point, a tile less or
 # more one point, hidden widths that are not multiples of 4, the widest
-# pack and the most hidden layers the Burgers entries take.
-@pytest.mark.parametrize("layers,n", [
-    (FLAGSHIP, 1), (FLAGSHIP, 31), (FLAGSHIP, 33),
-    ([2, 7, 33, 64, 1], 100),
-    ([2] + [64] * 14 + [1], 40),
-])
+# pack and the most hidden layers the Burgers entries take.  Each in the
+# unit box and in Schrödinger's, (-5, 0) to (5, pi/2), whose tangent
+# scales are neither 1 nor 2; the ids name the box where it is not the
+# unit one.
+TILE_EDGES = [(FLAGSHIP, 1), (FLAGSHIP, 31), (FLAGSHIP, 33),
+              ([2, 7, 33, 64, 1], 100), ([2] + [64] * 14 + [1], 40)]
+
+
+@pytest.mark.parametrize("layers,n,box", [
+    pytest.param(layers, n, box, id=f"{tag}layers{i}-{n}")
+    for box, tag in (("unit", ""), ("schrodinger", "schrodinger_box-"))
+    for i, (layers, n) in enumerate(TILE_EDGES)])
 @pytest.mark.parametrize("layout", ["burgers_residual", "burgers_residual_fmajor"])
-def test_burgers_residual_tile_edges_match_jax(layers, n, layout):
-    pairs, X = _case(layers, n, LB, UB, seed=10 * n + len(layers))
+def test_burgers_residual_tile_edges_match_jax(layers, n, box, layout):
+    lb, ub = (LB, UB) if box == "unit" else (S_LB, S_UB)
+    pairs, X = _case(layers, n, lb, ub, seed=10 * n + len(layers))
     want = np.asarray(getattr(pallas_residual, layout)(
-        _jax(pairs), jnp.asarray(X), LB, UB, 0.01 / np.pi, interpret=True))
+        _jax(pairs), jnp.asarray(X), lb, ub, 0.01 / np.pi, interpret=True))
     got = getattr(residual, layout)(params_from_numpy(pairs, "cpu"),
-                                    torch.as_tensor(X), LB, UB, 0.01 / np.pi)
+                                    torch.as_tensor(X), lb, ub, 0.01 / np.pi)
     assert tuple(got.shape) == want.shape == (n, 1)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-6)
 
