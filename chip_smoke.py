@@ -111,9 +111,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    (pt_narrow_eval_kernel) on the flagship grid and the Schrödinger residual
    (pt_tile_eval_kernel) on its grid, under the nets trained in 4 and
    4c, against the eager residuals.
+4k-4n. The discrete-time IRK families at full width, on the eager
+   loss (no hand-written kernel; every launch count must stay 0), each
+   with its parameters on the card: 4k ``inf_disc_burgers.run`` at [1,
+   50x3, 501], q = 500, N_n = 250; 4l ``ide_disc_burgers.run`` at [1,
+   50x3, 81], q = 81, N_0 = 199, N_1 = 201, clean and noisy cases; 4m
+   ``inf_disc_allencahn.run`` at [1, 200x4, 101], q = 100, N_n = 200:
+   each the campaign's float32 stage (float64 L-BFGS vectors, matrix
+   direction) cut to 100 Adam steps + 100 L-BFGS iterations, then 50
+   float64 (``net_impl: "df32"``) iterations from its checkpoints; 4n
+   ``ide_disc_kdv.run`` at [1, 50x3, 50], q = 50, N_0 = 199, N_1 =
+   201, clean and noisy, its one float32 stage cut to 100 + 100.  Each
+   prints its error (rel-L2, or the lambda pairs and the mean relative
+   lambda error), its wall-clock and its Adam and L-BFGS rates.
 Each main path runs with every launch count set to 0 just before its
-fused stage; every kernel of the path must have launched by its end,
-the logged loss must fall and every reported number must be finite.
+fused stage; every kernel of the path must have launched by its end
+(4k-4n: none may have), the logged loss must fall and every reported
+number must be finite.
 
 Bounds.  Each kernel's ``bound_ms`` is the larger of its bytes (inputs
 read once, outputs written once) over the card's 3.35 TB/s and its
@@ -1479,6 +1493,96 @@ def phase_residual_diagnostics() -> dict:
     return launches
 
 
+def _disc_stages(tag, run, stages, layers):
+    """Run one discrete-time IRK family's stages in order at full width
+    on the eager loss (these paths launch no hand-written kernel, so
+    every count stays 0); each stage's parameters on the card, its
+    logged losses falling and every value finite.  ``layers`` is the
+    full width the run must have taken (the output width set to q).
+    Prints the error (rel-L2, or the lambda pairs and the mean relative
+    lambda error), the stage's wall-clock and its Adam and L-BFGS
+    rates."""
+    from pinn_torch.params import leaves
+
+    _reset_counts()
+    values = []
+    for i, hp in enumerate(stages, 1):
+        r, seconds, runs = _run_stage(f"{tag} stage {i}", run, hp)
+        if r["hp"]["layers"] != layers:
+            raise AssertionError(f"{tag}: layers {r['hp']['layers']}, "
+                                 f"expected {layers}")
+        nets = [r["params"]] + ([r["params_noisy"]] if "params_noisy" in r else [])
+        if not all(a.is_cuda for net in nets for a in leaves(net)):
+            raise AssertionError(f"{tag} stage {i}: a parameter left the card")
+        if "lambdas" in r:
+            err = (f"lambda1 {r['lambdas'][0]:.6f}, lambda2 "
+                   f"{r['lambdas'][1]:.6e}; noisy lambda1 "
+                   f"{r['lambdas_noisy'][0]:.6f}, lambda2 "
+                   f"{r['lambdas_noisy'][1]:.6e}; mean relative lambda "
+                   f"error {r['error']:.6e}")
+            values += [*r["lambdas"], *r["lambdas_noisy"],
+                       float(np.max(np.abs(r["U_0_pred"]))),
+                       float(np.max(np.abs(r["U_1_pred"])))]
+        else:
+            err = f"rel-L2 {r['error']:.6e}"
+            values.append(float(np.max(np.abs(r["u_1_pred"]))))
+        timing = r["timing"]
+        cases = timing if "clean" in timing else {"": timing}
+        rates = []
+        for case, t in cases.items():
+            adam = hp["tf_epochs"] / t["adam_s"] if hp["tf_epochs"] else None
+            lbfgs = t["lbfgs_iters"] / t["lbfgs_s"]
+            rates.append(f"{case + ': ' if case else ''}"
+                         + (f"Adam {adam:.2f} steps/s ({1e3 / adam:.3f} ms), "
+                            if adam else "")
+                         + f"L-BFGS {lbfgs:.2f} iters/s ({1e3 / lbfgs:.3f} ms, "
+                         f"{t['lbfgs_iters']} iterations)")
+            values += [lbfgs] + ([adam] if adam else [])
+        name = f"[{tag}] stage {i} ({hp.get('dtype', 'float32')})"
+        log(f"{name} error: {err}")
+        log(f"{name} wall-clock: {seconds:.2f} s")
+        log(f"{name} rates: " + "; ".join(rates))
+        values += [r["error"], seconds, *[l for run_ in runs for _, _, l in run_]]
+        for net in nets:
+            values += _param_maxes(net)
+    _expect_counts(tag, {name: 0 for name in _counts()})
+    _check_finite(values)
+    return {}
+
+
+def _disc_hp(name, two_stages=True):
+    """The campaign's stages of a discrete recipe, cut to 100 + 100
+    (float32, float64 L-BFGS vectors, matrix direction) and 50 float64
+    iterations from the first's checkpoint."""
+    ckpt = os.path.join(WORK_DIR, f"{name}_stage1.npz")
+    stage1 = {"device": "cuda", "tf_epochs": 100, "nt_epochs": 100,
+              "log_frequency": 25, "save_checkpoint": ckpt,
+              "log_file": os.path.join(WORK_DIR, f"{name}_stage1.jsonl")}
+    if not two_stages:
+        return [stage1]
+    stage1.update(nt_vector_dtype="float64", nt_dir_impl="matrix")
+    stage2 = {"device": "cuda", "dtype": "float64", "net_impl": "df32",
+              "nt_dir_impl": "matrix", "init_checkpoint": ckpt,
+              "tf_epochs": 0, "nt_epochs": 50, "log_frequency": 10,
+              "log_file": os.path.join(WORK_DIR, f"{name}_stage2.jsonl")}
+    return [stage1, stage2]
+
+
+def phase_disc_main_paths() -> dict:
+    """4k-4n: the discrete-time IRK families at full width."""
+    from pinn_torch.experiments import (ide_disc_burgers, ide_disc_kdv,
+                                        inf_disc_allencahn, inf_disc_burgers)
+    _disc_stages("4k disc burgers", inf_disc_burgers.run,
+                 _disc_hp("disc_burgers"), [1, 50, 50, 50, 501])
+    _disc_stages("4l ide disc burgers", ide_disc_burgers.run,
+                 _disc_hp("ide_disc_burgers"), [1, 50, 50, 50, 81])
+    _disc_stages("4m allen-cahn", inf_disc_allencahn.run,
+                 _disc_hp("allencahn"), [1, 200, 200, 200, 200, 101])
+    _disc_stages("4n kdv", ide_disc_kdv.run,
+                 _disc_hp("kdv", two_stages=False), [1, 50, 50, 50, 50])
+    return {}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1491,6 +1595,10 @@ def main() -> int:
     import pinn_torch.experiments.inf_cont_burgers  # noqa: F401
     import pinn_torch.experiments.inf_cont_schrodinger  # noqa: F401
     import pinn_torch.experiments.serving_example  # noqa: F401
+    import pinn_torch.experiments.ide_disc_burgers  # noqa: F401
+    import pinn_torch.experiments.ide_disc_kdv  # noqa: F401
+    import pinn_torch.experiments.inf_disc_allencahn  # noqa: F401
+    import pinn_torch.experiments.inf_disc_burgers  # noqa: F401
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -1512,8 +1620,11 @@ def main() -> int:
                 **phase_schrodinger_bf16_main_path(),
                 **phase_rar_main_path(), **phase_facade_main_path(),
                 **phase_serving_main_path(), **phase_residual_diagnostics()}
+    t2 = time.perf_counter()
+    phase_disc_main_paths()
     log(f"[time] kernel checks {t1 - t0:.1f} s, main paths "
-        f"{time.perf_counter() - t1:.1f} s")
+        f"{t2 - t1:.1f} s, discrete families (4k-4n) "
+        f"{time.perf_counter() - t2:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

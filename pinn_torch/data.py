@@ -43,7 +43,7 @@ import numpy as np
 
 from pinn_torch import irk
 
-_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
 
 
@@ -61,7 +61,7 @@ def load_burgers(path: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray, np
     reference's ``burgers_{x,t,u}.npy`` triple (the sibling files are
     derived from the name; reference datagen/1d-burgers/datagen_old.py:7-16).
     """
-    path = path or os.path.join(_DATA_DIR, "burgers_shock.npz")
+    path = path or os.path.join(DATA_DIR, "burgers_shock.npz")
     if path.endswith(".npy"):
         import re
         base = re.sub(r"_[xtu]\.npy$", "", path)
@@ -78,12 +78,25 @@ def load_burgers(path: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray, np
 
 def load_schrodinger(path: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """-> x (256,1), t (201,1), uu (256,201) complex128."""
-    path = path or os.path.join(_DATA_DIR, "NLS.npz")
+    path = path or os.path.join(DATA_DIR, "NLS.npz")
     d = _load_any(path)
     x = d["x"].reshape(-1, 1).astype(np.float64)
     t = d["tt"].reshape(-1, 1).astype(np.float64)
     uu = d["uu"].astype(np.complex128)
     return x, t, uu
+
+
+def load_snapshots(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A spectral-solver dataset (``data/AC.npz``, ``data/KdV.npz``:
+    keys ``x``, ``tt``, ``uu``) -> x (Nx, 1), t (Nt, 1), uu (Nx, Nt),
+    space-major.  The JAX experiments generate a missing file through
+    ``datagen/``; the port does not import it, so a missing file raises."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"dataset {path} is missing; generate it with the JAX "
+            f"package's datagen/ (the port does not import it)")
+    d = _load_any(path)
+    return (d["x"].flatten()[:, None], d["tt"].flatten()[:, None], d["uu"])
 
 
 def lhs(n: int, samples: int, rng: Optional[np.random.RandomState] = None) -> np.ndarray:

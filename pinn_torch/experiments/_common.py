@@ -60,6 +60,14 @@ def setup(hp, not_ported: Sequence[str] = ()) -> Tuple[int, torch.dtype,
     return seed, dtype, device
 
 
+def check_no_mesh(hp) -> None:
+    """The experiments on small point sets refuse ``tpu_mesh``, as the
+    JAX ones do: a few hundred points do not pay for sharding."""
+    if hp.get("tpu_mesh"):
+        raise ValueError("tpu_mesh is not supported by this experiment "
+                         "(tiny point sets; see PARITY.md S2.5)")
+
+
 def _case_path(path: str, case) -> str:
     """``path`` suffixed per sub-case (``run-noisy.npz``)."""
     if not case:

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_cont_identification
-from pinn_torch.experiments._common import (maybe_load_params,
+from pinn_torch.experiments._common import (check_no_mesh,
+                                            maybe_load_params,
                                             maybe_save_params, setup,
                                             wants_bf16)
 from pinn_torch.models import mlp
@@ -122,9 +123,7 @@ def train_once(hp, seed, dtype, device, noise: float, logger):
 
 def run(hp=None):
     hp = {**DEFAULT_HP, **(hp or {})}
-    if hp.get("tpu_mesh"):
-        raise ValueError("tpu_mesh is not supported by this experiment "
-                         "(tiny point sets; see PARITY.md S2.5)")
+    check_no_mesh(hp)
     if hp.get("fused_residual") and hp.get("tf_net_dtype"):
         raise NotImplementedError(
             "tf_net_dtype with fused_residual is not reproduced: the JAX "

@@ -1,0 +1,133 @@
+"""Accuracy recipes on the PyTorch port: each recipe's stages chained
+through checkpoints, its error against the campaign budget, and each
+stage's wall-clock and rates.
+
+Counterpart of ``experiments/run_campaign.py`` for the recipes the port
+has so far, the discrete-time IRK families; ``CAMPAIGN`` and
+``BUDGETS`` are copies of that file's entries for them.  A
+``net_impl: "df32"`` stage runs as native float64.  ``--quick`` cuts
+every stage to ``QUICK_OVERRIDES``.  Each recipe prints one JSON line
+(its error, whether it met the budget, each stage's error, wall-clock
+and rates); ``--out FILE`` also writes the list of them.  On a CUDA
+device the run prints the card's name and power limit first.  Results
+are not appended to ``RESULTS.md``, which holds the JAX package's TPU
+runs.
+
+Usage: ``python -m pinn_torch.experiments.run_campaign NAME [NAME ...]
+[--quick] [--device cpu] [--out FILE]``
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+from pinn_torch.device import device_name, resolve_device
+
+CAMPAIGN = {
+    "inf_disc_burgers": [
+        {"nt_vector_dtype": "float64", "nt_dir_impl": "matrix",
+         "tf_epochs": 1000, "nt_epochs": 3000, "log_frequency": 1000},
+        {"dtype": "float64", "net_impl": "df32", "nt_dir_impl": "matrix",
+         "tf_epochs": 0, "nt_epochs": 6000, "log_frequency": 1000}],
+    "ide_disc_burgers": [
+        {"nt_vector_dtype": "float64", "nt_dir_impl": "matrix",
+         "tf_epochs": 1000, "nt_epochs": 6000, "log_frequency": 1000},
+        {"dtype": "float64", "net_impl": "df32", "nt_dir_impl": "matrix",
+         "tf_epochs": 0, "nt_epochs": 8000, "log_frequency": 1000}],
+    "inf_disc_allencahn": [
+        {"nt_vector_dtype": "float64", "nt_dir_impl": "matrix",
+         "tf_epochs": 1000, "nt_epochs": 20000, "log_frequency": 2000},
+        {"dtype": "float64", "net_impl": "df32", "nt_dir_impl": "matrix",
+         "tf_epochs": 0, "nt_epochs": 30000, "log_frequency": 2000}],
+    "ide_disc_kdv": [
+        {"tf_epochs": 200, "nt_epochs": 10000, "log_frequency": 1000}],
+}
+
+# Mean relative lambda error for ide_*, rel-L2 otherwise.
+BUDGETS = {
+    "inf_disc_burgers": 1.5e-3,
+    "ide_disc_burgers": 4e-4,
+    "inf_disc_allencahn": 3e-3,
+    "ide_disc_kdv": 5e-4,
+}
+
+QUICK_OVERRIDES = {"tf_epochs": 50, "nt_epochs": 200, "log_frequency": 50}
+
+
+def run_recipe(name: str, workdir: str, device=None, quick: bool = False,
+               overrides=None) -> dict:
+    """Run ``name``'s stages in order, each from the checkpoint of the
+    one before (per case for the identification recipes), on
+    ``device``.  ``overrides`` update every stage's hp (after
+    ``--quick``'s)."""
+    mod = importlib.import_module(f"pinn_torch.experiments.{name}")
+    dev = resolve_device(device)
+    stages, ckpt = [], None
+    for i, stage in enumerate(CAMPAIGN[name]):
+        hp = {**stage, **(QUICK_OVERRIDES if quick else {}),
+              **(overrides or {}), "device": str(dev)}
+        if ckpt:
+            hp["init_checkpoint"] = ckpt
+        ckpt = os.path.join(workdir, f"{name}-stage{i + 1}.npz")
+        hp["save_checkpoint"] = ckpt
+        t0 = _now(dev)
+        result = mod.run(hp)
+        seconds = _now(dev) - t0
+        row = {"stage": i + 1, "error": result["error"],
+               "seconds": seconds, "tf_epochs": hp["tf_epochs"],
+               "dtype": hp.get("dtype", "float32"),
+               "timing": result["timing"]}
+        for key in ("lambdas", "lambdas_noisy"):
+            if key in result:
+                row[key] = result[key]
+        stages.append(row)
+        print(f"[{name}] stage {i + 1}: error {result['error']:.6e}, "
+              f"{seconds:.2f} s", flush=True)
+    error = stages[-1]["error"]
+    return {"experiment": name, "error": error, "budget": BUDGETS[name],
+            "met": error <= BUDGETS[name], "device": device_name(dev),
+            "seconds": sum(s["seconds"] for s in stages), "stages": stages}
+
+
+def _now(dev) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("names", nargs="+", choices=sorted(CAMPAIGN))
+    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    if resolve_device(args.device).type == "cuda":
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip()
+        print(f"[card] nvidia-smi: {smi}", flush=True)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in args.names:
+            row = run_recipe(name, tmp, args.device, args.quick)
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(rows, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,20 @@
-"""1D viscous Burgers: continuous-time residual, inference and
-identification losses.
+"""1D viscous Burgers: residuals and losses of all four modes.
 
-Counterpart of the continuous terms of ``pinn/problems/burgers.py``:
-``f = u_t + lambda1 u u_x - lambda2 u_xx`` from one Taylor-mode pass,
-``loss = mse(u - u_pred) + mse(f)`` for inference, and for
-identification the same with trainable ``lambda1`` and
+Counterpart of ``pinn/problems/burgers.py``.
+
+Continuous time: ``f = u_t + lambda1 u u_x - lambda2 u_xx`` from one
+Taylor-mode pass, ``loss = mse(u - u_pred) + mse(f)`` for inference,
+and for identification the same with trainable ``lambda1`` and
 ``lambda2 = exp(log_lambda2)`` (``IdeParams``), the residual taken at
 the data points.  These eager losses are the float64 engine of the
 port (the refinement stage) and the oracles the fused kernels' plain
 versions are tested against.
+
+Discrete time (q-stage IRK): the network maps x to the stage values;
+their x-derivatives come from one Taylor pass along x (the input is
+1-D, so the tangent is one constant row), and a (N, q)·(q, q+1)
+product couples the stages.  The losses are sums of squares, not
+means, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ from pinn_torch.models import mlp
 
 def mse(x: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.square(x))
+
+
+def sse(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.square(x))
 
 
 def _vx(X: torch.Tensor) -> torch.Tensor:
@@ -83,3 +93,58 @@ def loss_cont_identification(params: IdeParams, X_u, u, lb, ub) -> torch.Tensor:
     f = residual_cont(params.net, X_u, lb, ub, lambda1=params.lambda1,
                       lambda2=torch.exp(params.log_lambda2))
     return mse(u - u_pred) + mse(f)
+
+
+# ---------------------------------------------------------------------------
+# Discrete time (q-stage IRK)
+# ---------------------------------------------------------------------------
+
+def _stage_derivs(net_params, x, lb, ub):
+    """(U, U_x, U_xx) stage matrices, each (N, dout), in one Taylor pass
+    along x."""
+    v1 = torch.ones((1,), dtype=x.dtype, device=x.device)
+    out = mlp.taylor_apply(net_params, x, lb, ub, v1)
+    return out.value, out.d1, out.d11
+
+
+def u0_pred_disc_inference(net_params, x_0, lb, ub, nu, dt, irk_weights):
+    """Backward IRK map from the q + 1 outputs U1(x) to u at t0:
+    U_0 = U_1 + dt (U U_x - nu U_xx) W^T over the q stage columns, with
+    W the (q+1, q) stacked [A; b]."""
+    U1, U1_x, U1_xx = _stage_derivs(net_params, x_0, lb, ub)
+    U, U_x, U_xx = U1[:, :-1], U1_x[:, :-1], U1_xx[:, :-1]
+    N = U * U_x - nu * U_xx
+    return U1 + dt * N @ irk_weights.T
+
+
+def loss_disc_inference(net_params, x_0, u_0, x_1, lb, ub, nu, dt,
+                        irk_weights) -> torch.Tensor:
+    """SSE to the t0 snapshot + SSE of the homogeneous Dirichlet values
+    at ``x_1`` = [lb; ub]."""
+    u_0_pred = u0_pred_disc_inference(net_params, x_0, lb, ub, nu, dt,
+                                      irk_weights)
+    u_1_bnd = mlp.apply(net_params, x_1, lb, ub)
+    return sse(u_0_pred - u_0) + sse(u_1_bnd)
+
+
+def disc_ide_stage_maps(params: IdeParams, x, lb, ub, dt, irk_alpha,
+                        irk_beta):
+    """(U_0, U_1): the stage values mapped back to t0 and forward to t1,
+    with N = lambda1 U U_x - exp(log_lambda2) U_xx."""
+    U, U_x, U_xx = _stage_derivs(params.net, x, lb, ub)
+    l1 = params.lambda1
+    l2 = torch.exp(params.log_lambda2)
+    N = l1 * U * U_x - l2 * U_xx
+    U_0 = U + dt * N @ irk_alpha.T
+    U_1 = U + dt * (-N) @ (irk_beta - irk_alpha).T
+    return U_0, U_1
+
+
+def loss_disc_identification(params: IdeParams, x_0, u_0, x_1, u_1, lb, ub,
+                             dt, irk_alpha, irk_beta) -> torch.Tensor:
+    """SSE to both snapshots."""
+    U_0_pred, _ = disc_ide_stage_maps(params, x_0, lb, ub, dt, irk_alpha,
+                                      irk_beta)
+    _, U_1_pred = disc_ide_stage_maps(params, x_1, lb, ub, dt, irk_alpha,
+                                      irk_beta)
+    return sse(U_0_pred - u_0) + sse(U_1_pred - u_1)

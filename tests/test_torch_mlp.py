@@ -60,6 +60,29 @@ def test_taylor_apply_matches_jax(order):
                                    atol=1e-13, err_msg=name)
 
 
+@pytest.mark.parametrize("order", [2, 3])
+def test_taylor_apply_din1_matches_jax(order):
+    """din = 1, the discrete-time families' stage pass: one direction,
+    v1 = [1], no v2, many outputs (the IRK stages)."""
+    layers, lb, ub = [1, 20, 20, 33], np.array([-1.0]), np.array([1.0])
+    jp = jax_mlp.init_mlp(jax.random.PRNGKey(3), layers, jnp.float64)
+    tp = params_from_numpy([(np.asarray(w), np.asarray(b)) for w, b in jp],
+                           "cpu", torch.float64)
+    X = lb + (ub - lb) * np.random.RandomState(3).rand(40, 1)
+    v1 = np.array([1.0])
+    want = jax_mlp.taylor_apply(jp, jnp.asarray(X), lb, ub, jnp.asarray(v1),
+                                order=order)
+    got = mlp.taylor_apply(tp, _t(X), _t(lb), _t(ub), _t(v1), order=order)
+    for name in ("value", "d1", "d11", "d2", "d111"):
+        w, g = getattr(want, name), getattr(got, name)
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.shape == (40, 33), name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-13, err_msg=name)
+
+
 def test_single_linear_layer_matches_jax():
     jp = jax_mlp.init_mlp(jax.random.PRNGKey(2), [2, 3], jnp.float64)
     tp = params_from_numpy([(np.asarray(w), np.asarray(b)) for w, b in jp],

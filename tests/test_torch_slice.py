@@ -117,12 +117,16 @@ def test_port_never_imports_jax():
             "import pinn_torch.experiments.ide_cont_burgers\n"
             "import pinn_torch.experiments.inf_cont_schrodinger\n"
             "import pinn_torch.experiments.serving_example\n"
+            "import pinn_torch.experiments.inf_disc_burgers\n"
+            "import pinn_torch.experiments.ide_disc_burgers\n"
+            "import pinn_torch.experiments.inf_disc_allencahn\n"
+            "import pinn_torch.experiments.ide_disc_kdv\n"
             "import pinn_torch.ops.fused_train, pinn_torch.optim.lbfgs\n"
             "import pinn_torch.ops.fused_schrodinger, pinn_torch.ops.residual\n"
             "import pinn_torch.api, pinn_torch.ensemble, pinn_torch.export\n"
             "import pinn_torch.dtypes\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'pinn'))\n"
+            "('jax', 'jaxlib', 'pinn', 'datagen', 'experiments'))\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
