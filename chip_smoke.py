@@ -124,9 +124,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    201, clean and noisy, its one float32 stage cut to 100 + 100.  Each
    prints its error (rel-L2, or the lambda pairs and the mean relative
    lambda error), its wall-clock and its Adam and L-BFGS rates.
+4o. Navier–Stokes psi–p identification at full width, on the eager
+   13-stream loss (no hand-written kernel; every launch count must stay
+   0): ``ide_cont_navierstokes.run`` on the spectral DNS at its default
+   grid (128 x 128 x 41 = 671,744 points) with the campaign's [3, 40x8,
+   2] net and N_u = 10,000, clean and noisy cases; the campaign's stage
+   (float32, float64 L-BFGS vectors, matrix direction) cut to 100 Adam
+   steps + 100 L-BFGS iterations, then 20 float64 (``net_impl:
+   "df32"``) iterations from its checkpoints with a separate
+   collocation set (``N_f: 20000``) and best-iterate selection
+   (``nt_val_every: 10``).  Prints the lambda pairs, the mean relative
+   lambda error, the rel-L2 of u, v and the gauge-adjusted p on the
+   full grid, and each stage's wall-clock and Adam and L-BFGS rates.
 Each main path runs with every launch count set to 0 just before its
 fused stage; every kernel of the path must have launched by its end
-(4k-4n: none may have), the logged loss must fall and every reported
+(4k-4o: none may have), the logged loss must fall and every reported
 number must be finite.
 
 Bounds.  Each kernel's ``bound_ms`` is the larger of its bytes (inputs
@@ -227,6 +239,8 @@ FWD_EW, BWD_EW = 12, 40       # elementwise operations per hidden neuron
                               # and point (tanh and stream recombination;
                               # its adjoint and the rematerialisation)
 TRAINED = {}                  # nets trained by phases 4 and 4c, for 4j
+NS_LAYERS = [3] + [40] * 8 + [2]   # the Navier–Stokes campaign recipe's net
+NS_GRID = 128 * 128 * 41           # the spectral DNS's default grid
 
 
 def log(msg: str) -> None:
@@ -1494,18 +1508,19 @@ def phase_residual_diagnostics() -> dict:
 
 
 def _disc_stages(tag, run, stages, layers):
-    """Run one discrete-time IRK family's stages in order at full width
-    on the eager loss (these paths launch no hand-written kernel, so
-    every count stays 0); each stage's parameters on the card, its
-    logged losses falling and every value finite.  ``layers`` is the
-    full width the run must have taken (the output width set to q).
-    Prints the error (rel-L2, or the lambda pairs and the mean relative
-    lambda error), the stage's wall-clock and its Adam and L-BFGS
-    rates."""
+    """Run one eager family's stages in order at full width (the
+    discrete-time IRK families, Navier–Stokes: these paths launch no
+    hand-written kernel, so every count stays 0); each stage's
+    parameters on the card, its logged losses falling and every value
+    finite.  ``layers`` is the full width the run must have taken (the
+    output width set to q).  Prints the error (rel-L2, or the lambda
+    pairs and the mean relative lambda error, and the field errors
+    where the run has them), the stage's wall-clock and its Adam and
+    L-BFGS rates.  Returns the results."""
     from pinn_torch.params import leaves
 
     _reset_counts()
-    values = []
+    values, results = [], []
     for i, hp in enumerate(stages, 1):
         r, seconds, runs = _run_stage(f"{tag} stage {i}", run, hp)
         if r["hp"]["layers"] != layers:
@@ -1520,12 +1535,17 @@ def _disc_stages(tag, run, stages, layers):
                    f"{r['lambdas_noisy'][0]:.6f}, lambda2 "
                    f"{r['lambdas_noisy'][1]:.6e}; mean relative lambda "
                    f"error {r['error']:.6e}")
-            values += [*r["lambdas"], *r["lambdas_noisy"],
-                       float(np.max(np.abs(r["U_0_pred"]))),
-                       float(np.max(np.abs(r["U_1_pred"])))]
+            values += [*r["lambdas"], *r["lambdas_noisy"]]
         else:
             err = f"rel-L2 {r['error']:.6e}"
-            values.append(float(np.max(np.abs(r["u_1_pred"]))))
+        if "field_errors" in r:
+            fe = r["field_errors"]
+            err += (f"; rel-L2 on the {r['data'].X_star.shape[0]:,}-point "
+                    f"grid: u {fe['u']:.6e}, v {fe['v']:.6e}, p "
+                    f"(gauge-adjusted) {fe['p']:.6e}")
+            values += [fe["u"], fe["v"], fe["p"]]
+        values += [float(np.max(np.abs(r[key])))
+                   for key in ("U_0_pred", "U_1_pred", "u_1_pred") if key in r]
         timing = r["timing"]
         cases = timing if "clean" in timing else {"": timing}
         rates = []
@@ -1545,9 +1565,10 @@ def _disc_stages(tag, run, stages, layers):
         values += [r["error"], seconds, *[l for run_ in runs for _, _, l in run_]]
         for net in nets:
             values += _param_maxes(net)
+        results.append(r)
     _expect_counts(tag, {name: 0 for name in _counts()})
     _check_finite(values)
-    return {}
+    return results
 
 
 def _disc_hp(name, two_stages=True):
@@ -1583,6 +1604,32 @@ def phase_disc_main_paths() -> dict:
     return {}
 
 
+def phase_navierstokes_main_path() -> dict:
+    """4o: Navier–Stokes identification at the campaign's width on the
+    spectral DNS's full grid, a float32 stage and a float64 stage with a
+    separate collocation set and best-iterate selection."""
+    from pinn_torch.experiments import ide_cont_navierstokes
+
+    ckpt = os.path.join(WORK_DIR, "ns_stage1.npz")
+    common = {"device": "cuda", "layers": NS_LAYERS, "N_u": 10000,
+              "nt_dir_impl": "matrix"}
+    stage1 = {**common, "nt_vector_dtype": "float64", "tf_epochs": 100,
+              "nt_epochs": 100, "log_frequency": 25, "save_checkpoint": ckpt,
+              "log_file": os.path.join(WORK_DIR, "ns_stage1.jsonl")}
+    stage2 = {**common, "dtype": "float64", "net_impl": "df32",
+              "init_checkpoint": ckpt, "tf_epochs": 0, "nt_epochs": 20,
+              "N_f": 20000, "nt_val_every": 10, "log_frequency": 10,
+              "log_file": os.path.join(WORK_DIR, "ns_stage2.jsonl")}
+    results = _disc_stages("4o navier-stokes", ide_cont_navierstokes.run,
+                           [stage1, stage2], NS_LAYERS)
+    for i, r in enumerate(results, 1):
+        if r["data"].X_star.shape[0] != NS_GRID or r["hp"]["N_u"] != 10000:
+            raise AssertionError(
+                f"4o stage {i}: grid {r['data'].X_star.shape[0]} points, N_u "
+                f"{r['hp']['N_u']}; expected {NS_GRID} and 10000")
+    return {}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1595,6 +1642,7 @@ def main() -> int:
     import pinn_torch.experiments.inf_cont_burgers  # noqa: F401
     import pinn_torch.experiments.inf_cont_schrodinger  # noqa: F401
     import pinn_torch.experiments.serving_example  # noqa: F401
+    import pinn_torch.experiments.ide_cont_navierstokes  # noqa: F401
     import pinn_torch.experiments.ide_disc_burgers  # noqa: F401
     import pinn_torch.experiments.ide_disc_kdv  # noqa: F401
     import pinn_torch.experiments.inf_disc_allencahn  # noqa: F401
@@ -1622,9 +1670,11 @@ def main() -> int:
                 **phase_serving_main_path(), **phase_residual_diagnostics()}
     t2 = time.perf_counter()
     phase_disc_main_paths()
+    t3 = time.perf_counter()
     log(f"[time] kernel checks {t1 - t0:.1f} s, main paths "
-        f"{t2 - t1:.1f} s, discrete families (4k-4n) "
-        f"{time.perf_counter() - t2:.1f} s")
+        f"{t2 - t1:.1f} s, discrete families (4k-4n) {t3 - t2:.1f} s")
+    phase_navierstokes_main_path()
+    log(f"[time] Navier-Stokes (4o) {time.perf_counter() - t3:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

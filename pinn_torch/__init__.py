@@ -11,10 +11,14 @@ reaches one (``pinn_torch.ops._build``).
 
 Ported so far: data prep, the tanh MLP with Taylor-mode streams, the
 continuous-time Burgers (inference with RAR, identification) and
-Schrödinger families with their eager and fused losses, a counterpart of
-every TPU kernel in CUDA C++ (``pinn_torch/csrc/``), Adam, the repo's
-own L-BFGS, the Trainer, the facade (``api``), ensembling, serving
-export and the experiments under ``pinn_torch.experiments``.
+Schrödinger families with their eager and fused losses, the
+discrete-time IRK families, Navier–Stokes identification (with the
+dataset generators in ``pinn_torch.datagen`` and the jvp oracles in
+``pinn_torch.ops.diff``), a counterpart of every TPU kernel in CUDA C++
+(``pinn_torch/csrc/``), Adam, the repo's own L-BFGS, the Trainer, the
+facade (``api``), ensembling, serving export, the experiments and
+campaign recipes under ``pinn_torch.experiments`` and the command line
+``python -m pinn_torch`` (``pinn_torch.cli``).
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,9 @@ metadata.  A file written by either package loads in the other.
 ``(W, b)`` numpy arrays (``np.asarray`` of each JAX leaf) becomes a
 list of torch tensors on the named device and dtype;
 :func:`ide_params_from_numpy` does the same for identification
-parameters ``(net_pairs, lambda1, log_lambda2)``.
+parameters ``(net_pairs, lambda1, log_lambda2)`` and
+:func:`ns_ide_params_from_numpy` for the Navier–Stokes ones
+``(net_pairs, lambda1, lambda2)``.
 """
 
 from __future__ import annotations
@@ -47,12 +49,27 @@ def ide_params_from_numpy(net_pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     from pinn_torch.problems.burgers import IdeParams
 
     dev = resolve_device(device)
-
-    def vec(a):  # (1,) like the JAX leaves
-        return torch.as_tensor(np.array(a).reshape(1), dtype=dtype, device=dev)
-
     return IdeParams(net=params_from_numpy(net_pairs, dev, dtype),
-                     lambda1=vec(lambda1), log_lambda2=vec(log_lambda2))
+                     lambda1=_vec(lambda1, dev, dtype),
+                     log_lambda2=_vec(log_lambda2, dev, dtype))
+
+
+def ns_ide_params_from_numpy(net_pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+                             lambda1: np.ndarray, lambda2: np.ndarray,
+                             device: DeviceLike = None,
+                             dtype: torch.dtype = torch.float32):
+    """JAX ``NSIdeParams`` leaves as numpy -> the port's ``NSIdeParams``."""
+    from pinn_torch.problems.navierstokes import NSIdeParams
+
+    dev = resolve_device(device)
+    return NSIdeParams(net=params_from_numpy(net_pairs, dev, dtype),
+                       lambda1=_vec(lambda1, dev, dtype),
+                       lambda2=_vec(lambda2, dev, dtype))
+
+
+def _vec(a, device, dtype) -> torch.Tensor:
+    """A scalar leaf as a (1,) tensor, like the JAX leaves."""
+    return torch.as_tensor(np.array(a).reshape(1), dtype=dtype, device=device)
 
 
 def save_npz(path: str, params: Any, hp: Optional[dict] = None,

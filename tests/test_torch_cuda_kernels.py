@@ -21,7 +21,8 @@ adjoints each).  The residual-evaluation kernels against theirs at the
 bars of tests/test_pallas.py: Burgers rtol 2e-5 / atol 1e-6,
 Schrödinger rtol 2e-4 / atol 2e-6; the two Burgers residual layouts
 (one eval kernel, two input policies) bitwise equal on the same
-inputs.
+inputs.  The eager Navier–Stokes loss and gradients on the card against
+the CPU, float64 rtol 1e-10.
 """
 
 import numpy as np
@@ -706,3 +707,43 @@ def test_residual_wrappers_raise_instead_of_falling_back():
     s_wide, Xs = _residual_case([2, 129, 2], 40, S_LB, S_UB, seed=3)
     with pytest.raises(ValueError, match="widths"):
         rs.schrodinger_residual(s_wide, Xs, S_LB, S_UB)
+
+
+def test_navierstokes_loss_grad_on_card_matches_cpu():
+    """The eager Navier–Stokes identification loss (13 streams through
+    the campaign's [3, 40x8, 2] net, a separate collocation set) and its
+    net and lambda gradients on the card against the same call on the
+    CPU, float64 rtol 1e-10; the parameters and gradients stay on the
+    card.  No kernel of ours: every launch count stays put."""
+    from pinn_torch import params as pcodec
+    from pinn_torch.problems import navierstokes as ns
+
+    layers = [3] + [40] * 8 + [2]
+    lb, ub = np.zeros(3), np.array([2 * np.pi, 2 * np.pi, 2.0])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.RandomState(15)
+        pairs = [(rng.randn(a, b) * np.sqrt(2.0 / (a + b)), 0.1 * rng.randn(b))
+                 for a, b in zip(layers[:-1], layers[1:])]
+
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+        params = ns.NSIdeParams(net=params_from_numpy(pairs, dev, torch.float64),
+                                lambda1=t([0.9]), lambda2=t([0.012]))
+        X, X_f = (lb + (ub - lb) * rng.rand(n, 3) for n in (2000, 3000))
+        u, v = rng.randn(2000, 1), rng.randn(2000, 1)
+        leaves = [a.requires_grad_(True) for a in pcodec.leaves(params)]
+        n0 = {**ft.launches, **fs.launches, **rs.launches}
+        loss = ns.loss_identification(params, t(X), t(u), t(v), t(lb), t(ub),
+                                      X_f=t(X_f))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        assert {**ft.launches, **fs.launches, **rs.launches} == n0
+        if dev == "cuda":
+            assert loss.is_cuda and all(a.is_cuda for a in leaves + list(grads))
+        outs[dev] = [loss.detach().cpu()] + [g.cpu() for g in grads]
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-10, atol=0.0)
+    gmax = max(float(g.abs().max()) for g in outs["cpu"][1:])
+    for a, b in zip(outs["cuda"][1:], outs["cpu"][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12 * gmax)

@@ -121,6 +121,12 @@ def test_port_never_imports_jax():
             "import pinn_torch.experiments.ide_disc_burgers\n"
             "import pinn_torch.experiments.inf_disc_allencahn\n"
             "import pinn_torch.experiments.ide_disc_kdv\n"
+            "import pinn_torch.experiments.ide_cont_navierstokes\n"
+            "import pinn_torch.experiments.run_campaign\n"
+            "import pinn_torch.cli, pinn_torch.ops.diff\n"
+            "import pinn_torch.problems.navierstokes\n"
+            "import pinn_torch.datagen.navierstokes_spectral\n"
+            "import pinn_torch.datagen.navierstokes_exact\n"
             "import pinn_torch.ops.fused_train, pinn_torch.optim.lbfgs\n"
             "import pinn_torch.ops.fused_schrodinger, pinn_torch.ops.residual\n"
             "import pinn_torch.api, pinn_torch.ensemble, pinn_torch.export\n"
