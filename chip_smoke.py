@@ -136,6 +136,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``nt_val_every: 10``).  Prints the lambda pairs, the mean relative
    lambda error, the rel-L2 of u, v and the gauge-adjusted p on the
    full grid, and each stage's wall-clock and Adam and L-BFGS rates.
+4p. The flagship with ``trace_dir`` (the Trainer wraps ``fit`` in
+   ``torch.profiler``, CPU and CUDA activity, one Chrome-trace JSON):
+   ``inf_cont_burgers.run`` at [2, 20x8, 1], N_u = 100, N_f = 10,000,
+   fused float32, float64 L-BFGS vectors, the experiment's Armijo
+   search (its trials launch row 2), 50 Adam steps + 20 L-BFGS
+   iterations.  The trace is
+   read and deleted: the launches of rows 1 and 2's kernels in it
+   (``pt_narrow_loss_grad_kernel``, ``pt_narrow_loss_kernel``) must
+   equal the launch counters less the run's closing loss evaluation,
+   which falls after ``fit``.  Then, each traced alone, an Adam-only run
+   (50 steps) and an L-BFGS-only run (20 iterations from the first
+   run's checkpoint), and the same two for a few steps of 4k
+   (``inf_disc_burgers`` at [1, 50x3, 501]: 20 + 10) and 4o
+   (Navier–Stokes at [3, 40x8, 2], N_u = 10,000, clean and noisy
+   cases: 3 + 2, for the trace's size), where no kernel
+   of ours may appear in the trace or on the counters.  For each it
+   prints the busy share: the union of the device's kernel, memcpy and
+   memset intervals over the traced wall window (the first event's
+   start to the last one's end), with the Adam ms a step of the same
+   run untraced beside the traced one.
+4q. ``custom_pde_example.run`` (the heat equation on the facade's
+   ``loss`` and ``taylor`` hooks) at the JAX end-to-end test's schedule,
+   100 Adam + 300 L-BFGS: rel-L2 under 7e-3.
+4r. ``run_campaign.main(["inf_cont_burgers", "--quick", "--f32"])``:
+   exit 0, every stage reported float32 with a finite error.
+4s. The measuring part of ``inf_cont_burgers_bench`` at ``--quick``
+   (the PINN, then plain networks on 50/200/400 domain points and
+   50/100 boundary points), with no figure: every error finite, and
+   matplotlib never imported.
 Each main path runs with every launch count set to 0 just before its
 fused stage; every kernel of the path must have launched by its end
 (4k-4o: none may have), the logged loss must fall and every reported
@@ -241,6 +270,8 @@ FWD_EW, BWD_EW = 12, 40       # elementwise operations per hidden neuron
 TRAINED = {}                  # nets trained by phases 4 and 4c, for 4j
 NS_LAYERS = [3] + [40] * 8 + [2]   # the Navier–Stokes campaign recipe's net
 NS_GRID = 128 * 128 * 41           # the spectral DNS's default grid
+# Device activity in a torch.profiler Chrome trace.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def log(msg: str) -> None:
@@ -1630,6 +1661,183 @@ def phase_navierstokes_main_path() -> dict:
     return {}
 
 
+def _read_traces(trace_dir):
+    """Every Chrome trace under ``trace_dir`` (one a ``fit``), read and
+    then deleted with the directory.  Returns (launches of each device
+    kernel by name, device-busy microseconds, traced wall microseconds),
+    summed over the traces; the busy time is the union of the device's
+    intervals, the wall window the first event's start to the last
+    one's end."""
+    import glob
+    paths = sorted(glob.glob(os.path.join(trace_dir, "*.pt.trace.json")))
+    if not paths:
+        raise AssertionError(f"no trace written under {trace_dir}")
+    names, busy, wall = {}, 0.0, 0.0
+    for path in paths:
+        with open(path) as fh:
+            events = [e for e in json.load(fh)["traceEvents"]
+                      if e.get("ph") == "X" and "dur" in e]
+        wall += (max(e["ts"] + e["dur"] for e in events)
+                 - min(e["ts"] for e in events))
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in DEVICE_CATEGORIES)
+        end = -math.inf
+        for a, b in spans:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        for e in events:
+            if e.get("cat") == "kernel":
+                names[e["name"]] = names.get(e["name"], 0) + 1
+    shutil.rmtree(trace_dir)
+    return names, busy, wall
+
+
+def _ours(names, kernel):
+    """Launches in a trace of the kernel template named ``kernel``."""
+    return sum(n for name, n in names.items() if kernel in name)
+
+
+def _traced(tag, run, hp, adam_steps=0):
+    """``run(hp)`` with ``trace_dir``; prints the busy share of the
+    traced window and, for an Adam-only run, its Adam ms a step beside
+    the same run's untraced.  Returns (result, kernel launches by name)."""
+    trace_dir = os.path.join(WORK_DIR, "trace")
+    r = run({**hp, "trace_dir": trace_dir})
+    names, busy, wall = _read_traces(trace_dir)
+    line = (f"[trace] {tag}: device busy {busy / wall:.1%} of the traced "
+            f"window ({busy / 1e3:.2f} of {wall / 1e3:.2f} ms, "
+            f"{sum(names.values())} kernel launches)")
+    if adam_steps:
+        plain = run(hp)
+        ms = [t["adam_s"] * 1e3 / adam_steps
+              for t in _case_timings(r) + _case_timings(plain)]
+        half = len(ms) // 2
+        device = busy / 1e3 / (adam_steps * half)
+        line += (f"; Adam ms a step traced {', '.join(f'{m:.3f}' for m in ms[:half])}"
+                 f", untraced {', '.join(f'{m:.3f}' for m in ms[half:])}; "
+                 f"device {device:.3f} ms a step, "
+                 f"{device * half / sum(ms[half:]):.1%} of the untraced step")
+    else:
+        line += "; L-BFGS ms an iteration traced " + ", ".join(
+            f"{t['lbfgs_s'] * 1e3 / max(t['lbfgs_iters'], 1):.3f}"
+            for t in _case_timings(r))
+    log(line)
+    _check_finite([busy, wall, r["error"]])
+    return r, names
+
+
+def _case_timings(r):
+    """The Trainer timings of a result, one a case."""
+    t = r["timing"]
+    return [t["clean"], t["noisy"]] if "clean" in t else [t]
+
+
+def phase_traced_main_paths() -> None:
+    """4p: ``trace_dir`` on the flagship, then on 4k and 4o."""
+    from pinn_torch.experiments import (ide_cont_navierstokes,
+                                        inf_cont_burgers, inf_disc_burgers)
+
+    ckpt = os.path.join(WORK_DIR, "traced.npz")
+    # The experiment's Armijo search: its trials launch row 2.
+    flagship = {"device": "cuda", "layers": FLAGSHIP, "N_u": 100,
+                "N_f": 10000, "fused_residual": True,
+                "nt_vector_dtype": "float64", "log_frequency": 10,
+                "save_checkpoint": ckpt}
+    _reset_counts()
+    _, names = _traced("4p flagship, 50 Adam + 20 L-BFGS",
+                       inf_cont_burgers.run,
+                       {**flagship, "tf_epochs": 50, "nt_epochs": 20})
+    counts = _counts()
+    # inf_cont_burgers.run's closing loss (one burgers_loss launch)
+    # falls after fit, outside the trace.
+    want = {"pt_narrow_loss_grad_kernel": counts["burgers_loss_grad"],
+            "pt_narrow_loss_kernel": counts["burgers_loss"] - 1}
+    got = {kernel: _ours(names, kernel) for kernel in want}
+    log(f"[trace] 4p launches in the trace {got}; counters {counts}")
+    if got != want or not all(got.values()):
+        raise AssertionError(f"4p: trace launches {got}, counters give {want}")
+
+    stages = (("4p flagship", inf_cont_burgers.run,
+               {k: v for k, v in flagship.items() if k != "save_checkpoint"},
+               50, 20, {"init_checkpoint": ckpt}),
+              ("4k disc burgers", inf_disc_burgers.run,
+               {"device": "cuda", "nt_vector_dtype": "float64",
+                "nt_dir_impl": "matrix", "log_frequency": 10}, 20, 10, {}),
+              ("4o navier-stokes", ide_cont_navierstokes.run,
+               {"device": "cuda", "layers": NS_LAYERS, "N_u": 10000,
+                "nt_vector_dtype": "float64", "nt_dir_impl": "matrix",
+                "log_frequency": 10}, 3, 2, {}))
+    for tag, run, hp, adam, lbfgs, warm in stages:
+        _reset_counts()
+        _, adam_names = _traced(f"{tag} Adam ({adam} steps)", run,
+                                {**hp, "tf_epochs": adam, "nt_epochs": 0},
+                                adam_steps=adam)
+        _, lbfgs_names = _traced(f"{tag} L-BFGS ({lbfgs} iterations)", run,
+                                 {**hp, **warm, "tf_epochs": 0,
+                                  "nt_epochs": lbfgs})
+        if tag.startswith("4p"):
+            continue
+        ours = {k: _ours({**adam_names, **lbfgs_names}, k)
+                for k in ("pt_narrow", "pt_tile", "pt_reduce")}
+        if any(ours.values()):
+            raise AssertionError(f"{tag}: our kernels in the trace: {ours}")
+        _expect_counts(tag, {name: 0 for name in _counts()})
+
+
+def phase_custom_pde() -> None:
+    """4q: the heat equation on the facade, 100 + 300."""
+    from pinn_torch.experiments import custom_pde_example
+    from pinn_torch.params import leaves
+
+    r, seconds, _ = _run_stage(
+        "4q custom pde", custom_pde_example.run,
+        {"device": "cuda", "tf_epochs": 100, "nt_epochs": 300,
+         "log_frequency": 100,
+         "log_file": os.path.join(WORK_DIR, "custom_pde.jsonl")})
+    if not all(a.is_cuda for a in leaves(r["pinn"].params)):
+        raise AssertionError("4q: a parameter left the card")
+    log(f"[4q custom pde] rel-L2 {r['error']:.6e} (bar 7e-3), "
+        f"{seconds:.2f} s")
+    _check_finite([r["error"], seconds])
+    if not r["error"] < 7e-3:
+        raise AssertionError(f"4q: rel-L2 {r['error']} not under 7e-3")
+
+
+def phase_campaign_f32() -> None:
+    """4r: the flagship recipe's quick campaign in float32."""
+    from pinn_torch.experiments import run_campaign
+
+    out = os.path.join(WORK_DIR, "campaign_f32.json")
+    rc = run_campaign.main(["inf_cont_burgers", "--quick", "--f32",
+                            "--out", out])
+    with open(out) as fh:
+        row, = json.load(fh)
+    dtypes = [s["dtype"] for s in row["stages"]]
+    errors = [s["error"] for s in row["stages"]]
+    log(f"[4r campaign --f32] exit {rc}; stages {dtypes}, errors "
+        f"{', '.join(f'{e:.6e}' for e in errors)}, {row['seconds']:.2f} s")
+    _check_finite(errors)
+    if rc != 0 or dtypes != ["float32"] * len(
+            run_campaign.CAMPAIGN["inf_cont_burgers"]):
+        raise AssertionError(f"4r: exit {rc}, stage dtypes {dtypes}")
+
+
+def phase_bench_measure() -> None:
+    """4s: inf_cont_burgers_bench's measuring part at --quick."""
+    from pinn_torch.experiments import inf_cont_burgers_bench as bench
+
+    res = bench.measure(quick=True, device="cuda")
+    values = [res["pinn_error"], res["pinn_seconds"]]
+    for key in ("domain", "boundary"):
+        values += res[key]["errors"] + res[key]["seconds"]
+        log(f"[4s bench] plain NN, {key} data: N_u {res[key]['N_u']}, "
+            f"rel-L2 {', '.join(f'{e:.4e}' for e in res[key]['errors'])}, "
+            f"s {', '.join(f'{t:.2f}' for t in res[key]['seconds'])}")
+    log(f"[4s bench] PINN rel-L2 {res['pinn_error']:.4e} in "
+        f"{res['pinn_seconds']:.2f} s")
+    _check_finite(values)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1647,6 +1855,9 @@ def main() -> int:
     import pinn_torch.experiments.ide_disc_kdv  # noqa: F401
     import pinn_torch.experiments.inf_disc_allencahn  # noqa: F401
     import pinn_torch.experiments.inf_disc_burgers  # noqa: F401
+    import pinn_torch.experiments.custom_pde_example  # noqa: F401
+    import pinn_torch.experiments.inf_cont_burgers_bench  # noqa: F401
+    import pinn_torch.experiments.run_campaign  # noqa: F401
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -1674,9 +1885,18 @@ def main() -> int:
     log(f"[time] kernel checks {t1 - t0:.1f} s, main paths "
         f"{t2 - t1:.1f} s, discrete families (4k-4n) {t3 - t2:.1f} s")
     phase_navierstokes_main_path()
-    log(f"[time] Navier-Stokes (4o) {time.perf_counter() - t3:.1f} s")
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    t4 = time.perf_counter()
+    log(f"[time] Navier-Stokes (4o) {t4 - t3:.1f} s")
+    phase_traced_main_paths()
+    t5 = time.perf_counter()
+    phase_custom_pde()
+    phase_campaign_f32()
+    phase_bench_measure()
+    log(f"[time] traces (4p) {t5 - t4:.1f} s, custom PDE, campaign and "
+        f"bench (4q-4s) {time.perf_counter() - t5:.1f} s")
+    for module in ("jax", "matplotlib"):
+        if module in sys.modules:
+            raise AssertionError(f"the port imported {module}")
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],

@@ -3,22 +3,25 @@
 Counterpart of ``pinn/cli.py``:
 
     python -m pinn_torch info                 # torch, CUDA and the cards
-    python -m pinn_torch run NAME [hp.json] [--set k=v ...] [--list]
-    python -m pinn_torch campaign [NAME ...] [--verify] [--quick]
+    python -m pinn_torch run NAME [hp.json] [--set k=v ...] [--plot] [--list]
+    python -m pinn_torch campaign [NAME ...] [--verify] [--quick] [--f32]
                                   [--device D] [--out F]
 
 ``run`` drives an experiment of ``pinn_torch.experiments`` (a module
 that defines ``DEFAULT_HP`` and ``run``) on its defaults, updated by
 the hp file and then by each ``--set key=value`` (the value parsed as
 JSON where it parses, else kept as a string); ``--set device=cpu``
-runs it on the CPU.  ``campaign`` is
-``pinn_torch.experiments.run_campaign``.  Not yet ported: ``run``'s
-``--plot`` and ``bench``, which exit non-zero with a message.
+runs it on the CPU, and ``--plot`` draws the experiment's figure
+(``graph.pdf``, ``graph.png`` and ``hp.json`` under
+``experiments/results/``; it needs matplotlib, which nothing else
+does).  ``campaign`` is ``pinn_torch.experiments.run_campaign``.  Not
+yet ported: ``bench``, which exits non-zero with a message.
 """
 
 from __future__ import annotations
 
 import importlib
+import inspect
 import json
 import os
 import pkgutil
@@ -94,11 +97,8 @@ def _cmd_run(argv) -> int:
     if "--list" in argv:
         print("\n".join(_list_experiments()))
         return 0
-    if "--plot" in argv:
-        raise SystemExit("pinn_torch run: --plot is not ported yet (the "
-                         "port has no plots; use the JAX package's "
-                         "`python -m pinn run ... --plot`)")
-    sets, rest, it = [], [], iter(argv)
+    plot = "--plot" in argv
+    sets, rest, it = [], [], iter([a for a in argv if a != "--plot"])
     for a in it:
         if a == "--set":
             sets.append(next(it, ""))
@@ -119,7 +119,12 @@ def _cmd_run(argv) -> int:
         with open(hp_path) as f:
             hp.update(json.load(f))
     hp.update(_parse_set(sets))
-    result = mod.run(hp)
+    if plot:
+        if "plot" not in inspect.signature(mod.run).parameters:
+            raise SystemExit(f"pinn_torch run: {name} draws no figure")
+        result = mod.run(hp, plot=True)
+    else:
+        result = mod.run(hp)
     if isinstance(result, dict) and "error" in result:
         print(f"error: {result['error']:.4e}")
     return 0

@@ -89,12 +89,8 @@ def load_schrodinger(path: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray
 def load_snapshots(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """A spectral-solver dataset (``data/AC.npz``, ``data/KdV.npz``:
     keys ``x``, ``tt``, ``uu``) -> x (Nx, 1), t (Nt, 1), uu (Nx, Nt),
-    space-major.  The JAX experiments generate a missing file through
-    ``datagen/``; the port does not import it, so a missing file raises."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"dataset {path} is missing; generate it with the JAX "
-            f"package's datagen/ (the port does not import it)")
+    space-major.  The experiments generate a missing file first
+    (``pinn_torch.datagen``)."""
     d = _load_any(path)
     return (d["x"].flatten()[:, None], d["tt"].flatten()[:, None], d["uu"])
 

@@ -18,7 +18,7 @@ import torch
 
 from pinn_torch.device import resolve_device
 from pinn_torch.utils import checkpoint
-from pinn_torch.utils.config import validate_hp
+from pinn_torch.utils.config import load_hp, validate_hp
 
 
 def resolve_dtype(hp) -> torch.dtype:
@@ -58,6 +58,15 @@ def setup(hp, not_ported: Sequence[str] = ()) -> Tuple[int, torch.dtype,
     # not survive TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     return seed, dtype, device
+
+
+def command_line(argv, defaults) -> Tuple[dict, bool]:
+    """An experiment's ``[hp.json] [--plot]``: its hp (``defaults``
+    updated by the file) and whether to draw.  The JAX scripts always
+    draw; here the figure is asked for, because drawing needs
+    matplotlib."""
+    return (load_hp([a for a in argv if a != "--plot"], defaults),
+            "--plot" in argv)
 
 
 def check_no_mesh(hp) -> None:

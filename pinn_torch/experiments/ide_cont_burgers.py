@@ -30,9 +30,11 @@ error is the clean case's mean relative lambda error.
   uses ``<path>-noisy.npz``.
 
 ``tpu_mesh`` raises, as in the JAX experiment (2,000 points do not pay
-for sharding).  Not yet ported: the plots.
+for sharding).  ``plot=True`` draws ``plot_ide_cont_results``
+(``pinn_torch.experiments.viz``; needs matplotlib).
 
-Usage: ``python -m pinn_torch.experiments.ide_cont_burgers [hp.json]``
+Usage: ``python -m pinn_torch.experiments.ide_cont_burgers [hp.json]
+[--plot]``
 """
 
 from __future__ import annotations
@@ -43,14 +45,14 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_cont_identification
-from pinn_torch.experiments._common import (check_no_mesh,
+from pinn_torch.experiments._common import (check_no_mesh, command_line,
                                             maybe_load_params,
                                             maybe_save_params, setup,
                                             wants_bf16)
 from pinn_torch.models import mlp
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
-from pinn_torch.utils import Logger, load_hp
+from pinn_torch.utils import Logger
 
 DEFAULT_HP = {
     "N_u": 2000,
@@ -121,7 +123,7 @@ def train_once(hp, seed, dtype, device, noise: float, logger):
     return params, data, lb, ub, dict(trainer.timing)
 
 
-def run(hp=None):
+def run(hp=None, plot=False, save_path=None):
     hp = {**DEFAULT_HP, **(hp or {})}
     check_no_mesh(hp)
     if hp.get("fused_residual") and hp.get("tf_net_dtype"):
@@ -150,6 +152,13 @@ def run(hp=None):
     with torch.no_grad():
         X_star = torch.as_tensor(data.X_star, dtype=dtype, device=device)
         u_pred = mlp.apply(params.net, X_star, lb, ub).cpu().numpy()
+    if plot:
+        from pinn_torch.experiments.viz import plot_ide_cont_results
+        plot_ide_cont_results(data.X_star, u_pred, data.X_u_train,
+                              data.u_train, data.Exact_u, data.X, data.T,
+                              data.x, data.t, l1, l1_noisy, l2, l2_noisy,
+                              save_path=save_path or "experiments",
+                              save_hp=hp)
     return {"params": params, "params_noisy": params_n,
             "lambdas": (l1, l2), "lambdas_noisy": (l1_noisy, l2_noisy),
             "error": lambda_error(params), "u_pred": u_pred, "data": data,
@@ -157,5 +166,6 @@ def run(hp=None):
 
 
 if __name__ == "__main__":
-    result = run(load_hp(sys.argv, DEFAULT_HP))
+    hp, plot = command_line(sys.argv, DEFAULT_HP)
+    result = run(hp, plot=plot)
     print(f"mean relative lambda error: {result['error']:.4e}")

@@ -28,10 +28,12 @@ gauge-adjusted p on the full grid.
 - ``init_checkpoint``/``save_checkpoint`` are per case: the noisy case
   uses ``<path>-noisy.npz``.
 
-``tpu_mesh`` raises, as in the JAX experiment.  Not yet ported: the
-plots (``plot=True``, ``experiments/viz.py``).
+``tpu_mesh`` raises, as in the JAX experiment.  ``plot=True`` draws
+``plot_ide_navierstokes_results`` (``pinn_torch.experiments.viz``;
+needs matplotlib).
 
-Usage: ``python -m pinn_torch.experiments.ide_cont_navierstokes [hp.json]``
+Usage: ``python -m pinn_torch.experiments.ide_cont_navierstokes [hp.json]
+[--plot]``
 """
 
 from __future__ import annotations
@@ -44,12 +46,12 @@ import torch
 from pinn_torch.data import lhs
 from pinn_torch.datagen import navierstokes_exact, navierstokes_spectral
 from pinn_torch.datagen.navierstokes_exact import NU_STAR
-from pinn_torch.experiments._common import (maybe_load_params,
+from pinn_torch.experiments._common import (command_line, maybe_load_params,
                                             maybe_save_params, setup)
 from pinn_torch.models import mlp
 from pinn_torch.problems import navierstokes as ns
 from pinn_torch.train import Trainer
-from pinn_torch.utils import Logger, load_hp
+from pinn_torch.utils import Logger
 
 DEFAULT_HP = {
     "N_u": 5000,
@@ -174,7 +176,7 @@ def field_errors(params, data, dtype, device, chunk: int = 16384):
             "p": rel(p_adj, data.p_star)}, (u, v, p_adj)
 
 
-def run(hp=None):
+def run(hp=None, plot=False, save_path=None):
     hp = {**DEFAULT_HP, **(hp or {})}
     if hp.get("tpu_mesh"):
         raise ValueError("tpu_mesh is not supported by this experiment "
@@ -203,9 +205,14 @@ def run(hp=None):
     print("l1_noise: ", l1_noisy)
     print("l2_noise: ", l2_noisy)
 
-    errs, _ = field_errors(params, data, dtype, device)
+    errs, (u_pred, v_pred, p_pred) = field_errors(params, data, dtype, device)
     print(f"rel-L2  u: {errs['u']:.4e}  v: {errs['v']:.4e}  "
           f"p (gauge-adjusted): {errs['p']:.4e}")
+    if plot:
+        from pinn_torch.experiments.viz import plot_ide_navierstokes_results
+        plot_ide_navierstokes_results(
+            data, u_pred, v_pred, p_pred, l1, l1_noisy, l2, l2_noisy,
+            save_path=save_path or "experiments", save_hp=hp)
     return {"params": params, "params_noisy": params_n,
             "lambdas": (l1, l2), "lambdas_noisy": (l1_noisy, l2_noisy),
             "error": lambda_error(params), "field_errors": errs,
@@ -214,5 +221,6 @@ def run(hp=None):
 
 
 if __name__ == "__main__":
-    result = run(load_hp(sys.argv, DEFAULT_HP))
+    hp, plot = command_line(sys.argv, DEFAULT_HP)
+    result = run(hp, plot=plot)
     print(f"mean relative lambda error: {result['error']:.4e}")

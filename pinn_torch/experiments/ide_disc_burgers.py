@@ -20,10 +20,11 @@ full grid, its mean relative lambda ``error``, ``params``,
 - ``init_checkpoint``/``save_checkpoint`` are per case: the noisy case
   uses ``<path>-noisy.npz``.
 - ``tpu_mesh`` raises, as in the JAX experiment.
+- ``plot=True`` draws ``plot_ide_disc_results``
+  (``pinn_torch.experiments.viz``; needs matplotlib).
 
-Not yet ported: the plots.
-
-Usage: ``python -m pinn_torch.experiments.ide_disc_burgers [hp.json]``
+Usage: ``python -m pinn_torch.experiments.ide_disc_burgers [hp.json]
+[--plot]``
 """
 
 from __future__ import annotations
@@ -34,13 +35,13 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_disc_identification
-from pinn_torch.experiments._common import (check_no_mesh,
+from pinn_torch.experiments._common import (check_no_mesh, command_line,
                                             maybe_load_params,
                                             maybe_save_params, setup)
 from pinn_torch.models import mlp
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
-from pinn_torch.utils import Logger, load_hp
+from pinn_torch.utils import Logger
 
 DEFAULT_HP = {
     "N_0": 199,
@@ -155,10 +156,30 @@ def run_cases(hp, train_once, error_fn) -> dict:
             "timing": {"clean": timing, "noisy": timing_n}}
 
 
-def run(hp=None):
-    return run_cases({**DEFAULT_HP, **(hp or {})}, train_once, lambda_error)
+def plot_cases(result, idx_t_0, idx_t_1, save_path, **kw) -> None:
+    """The identification figure of ``run_cases``' result, whose
+    snapshots are the grid's times ``idx_t_0`` and ``idx_t_1``."""
+    from pinn_torch.experiments.viz import plot_ide_disc_results
+    data = result["data"]
+    (l1, l2), (l1_noisy, l2_noisy) = (result["lambdas"],
+                                      result["lambdas_noisy"])
+    plot_ide_disc_results(data.x, data.t, idx_t_0, idx_t_1,
+                          data.x_0, data.u_0, data.x_1, data.u_1,
+                          np.array([1.0]), np.array([-1.0]),
+                          data.Exact_u, l1, l1_noisy, l2, l2_noisy,
+                          save_path=save_path or "experiments",
+                          save_hp=result["hp"], **kw)
+
+
+def run(hp=None, plot=False, save_path=None):
+    result = run_cases({**DEFAULT_HP, **(hp or {})}, train_once,
+                       lambda_error)
+    if plot:
+        plot_cases(result, IDX_T_0, IDX_T_0 + SKIP, save_path)
+    return result
 
 
 if __name__ == "__main__":
-    result = run(load_hp(sys.argv, DEFAULT_HP))
+    hp, plot = command_line(sys.argv, DEFAULT_HP)
+    result = run(hp, plot=plot)
     print(f"mean relative lambda error: {result['error']:.4e}")

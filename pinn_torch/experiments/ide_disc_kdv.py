@@ -17,13 +17,13 @@ lambda error.  float32 by default, as the JAX recipe is.
 The data are read from ``data/KdV.npz`` (keys ``x``, ``tt``, ``uu``;
 ``uu`` space-major).  Unlike Allen–Cahn's, this ``prep_data`` draws
 the noise of both snapshots even at noise 0, as the JAX one does, so
-the numpy stream stays the same.  The JAX experiment generates a
-missing file through ``datagen/``; the port raises
-``FileNotFoundError`` instead.
+the numpy stream stays the same.  A missing file is generated first
+(``pinn_torch.datagen.kdv_exact``), as in the JAX experiment.
+``plot=True`` draws ``plot_ide_disc_results`` with the u_xxx term
+(``pinn_torch.experiments.viz``; needs matplotlib).
 
-Not yet ported: the plots.
-
-Usage: ``python -m pinn_torch.experiments.ide_disc_kdv [hp.json]``
+Usage: ``python -m pinn_torch.experiments.ide_disc_kdv [hp.json]
+[--plot]``
 """
 
 from __future__ import annotations
@@ -36,9 +36,10 @@ import numpy as np
 
 from pinn_torch import irk
 from pinn_torch.data import DATA_DIR, load_snapshots
-from pinn_torch.experiments.ide_disc_burgers import fit_case, run_cases
+from pinn_torch.experiments._common import command_line
+from pinn_torch.experiments.ide_disc_burgers import (fit_case, plot_cases,
+                                                     run_cases)
 from pinn_torch.problems import kdv
-from pinn_torch.utils import load_hp
 
 DEFAULT_HP = {
     "N_0": 199,
@@ -77,7 +78,12 @@ class KdVDiscIde(NamedTuple):
 
 
 def load_dataset():
-    """-> x (nx, 1), t (nt, 1), uu (nx, nt) from ``data/KdV.npz``."""
+    """-> x (nx, 1), t (nt, 1), uu (nx, nt) from ``data/KdV.npz``, which is
+    generated (``pinn_torch.datagen.kdv_exact``) and written first where it
+    is missing, as in the JAX experiment."""
+    if not os.path.exists(DATASET):
+        from pinn_torch.datagen.kdv_exact import generate
+        generate(DATASET)
     return load_snapshots(DATASET)
 
 
@@ -111,11 +117,16 @@ def train_once(hp, seed, dtype, device, noise: float, logger):
                     noise, logger)
 
 
-def run(hp=None):
-    return run_cases({**DEFAULT_HP, **(hp or {})}, train_once,
-                     kdv.lambda_error)
+def run(hp=None, plot=False, save_path=None):
+    result = run_cases({**DEFAULT_HP, **(hp or {})}, train_once,
+                       kdv.lambda_error)
+    if plot:
+        plot_cases(result, IDX_T_0, IDX_T_1, save_path,
+                   lambda2_star=kdv.LAMBDA2_STAR, deriv="u_{xxx}")
+    return result
 
 
 if __name__ == "__main__":
-    result = run(load_hp(sys.argv, DEFAULT_HP))
+    hp, plot = command_line(sys.argv, DEFAULT_HP)
+    result = run(hp, plot=plot)
     print(f"mean relative lambda error: {result['error']:.4e}")

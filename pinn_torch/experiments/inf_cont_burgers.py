@@ -30,9 +30,14 @@ nu = 0.01/pi, Adam then L-BFGS, rel-L2 error on the full grid.
   by ``_common.residual_fn``: in float32 the residual-evaluation kernel,
   in float64 the eager residual.
 
-Not yet ported: the device mesh and the plots.
+- ``plot=True`` draws ``plot_inf_cont_results``
+  (``pinn_torch.experiments.viz``; needs matplotlib) under
+  ``save_path`` (default ``experiments``, against the repo root).
 
-Usage: ``python -m pinn_torch.experiments.inf_cont_burgers [hp.json]``
+Not yet ported: the device mesh.
+
+Usage: ``python -m pinn_torch.experiments.inf_cont_burgers [hp.json]
+[--plot]``
 """
 
 from __future__ import annotations
@@ -43,13 +48,13 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_cont_inference, lhs
-from pinn_torch.experiments._common import (maybe_load_params,
+from pinn_torch.experiments._common import (command_line, maybe_load_params,
                                             maybe_save_params, residual_fn,
                                             setup, wants_bf16)
 from pinn_torch.models import mlp
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
-from pinn_torch.utils import Logger, load_hp
+from pinn_torch.utils import Logger
 
 DEFAULT_HP = {
     "N_u": 100,
@@ -69,7 +74,7 @@ DEFAULT_HP = {
 NOT_PORTED = ("tpu_mesh",)
 
 
-def run(hp=None):
+def run(hp=None, plot=False, save_path=None):
     hp = {**DEFAULT_HP, **(hp or {})}
     seed, dtype, device = setup(hp, NOT_PORTED)
     if hp.get("rar_pool") and int(hp["rar_pool"]) < hp["N_f"]:
@@ -178,6 +183,13 @@ def run(hp=None):
     with torch.no_grad():  # on the fused path: the loss-only kernel
         loss = float(loss_fn(params, batch))
     u_pred = predict_u(params, X_star).cpu().numpy()
+    if plot:
+        from pinn_torch.experiments.viz import plot_inf_cont_results
+        plot_inf_cont_results(data.X_star, u_pred, data.X_u_train,
+                              data.u_train, data.Exact_u, data.X, data.T,
+                              data.x, data.t,
+                              save_path=save_path or "experiments",
+                              save_hp=hp)
     f_pred = residual_f(params, X_f).cpu().numpy()
     return {"params": params, "u_pred": u_pred, "f_pred": f_pred,
             "error": error(), "loss": loss, "data": data, "hp": hp,
@@ -186,5 +198,6 @@ def run(hp=None):
 
 
 if __name__ == "__main__":
-    result = run(load_hp(sys.argv, DEFAULT_HP))
+    hp, plot = command_line(sys.argv, DEFAULT_HP)
+    result = run(hp, plot=plot)
     print(f"rel-L2 error: {result['error']:.4e}")

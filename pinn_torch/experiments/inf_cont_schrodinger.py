@@ -21,11 +21,17 @@ grid.  Each log line carries the three loss terms.
   runs as native float64.
 - ``nt_resample``/``tf_resample`` draw fresh collocation points;
   ``nt_val_every`` selects the best L-BFGS iterate on a held-out draw.
+- ``print_loss_terms: true`` prints ``mse_0 …    mse_b …    mse_f    …``
+  on every evaluation of the loss, the Adam phase's too, as the
+  reference's ``tf.print`` and the JAX experiment's ``jax.debug.print``
+  do: a debug mode, with a host sync per evaluation.
+- ``plot=True`` draws ``plot_schrodinger_results``
+  (``pinn_torch.experiments.viz``; needs matplotlib).
 
-Not yet ported: ``tpu_mesh``, ``print_loss_terms`` (per-evaluation
-term prints) and the plots.
+Not yet ported: ``tpu_mesh``.
 
-Usage: ``python -m pinn_torch.experiments.inf_cont_schrodinger [hp.json]``
+Usage: ``python -m pinn_torch.experiments.inf_cont_schrodinger [hp.json]
+[--plot]``
 """
 
 from __future__ import annotations
@@ -36,13 +42,13 @@ import numpy as np
 import torch
 
 from pinn_torch.data import lhs, schrodinger_inference
-from pinn_torch.experiments._common import (maybe_load_params,
+from pinn_torch.experiments._common import (command_line, maybe_load_params,
                                             maybe_save_params, setup,
                                             wants_bf16)
 from pinn_torch.models import mlp
 from pinn_torch.problems import schrodinger
 from pinn_torch.train import Trainer
-from pinn_torch.utils import Logger, load_hp
+from pinn_torch.utils import Logger
 
 DEFAULT_HP = {
     "N_0": 50,
@@ -60,10 +66,10 @@ DEFAULT_HP = {
     "log_frequency": 10,
 }
 
-NOT_PORTED = ("tpu_mesh", "print_loss_terms")
+NOT_PORTED = ("tpu_mesh",)
 
 
-def run(hp=None):
+def run(hp=None, plot=False, save_path=None):
     hp = {**DEFAULT_HP, **(hp or {})}
     seed, dtype, device = setup(hp, NOT_PORTED)
 
@@ -103,6 +109,23 @@ def run(hp=None):
         def loss_fn(p, b):
             return schrodinger.loss(p, b["X0"], b["H0"], b["X_lb"],
                                     b["X_ub"], b["X_f"], lb, ub)
+
+    final_loss_fn = loss_fn   # the final loss, printed by no wrapper
+    if hp.get("print_loss_terms"):
+        def _print_wrap(base):
+            def wrapped(p, b):
+                with torch.no_grad():
+                    t = schrodinger.loss_terms(p, b["X0"], b["H0"], b["X_lb"],
+                                               b["X_ub"], b["X_f"], lb, ub)
+                print(f"mse_0 {float(t.mse_0)}    mse_b {float(t.mse_b)}    "
+                      f"mse_f    {float(t.mse_f)}")
+                return base(p, b)
+            return wrapped
+
+        loss_fn = _print_wrap(loss_fn)
+        if adam_loss_fn is not None:
+            # The bf16 warmup's Adam-phase loss prints too.
+            adam_loss_fn = _print_wrap(adam_loss_fn)
 
     def epoch_extra(p):
         # The reference prints the three loss terms each step; here
@@ -155,15 +178,24 @@ def run(hp=None):
     maybe_save_params(hp, params)
 
     with torch.no_grad():  # on the fused path: the loss-only kernel
-        loss = float(loss_fn(params, batch))
+        loss = float(final_loss_fn(params, batch))
     H = predict_h(params)
     u_pred, v_pred = H[:, 0:1], H[:, 1:2]
+    h_pred = np.sqrt(u_pred ** 2 + v_pred ** 2)
+    if plot:
+        from pinn_torch.experiments.viz import plot_schrodinger_results
+        plot_schrodinger_results(data.X_star, u_pred, v_pred, h_pred,
+                                 data.Exact_h, data.X, data.T, data.x,
+                                 data.t, data.lb, data.ub, data.x0, data.tb,
+                                 save_path=save_path or "experiments",
+                                 save_hp=hp)
     return {"params": params, "u_pred": u_pred, "v_pred": v_pred,
-            "h_pred": np.sqrt(u_pred ** 2 + v_pred ** 2), "error": error(H),
+            "h_pred": h_pred, "error": error(H),
             "loss": loss, "data": data, "hp": hp, "loss_fn": loss_fn,
             "batch": batch, "timing": dict(trainer.timing)}
 
 
 if __name__ == "__main__":
-    result = run(load_hp(sys.argv, DEFAULT_HP))
+    hp, plot = command_line(sys.argv, DEFAULT_HP)
+    result = run(hp, plot=plot)
     print(f"rel-L2 error (|h|): {result['error']:.4e}")

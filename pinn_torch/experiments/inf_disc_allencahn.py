@@ -14,14 +14,13 @@ by that fraction of their std; the numpy stream draws the noise only
 when it is positive, as in the JAX experiment.
 
 The data are read from ``data/AC.npz`` (keys ``x``, ``tt``, ``uu``;
-``uu`` space-major).  The JAX experiment generates a missing file
-through ``datagen/``; the port does not import it and raises
-``FileNotFoundError`` instead.
+``uu`` space-major); a missing file is generated first
+(``pinn_torch.datagen.allencahn_exact``), as in the JAX experiment.
 
 - ``dtype: "float64"``; ``net_impl: "df32"`` runs as native float64.
 - ``tpu_mesh`` raises, as in the JAX experiment.
-
-Not yet ported: the plots.
+- ``plot=True`` draws ``plot_inf_disc_results``
+  (``pinn_torch.experiments.viz``; needs matplotlib).
 
 Usage: ``python -m pinn_torch.experiments.inf_disc_allencahn [hp.json]``
 """
@@ -36,10 +35,10 @@ import numpy as np
 
 from pinn_torch import irk
 from pinn_torch.data import DATA_DIR, load_snapshots
-from pinn_torch.experiments._common import check_no_mesh, setup
-from pinn_torch.experiments.inf_disc_burgers import fit_disc_inference
+from pinn_torch.experiments._common import check_no_mesh, command_line, setup
+from pinn_torch.experiments.inf_disc_burgers import (LB, UB,
+                                                     fit_disc_inference)
 from pinn_torch.problems import allencahn
-from pinn_torch.utils import load_hp
 
 DEFAULT_HP = {
     "N_n": 200,
@@ -75,7 +74,12 @@ class AllenCahnDisc(NamedTuple):
 
 
 def load_dataset():
-    """-> x (nx, 1), t (nt, 1), uu (nx, nt) from ``data/AC.npz``."""
+    """-> x (nx, 1), t (nt, 1), uu (nx, nt) from ``data/AC.npz``, which is
+    generated (``pinn_torch.datagen.allencahn_exact``) and written first where it
+    is missing, as in the JAX experiment."""
+    if not os.path.exists(DATASET):
+        from pinn_torch.datagen.allencahn_exact import generate
+        generate(DATASET)
     return load_snapshots(DATASET)
 
 
@@ -98,7 +102,7 @@ def prep_data(N_n: int, q: int, idx_t_0: int = IDX_T_0,
                          Exact_u=Exact, x=x, t=t)
 
 
-def run(hp=None):
+def run(hp=None, plot=False, save_path=None):
     hp = {**DEFAULT_HP, **(hp or {})}
     check_no_mesh(hp)
     seed, dtype, device = setup(hp)
@@ -111,11 +115,21 @@ def run(hp=None):
                                              b["x_bnd"], lb, ub, data.dt,
                                              irk_w)
 
-    return fit_disc_inference(hp, seed, dtype, device, data,
-                              {"x_0": data.x_0, "u_0": data.u_0,
-                               "x_bnd": data.x_bnd}, loss)
+    result = fit_disc_inference(hp, seed, dtype, device, data,
+                                {"x_0": data.x_0, "u_0": data.u_0,
+                                 "x_bnd": data.x_bnd}, loss)
+    if plot:
+        from pinn_torch.experiments.viz import plot_inf_disc_results
+        # The shared disc figure wants Exact_u time-major (Nt, Nx).
+        plot_inf_disc_results(data.x_star, IDX_T_0, IDX_T_1, data.x_0,
+                              data.u_0, UB, LB, result["u_1_pred"],
+                              data.Exact_u.T, data.x, data.t,
+                              save_path=save_path or "experiments",
+                              save_hp=hp)
+    return result
 
 
 if __name__ == "__main__":
-    result = run(load_hp(sys.argv, DEFAULT_HP))
+    hp, plot = command_line(sys.argv, DEFAULT_HP)
+    result = run(hp, plot=plot)
     print(f"rel-L2 error (t1 snapshot): {result['error']:.4e}")

@@ -15,10 +15,11 @@ output width is set to q + 1 at run time, as in the JAX experiment.
   raises without a card).
 - ``tpu_mesh`` raises, as in the JAX experiment (250 points do not pay
   for sharding).
+- ``plot=True`` draws ``plot_inf_disc_results``
+  (``pinn_torch.experiments.viz``; needs matplotlib).
 
-Not yet ported: the plots.
-
-Usage: ``python -m pinn_torch.experiments.inf_disc_burgers [hp.json]``
+Usage: ``python -m pinn_torch.experiments.inf_disc_burgers [hp.json]
+[--plot]``
 """
 
 from __future__ import annotations
@@ -29,13 +30,13 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_disc_inference
-from pinn_torch.experiments._common import (check_no_mesh,
+from pinn_torch.experiments._common import (check_no_mesh, command_line,
                                             maybe_load_params,
                                             maybe_save_params, setup)
 from pinn_torch.models import mlp
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
-from pinn_torch.utils import Logger, load_hp
+from pinn_torch.utils import Logger
 
 DEFAULT_HP = {
     "N_n": 250,
@@ -57,7 +58,7 @@ IDX_T_1 = 90
 LB, UB = np.array([-1.0]), np.array([1.0])   # every discrete family's x domain
 
 
-def run(hp=None):
+def run(hp=None, plot=False, save_path=None):
     hp = {**DEFAULT_HP, **(hp or {})}
     check_no_mesh(hp)
     seed, dtype, device = setup(hp)
@@ -70,9 +71,17 @@ def run(hp=None):
         return burgers.loss_disc_inference(p, b["x_0"], b["u_0"], b["x_1"],
                                            lb, ub, nu, data.dt, irk_w)
 
-    return fit_disc_inference(hp, seed, dtype, device, data,
-                              {"x_0": data.x_0, "u_0": data.u_0,
-                               "x_1": data.x_1}, loss)
+    result = fit_disc_inference(hp, seed, dtype, device, data,
+                                {"x_0": data.x_0, "u_0": data.u_0,
+                                 "x_1": data.x_1}, loss)
+    if plot:
+        from pinn_torch.experiments.viz import plot_inf_disc_results
+        plot_inf_disc_results(data.x_star, IDX_T_0, IDX_T_1, data.x_0,
+                              data.u_0, UB, LB, result["u_1_pred"],
+                              data.Exact_u, data.x, data.t,
+                              save_path=save_path or "experiments",
+                              save_hp=hp)
+    return result
 
 
 def fit_disc_inference(hp, seed, dtype, device, data, arrays, loss) -> dict:
@@ -117,5 +126,6 @@ def fit_disc_inference(hp, seed, dtype, device, data, arrays, loss) -> dict:
 
 
 if __name__ == "__main__":
-    result = run(load_hp(sys.argv, DEFAULT_HP))
+    hp, plot = command_line(sys.argv, DEFAULT_HP)
+    result = run(hp, plot=plot)
     print(f"rel-L2 error (t1 snapshot): {result['error']:.4e}")

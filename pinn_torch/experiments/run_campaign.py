@@ -11,7 +11,9 @@ every recipe but the three beyond the reference) are copies of that
 file's.  Unlike the JAX campaign off the TPU, the port keeps
 ``fused_residual``: those stages run on the card's kernels.  A
 ``net_impl: "df32"`` stage runs as native float64.  ``--quick`` cuts
-every stage to ``QUICK_OVERRIDES``.
+every stage to ``QUICK_OVERRIDES``; ``--f32`` runs every stage in
+float32 (``dtype: "float32"``, no ``nt_vector_dtype``) and drops
+``net_impl``, as the JAX campaign does wherever df32 is not its engine.
 
 Each recipe prints one JSON line (its error, whether it met the budget,
 each stage's error, wall-clock and rates); ``--out FILE`` also writes
@@ -21,10 +23,10 @@ FAILED`` line.  A recipe that raises is reported and the others still
 run; the exit code is 1 when a recipe raised or, with ``--verify``,
 missed its budget.  On a CUDA device the run prints the card's name and
 power limit first.  Results are not appended to ``RESULTS.md``, which
-holds the JAX package's TPU runs.
+holds the JAX package's TPU runs: ``--out`` takes its place.
 
 Usage: ``python -m pinn_torch.experiments.run_campaign [NAME ...]
-[--verify] [--quick] [--device cpu] [--out FILE]``
+[--verify] [--quick] [--f32] [--device cpu] [--out FILE]``
 """
 
 from __future__ import annotations
@@ -109,23 +111,27 @@ QUICK_OVERRIDES = {"tf_epochs": 50, "nt_epochs": 200, "log_frequency": 50}
 
 
 def run_recipe(name: str, workdir: str, device=None, quick: bool = False,
-               overrides=None) -> dict:
+               overrides=None, f32: bool = False) -> dict:
     """Run ``name``'s stages in order, each from the checkpoint of the
     one before (per case for the identification recipes), on
     ``device``.  ``overrides`` update every stage's hp (after
-    ``--quick``'s)."""
+    ``--quick``'s and ``--f32``'s)."""
     mod = importlib.import_module(f"pinn_torch.experiments.{name}")
     dev = resolve_device(device)
     stages, ckpt = [], None
     for i, stage in enumerate(CAMPAIGN[name]):
-        hp = {**stage, **(QUICK_OVERRIDES if quick else {}),
-              **(overrides or {}), "device": str(dev)}
+        hp = {**stage, **(QUICK_OVERRIDES if quick else {})}
+        if f32:
+            hp["dtype"] = "float32"
+            hp.pop("nt_vector_dtype", None)
+            hp.pop("net_impl", None)
+        hp.update(overrides or {}, device=str(dev))
         if ckpt:
             hp["init_checkpoint"] = ckpt
         ckpt = os.path.join(workdir, f"{name}-stage{i + 1}.npz")
         hp["save_checkpoint"] = ckpt
         t0 = _now(dev)
-        result = mod.run(hp)
+        result = mod.run(hp, plot=False)
         seconds = _now(dev) - t0
         row = {"stage": i + 1, "error": result["error"],
                "seconds": seconds, "tf_epochs": hp["tf_epochs"],
@@ -157,6 +163,8 @@ def main(argv=None) -> int:
     ap.add_argument("--verify", action="store_true",
                     help="hold each recipe's error to its budget")
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--f32", action="store_true",
+                    help="every stage in float32, without net_impl")
     ap.add_argument("--device", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -174,7 +182,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:
             try:
-                row = run_recipe(name, tmp, args.device, args.quick)
+                row = run_recipe(name, tmp, args.device, args.quick,
+                                 f32=args.f32)
             except Exception:  # report it and run the other recipes
                 traceback.print_exc()
                 print(f"{name} FAILED", flush=True)

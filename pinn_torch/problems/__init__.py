@@ -1,1 +1,1 @@
-from pinn_torch.problems import burgers  # noqa: F401
+from pinn_torch.problems import allencahn, burgers, kdv, navierstokes, schrodinger  # noqa: F401

@@ -27,12 +27,18 @@ logs, resamples, probes and revives a stalled run, so keeping them
 keeps the trajectory, and the resampling draws, equal to the JAX
 package's.
 
-Not yet ported: ``trace_dir`` (profiling) and the device mesh; the
-Trainer raises on ``trace_dir``.
+hp["trace_dir"] wraps ``fit`` (the start log, both phases and the
+L-BFGS stop line) in ``torch.profiler.profile``, as the JAX Trainer
+wraps it in ``jax.profiler.trace``: the CPU always, and CUDA when the
+parameters are on the card.  One Chrome-trace JSON lands in the
+directory (``<host>_<pid>.<ns>.pt.trace.json``, which Perfetto and
+TensorBoard's profile plugin open); the run's numbers are those without
+it.  Not yet ported: the device mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Optional
 
@@ -44,9 +50,6 @@ from pinn_torch.optim import lbfgs as lb
 from pinn_torch.optim.adam import adam_from_hp, net_dtype_cast
 from pinn_torch.utils import checkpoint
 from pinn_torch.utils.logger import Logger
-
-NOT_PORTED_KEYS = ("trace_dir",)
-
 
 def lbfgs_config_from_hp(hp: dict) -> lb.LbfgsConfig:
     return lb.LbfgsConfig(
@@ -85,10 +88,6 @@ class Trainer:
                  adam_loss_fn: Optional[Callable[[Any, Any],
                                                  torch.Tensor]] = None,
                  params_callback: Optional[Callable[[Any], None]] = None):
-        bad = [k for k in NOT_PORTED_KEYS if hp.get(k)]
-        if bad:
-            raise NotImplementedError(
-                f"hp key(s) {bad} are not ported to pinn_torch yet")
         self.loss_fn = loss_fn
         # The loss the Adam phase optimises (AdamRunner's loss_fn).
         self.adam_loss_fn = adam_loss_fn or loss_fn
@@ -286,13 +285,30 @@ class Trainer:
                 f"-- LBFGS stopped after {state.n_iter} iterations: "
                 f"{lb.REASON_NAMES.get(state.reason, state.reason)} --")
 
+    def _trace(self):
+        """hp["trace_dir"]: a ``torch.profiler`` context that writes one
+        Chrome-trace JSON there when it closes; else a null context."""
+        trace_dir = self.hp.get("trace_dir")
+        if not trace_dir:
+            return contextlib.nullcontext()
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU]
+        if any(a.is_cuda for a in pcodec.leaves(self.params)):
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(trace_dir))
+
     def fit(self):
-        """Run both phases; returns the trained params."""
-        self._log("log_train_start", self,
-                  model_description=self.hp.get("model_description", False))
-        if self.tf_epochs > 0:
-            self._adam_phase()
-        self._lbfgs_phase()
+        """Run both phases; returns the trained params.  With
+        hp["trace_dir"] the run is traced (see the module's docstring)."""
+        with self._trace():
+            self._log("log_train_start", self,
+                      model_description=self.hp.get("model_description",
+                                                    False))
+            if self.tf_epochs > 0:
+                self._adam_phase()
+            self._lbfgs_phase()
         self._log("log_train_end", self.tf_epochs + self.nt_config.max_iter,
                   self._extra())
         return self.params

@@ -1,8 +1,8 @@
 """npz checkpoints in the JAX package's file format.
 
 Counterpart of ``pinn/utils/checkpoint.py`` (``save_npz``/``load_npz``/
-``save_npz_atomic``): one compressed npz holding the flat parameter
-vector (``pinn_torch.params`` order: W0, b0, W1, b1, ..., then any
+``save_npz_atomic``/``resume_meta``): one compressed npz holding the
+flat parameter vector (``pinn_torch.params`` order: W0, b0, W1, b1, ..., then any
 tail leaves such as ``IdeParams``' ``lambda1``, ``log_lambda2``) and a
 JSON ``meta`` with the leaf shapes, the hp dict and any extra
 metadata.  A file written by either package loads in the other.
@@ -121,3 +121,10 @@ def save_npz_atomic(path: str, params: Any, hp: Optional[dict] = None,
     save_npz(tmp, params, hp=hp, extra=extra)
     os.replace(tmp, final)
     return final
+
+
+def resume_meta(path: str) -> dict:
+    """The ``extra`` metadata of a checkpoint (phase and epoch for the
+    Trainer's periodic ``save_every`` saves) without the weights."""
+    with np.load(path, allow_pickle=False) as d:
+        return json.loads(str(d["meta"])).get("extra", {})

@@ -119,7 +119,11 @@ def test_prep_data_equal(jax_exp, noise):
 
 
 def test_missing_dataset_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(torch_exp, "DATASET", str(tmp_path / "AC.npz"))
+    """A missing dataset is generated and written, as in the JAX
+    experiment (tests/test_torch_datagen.py); where it cannot be written
+    (its directory is missing too) the write raises, naming the file."""
+    monkeypatch.setattr(torch_exp, "DATASET",
+                        str(tmp_path / "missing" / "AC.npz"))
     with pytest.raises(FileNotFoundError, match="AC.npz"):
         torch_exp.run({"q": 8, "layers": [1, 8, 9], "device": "cpu"})
 

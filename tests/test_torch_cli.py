@@ -1,9 +1,10 @@
 """``python -m pinn_torch`` and the port's ``run_campaign``: the
 ``CAMPAIGN``/``BUDGETS``/``PARITY_NAMES`` tables equal the JAX
 ``run_campaign``'s, ``--verify``'s lines and exit codes on stubbed recipes,
+``--f32``'s stage hp against the JAX campaign's over all eight recipes,
 ``run --list``, ``run``'s hp layering (defaults, file, ``--set``),
-``campaign``'s delegation, ``info`` without a card, and the refusals of
-``bench`` and ``--plot`` (a message and a non-zero exit, no traceback).
+``campaign``'s delegation, ``info`` without a card, and the refusal of
+``bench`` (a message and a non-zero exit, no traceback).
 """
 
 import json
@@ -18,7 +19,7 @@ from pinn_torch.experiments import run_campaign
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-EXPERIMENTS = ["ide_cont_burgers", "ide_cont_navierstokes", "ide_disc_burgers",
+EXPERIMENTS = ["custom_pde_example", "ide_cont_burgers", "ide_cont_navierstokes", "ide_disc_burgers",
                "ide_disc_kdv", "inf_cont_burgers", "inf_cont_schrodinger",
                "inf_disc_allencahn", "inf_disc_burgers", "serving_example"]
 
@@ -56,7 +57,8 @@ def test_campaign_tables_equal_jax(jax_campaign):
 def _stub(monkeypatch, errors, ran):
     """run_recipe replaced: each name's error from ``errors`` (an
     exception raises)."""
-    def run_recipe(name, workdir, device=None, quick=False, overrides=None):
+    def run_recipe(name, workdir, device=None, quick=False, overrides=None,
+                   f32=False):
         ran.append((name, device, quick))
         if isinstance(errors[name], Exception):
             raise errors[name]
@@ -115,6 +117,55 @@ def test_campaign_defaults_to_the_parity_names(monkeypatch, capsys):
     assert capsys.readouterr().out.splitlines()[-1] == "VERIFY PASSED"
 
 
+@pytest.mark.parametrize("f32", [False, True])
+def test_campaign_f32_stage_hp_matches_jax(jax_campaign, monkeypatch, f32):
+    """Each experiment replaced by a stub that records its hp: both
+    campaigns (the JAX one on the CPU) give every recipe's stages the same
+    hp, ``--quick`` on, apart from the port-only ``device`` and
+    checkpoint paths and two deviations by design: the port keeps
+    ``fused_residual`` (the card's kernels), and keeps ``net_impl``
+    without ``--f32`` (its df32 stages run as float64)."""
+    import importlib
+    import types
+
+    seen = {"jax": [], "port": []}
+
+    def stub(side):
+        def run(hp, plot=False):
+            assert plot is False
+            seen[side].append(dict(hp))
+            return {"error": 0.0, "timing": {}}
+        return run
+
+    for name in run_campaign.CAMPAIGN:
+        monkeypatch.setitem(sys.modules, name,
+                            types.SimpleNamespace(run=stub("jax")))
+        monkeypatch.setattr(importlib.import_module(
+            f"pinn_torch.experiments.{name}"), "run", stub("port"))
+    paths = ("init_checkpoint", "save_checkpoint")
+    for name, stages in run_campaign.CAMPAIGN.items():
+        seen["jax"].clear()
+        seen["port"].clear()
+        jax_campaign.run_one(name, True, f32)
+        run_campaign.run_recipe(name, "/nonexistent", "cpu", quick=True,
+                                f32=f32)
+        assert len(seen["jax"]) == len(seen["port"]) == len(stages)
+        for i, (got, want) in enumerate(zip(seen["port"], seen["jax"])):
+            assert got.pop("device") == "cpu"
+            assert ("init_checkpoint" in got) == ("init_checkpoint" in want) \
+                == (i > 0)
+            kept = {k: got.pop(k) for k in ("fused_residual", "net_impl")
+                    if k in got}
+            assert kept == {k: v for k, v in stages[i].items()
+                            if k == "fused_residual"
+                            or (k == "net_impl" and not f32)}
+            assert ({k: v for k, v in got.items() if k not in paths}
+                    == {k: v for k, v in want.items() if k not in paths})
+            if f32:
+                assert got["dtype"] == "float32"
+                assert "nt_vector_dtype" not in got
+
+
 def test_campaign_refuses_unknown_names():
     with pytest.raises(SystemExit) as exc:
         run_campaign.main(["nope", "--device", "cpu"])
@@ -159,7 +210,7 @@ def test_run_refuses_bad_arguments():
         assert exc.value.code not in (0, None)
 
 
-@pytest.mark.parametrize("args", [["bench"], ["run", "ide_disc_kdv", "--plot"]])
+@pytest.mark.parametrize("args", [["bench"], ["bench", "--smoke"]])
 def test_not_ported_commands_refuse(args):
     done = _module(*args)
     assert done.returncode != 0

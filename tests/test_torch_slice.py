@@ -123,6 +123,14 @@ def test_port_never_imports_jax():
             "import pinn_torch.experiments.ide_disc_kdv\n"
             "import pinn_torch.experiments.ide_cont_navierstokes\n"
             "import pinn_torch.experiments.run_campaign\n"
+            "import pinn_torch.experiments.custom_pde_example\n"
+            "import pinn_torch.experiments.inf_cont_burgers_bench\n"
+            "import pinn_torch.experiments.ide_cont_burgers_bench\n"
+            "import pinn_torch.experiments.viz, pinn_torch.utils.plotting\n"
+            "import pinn_torch.datagen.allencahn_exact\n"
+            "import pinn_torch.datagen.kdv_exact\n"
+            "import pinn_torch.datagen.burgers_exact\n"
+            "import pinn_torch.datagen.schrodinger_exact\n"
             "import pinn_torch.cli, pinn_torch.ops.diff\n"
             "import pinn_torch.problems.navierstokes\n"
             "import pinn_torch.datagen.navierstokes_spectral\n"
@@ -132,8 +140,34 @@ def test_port_never_imports_jax():
             "import pinn_torch.api, pinn_torch.ensemble, pinn_torch.export\n"
             "import pinn_torch.dtypes\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'pinn', 'datagen', 'experiments'))\n"
+            "('jax', 'jaxlib', 'pinn', 'datagen', 'experiments', "
+            "'matplotlib'))\n"
             "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env=env, timeout=120)
+
+
+def test_top_level_names():
+    """``import pinn_torch`` gives the JAX package's top-level names
+    (``pinn/__init__.py``) and loads neither jax nor matplotlib, and
+    builds no kernel."""
+    code = ("import sys\n"
+            "import pinn_torch\n"
+            "from pinn_torch.ops import _build\n"
+            "names = ['PhysicsInformedNN', 'EnsemblePINN', 'Trainer', 'HP',\n"
+            "         'load_hp', 'default_dtype', 'set_default_dtype', 'mlp',\n"
+            "         'data', 'dtypes', 'ensemble', 'export', 'irk', 'optim',\n"
+            "         'problems']\n"
+            "missing = [n for n in names if not hasattr(pinn_torch, n)]\n"
+            "assert not missing, missing\n"
+            "assert pinn_torch.Trainer is __import__('pinn_torch.train').train.Trainer\n"
+            "assert pinn_torch.optim.LbfgsConfig and pinn_torch.problems.kdv\n"
+            "assert pinn_torch.mlp.taylor_apply and pinn_torch.load_hp\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'matplotlib', 'pinn'))\n"
+            "assert not bad, bad\n"
+            "assert _build._LIBRARY is None\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env=env, timeout=120)
