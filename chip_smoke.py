@@ -165,6 +165,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the PINN, then plain networks on 50/200/400 domain points and
    50/100 boundary points), with no figure: every error finite, and
    matplotlib never imported.
+4t. The data-parallel tier (``pinn_torch.parallel``): (a)
+   ``make_burgers_loss_dp`` on four shards of ``cuda:0`` at the
+   flagship (2,500 collocation + the 100 data points a shard) against
+   ``make_burgers_loss`` on the whole batch from the same weights (the
+   loss to rtol 1e-6, the gradients to rtol 2e-5 / atol 1e-7), row 1
+   counted exactly 4 a call with gradients and row 2 4 a call without,
+   two calls bitwise equal; the same for ``make_schrodinger_loss_dp``
+   at [2, 100x4, 2], N_f = 20,000 (rows 7 and 8); the Adam step's ms
+   for one launch, one shard and four shards, in turns; (b) a
+   world-size-1 NCCL group (``init_distributed``): one Adam step of the
+   fused flagship DP loss, bitwise the in-process one-shard step; (c)
+   ``inf_cont_burgers`` and ``inf_cont_schrodinger`` with ``tpu_mesh:
+   true, fused_residual: true`` (one shard on a one-card machine), 50
+   Adam steps + 50 L-BFGS iterations, beside the same run unsharded:
+   the loss falls, the launches of rows 1 + 2 (7 + 8) equal the Adam
+   steps + the L-BFGS evaluations + the closing loss, and the counts
+   and logged losses are bitwise the unsharded run's; both runs' rates.
 Each main path runs with every launch count set to 0 just before its
 fused stage; every kernel of the path must have launched by its end
 (4k-4o: none may have), the logged loss must fall and every reported
@@ -1838,6 +1855,186 @@ def phase_bench_measure() -> None:
     _check_finite(values)
 
 
+def _dp_value_and_grad(loss_fn, params, batch):
+    """(loss, gradients) of ``loss_fn`` at ``params``, detached."""
+    import torch
+    from pinn_torch.params import leaves, rebuild
+    live = [a.detach().clone().requires_grad_(True) for a in leaves(params)]
+    val = loss_fn(rebuild(params, live), batch)
+    return val.detach(), torch.autograd.grad(val, live)
+
+
+def _adam_ms(loss_fn, params, batch, steps=30):
+    """Host ms an Adam step (zero_grad, loss, backward, step), as the
+    Trainer takes it, after a device sync on each side."""
+    import torch
+    from pinn_torch.params import leaves, rebuild
+    live = [a.detach().clone().requires_grad_(True) for a in leaves(params)]
+    p = rebuild(params, live)
+    opt = torch.optim.Adam(live, lr=1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss_fn(p, batch).backward()
+        opt.step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def _dp_case(tag, whole, dp, dp1, params, batch, grad_name, loss_name):
+    """4t (a): ``dp`` (four shards on one card) against ``whole`` (one
+    launch): the loss to rtol 1e-6, the gradients to rtol 2e-5 / atol
+    1e-7; ``grad_name`` counts exactly 4 a call with gradients and
+    ``loss_name`` 4 a call without; two calls bitwise equal.  Then the
+    Adam step's ms on ``whole``, ``dp1`` (one shard) and ``dp``, in
+    turns."""
+    import torch
+    val, grads = _dp_value_and_grad(whole, params, batch)
+    _reset_counts()
+    got, got_g = _dp_value_and_grad(dp, params, batch)
+    _expect_counts(f"4t {tag} DP call", {grad_name: 4, loss_name: 0})
+    again, again_g = _dp_value_and_grad(dp, params, batch)
+    with torch.no_grad():
+        nograd = dp(params, batch)
+    _expect_counts(f"4t {tag} DP calls", {grad_name: 8, loss_name: 4})
+    if not (torch.equal(got, again)
+            and all(torch.equal(a, b) for a, b in zip(got_g, again_g))):
+        raise AssertionError(f"4t {tag}: two DP calls differ")
+    np.testing.assert_allclose(float(got), float(val), rtol=1e-6,
+                               err_msg=f"4t {tag} loss")
+    errs = []
+    for a, b in zip(got_g, grads):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=2e-5, atol=1e-7,
+                                   err_msg=f"4t {tag} gradients")
+        errs.append(float(np.max(np.abs(a - b))))
+    log(f"[4t {tag}] 4 shards on one card: loss {float(got):.9e} (one launch "
+        f"{float(val):.9e}, loss-only {float(nograd):.9e}), max |dgrad| "
+        f"{max(errs):.3e}; two calls bitwise equal")
+    ms = {"whole": [], "1 shard": [], "4 shards": []}
+    for name, fn in [("whole", whole), ("4 shards", dp), ("1 shard", dp1)] * 2:
+        ms[name].append(_adam_ms(fn, params, batch))
+    log(f"[4t {tag}] Adam ms a step (host clock, 30 steps, two turns): "
+        + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+                    for k, v in ms.items()))
+    _check_finite([float(got), float(nograd), *[t for v in ms.values()
+                                                for t in v]])
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_data_parallel() -> None:
+    """4t: the data-parallel tier: (a) four shards of rows 1 and 7 on
+    the card against one launch, (b) a world-size-1 NCCL mesh against
+    the in-process one-shard step, (c) both experiments with tpu_mesh."""
+    import torch
+    import torch.distributed as dist
+    from pinn_torch.experiments import inf_cont_burgers, inf_cont_schrodinger
+    from pinn_torch.ops import fused_schrodinger as fs
+    from pinn_torch.ops import fused_train as ft
+    from pinn_torch.parallel import distributed as pdist
+    from pinn_torch.parallel import make_mesh
+    from pinn_torch.params import ravel
+
+    dev = torch.device("cuda", 0)
+    mesh1, mesh4 = make_mesh(devices=[dev]), make_mesh(devices=[dev] * 4)
+
+    def cuda(arrays):
+        return {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for k, v in arrays.items()}
+
+    # (a) Burgers at the flagship, Schrödinger at [2, 100x4, 2].
+    rng = np.random.RandomState(17)
+    params = _weights(FLAGSHIP, rng)
+    batch = cuda({"X_u": LB + (UB - LB) * rng.rand(100, 2),
+                  "u": rng.rand(100, 1),
+                  "X_f": LB + (UB - LB) * rng.rand(10000, 2)})
+    _dp_case("burgers", ft.make_burgers_loss(LB, UB, NU),
+             ft.make_burgers_loss_dp(LB, UB, NU, mesh4),
+             ft.make_burgers_loss_dp(LB, UB, NU, mesh1), params, batch,
+             "burgers_loss_grad", "burgers_loss")
+    s_params = _weights(S_FLAGSHIP, rng)
+    x0 = S_LB[0] + (S_UB[0] - S_LB[0]) * rng.rand(50, 1)
+    tb = rng.rand(50, 1) * S_UB[1]
+    s_batch = cuda({"X0": np.hstack([x0, 0 * x0]), "H0": rng.randn(50, 2),
+                    "X_lb": np.hstack([0 * tb + S_LB[0], tb]),
+                    "X_ub": np.hstack([0 * tb + S_UB[0], tb]),
+                    "X_f": S_LB + (S_UB - S_LB) * rng.rand(20000, 2)})
+    _dp_case("schrodinger", fs.make_schrodinger_loss(S_LB, S_UB),
+             fs.make_schrodinger_loss_dp(S_LB, S_UB, mesh4),
+             fs.make_schrodinger_loss_dp(S_LB, S_UB, mesh1), s_params,
+             s_batch, "schrodinger_sse_grad", "schrodinger_sse")
+
+    # (b) World size 1 on NCCL: one Adam step of the fused flagship loss,
+    # bitwise the in-process one-shard step.
+    from pinn_torch.graft_entry import adam_step
+    want = adam_step(ft.make_burgers_loss_dp(LB, UB, NU, mesh1), params, batch)
+    t0 = time.perf_counter()
+    pdist.init_distributed(f"localhost:{_free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"4t: backend {dist.get_backend()}, not nccl")
+        mesh = pdist.make_multihost_mesh()
+        got = adam_step(ft.make_burgers_loss_dp(LB, UB, NU, mesh), params,
+                        batch)
+    finally:
+        dist.destroy_process_group()
+    if not (got[0] == want[0] and torch.equal(got[1], want[1])
+            and torch.equal(ravel(got[2]), ravel(want[2]))):
+        raise AssertionError("4t: the NCCL world-size-1 step differs from "
+                             "the in-process one")
+    log(f"[4t nccl] world size 1, mesh {mesh.shape}: loss {got[0]:.9e}, "
+        f"gradients and parameters bitwise the in-process step "
+        f"({time.perf_counter() - t0:.2f} s with the group's set-up)")
+
+    # (c) The two experiments with tpu_mesh: true (one shard on a
+    # one-card machine) beside the unsharded run, cut to 50 + 50.
+    cases = [("burgers", inf_cont_burgers, {}, _check_falls,
+              "burgers_loss_grad", "burgers_loss"),
+             # A gentler Adam than the recipe's spike (see 4f).
+             ("schrodinger", inf_cont_schrodinger,
+              {"tf_lr": 0.005, "tf_b1": 0.9}, _check_final_falls,
+              "schrodinger_sse_grad", "schrodinger_sse")]
+    for tag, mod, extra, check, grad_name, loss_name in cases:
+        seen = {}
+        for mesh_key in (True, None):
+            name = "mesh" if mesh_key else "unsharded"
+            hp = {"device": "cuda", "fused_residual": True, "tf_epochs": 50,
+                  "nt_epochs": 50, "log_frequency": 10, **extra,
+                  "log_file": os.path.join(WORK_DIR, f"4t_{tag}_{name}.jsonl")}
+            if mesh_key:
+                hp["tpu_mesh"] = True
+            _reset_counts()
+            r, s, (losses,) = _run_stage(f"4t {tag} {name}", mod.run, hp,
+                                         check=check)
+            counts = _read_counts([grad_name, loss_name])
+            # Each Adam step, each L-BFGS evaluation and the closing loss
+            # launch row 1 (7) or row 2 (8) once.
+            want_n = hp["tf_epochs"] + r["timing"]["lbfgs_evals"] + 1
+            if sum(counts.values()) != want_n or \
+                    counts[grad_name] < hp["tf_epochs"]:
+                raise AssertionError(f"4t {tag} {name}: launches {counts}, "
+                                     f"expected {want_n} in all")
+            adam_rate, lbfgs_rate = _rates(r["timing"], hp["tf_epochs"])
+            log(f"[4t {tag}] {name}: launches {counts}, rel-L2 "
+                f"{r['error']:.6e}, {s:.2f} s, Adam {adam_rate:.2f} steps/s, "
+                f"L-BFGS {lbfgs_rate:.2f} iters/s "
+                f"({r['timing']['lbfgs_iters']} iterations)")
+            _check_finite([r["error"], r["loss"], adam_rate, lbfgs_rate])
+            seen[name] = (counts, [l for _, _, l in losses], r["loss"])
+        if seen["mesh"] != seen["unsharded"]:
+            raise AssertionError(f"4t {tag}: the one-shard mesh run differs "
+                                 f"from the unsharded run: {seen}")
+        log(f"[4t {tag}] one-shard mesh run: counts and logged losses "
+            f"bitwise the unsharded run's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1892,8 +2089,11 @@ def main() -> int:
     phase_custom_pde()
     phase_campaign_f32()
     phase_bench_measure()
+    t6 = time.perf_counter()
     log(f"[time] traces (4p) {t5 - t4:.1f} s, custom PDE, campaign and "
-        f"bench (4q-4s) {time.perf_counter() - t5:.1f} s")
+        f"bench (4q-4s) {t6 - t5:.1f} s")
+    phase_data_parallel()
+    log(f"[time] data parallel (4t) {time.perf_counter() - t6:.1f} s")
     for module in ("jax", "matplotlib"):
         if module in sys.modules:
             raise AssertionError(f"the port imported {module}")

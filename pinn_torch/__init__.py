@@ -9,7 +9,7 @@ The top-level names are the JAX package's (``pinn/__init__.py``):
 ``PhysicsInformedNN``, ``EnsemblePINN``, ``Trainer``, ``HP``,
 ``load_hp``, ``default_dtype``, ``set_default_dtype``, ``mlp`` and the
 submodules ``data``, ``dtypes``, ``ensemble``, ``export``, ``irk``,
-``optim`` and ``problems``.  Importing the package is cheap: it
+``optim``, ``parallel`` and ``problems``.  Importing the package is cheap: it
 imports ``torch`` and ``numpy`` (never ``jax`` or ``matplotlib``), and
 no kernel is built until a CUDA tensor first reaches one
 (``pinn_torch.ops._build``).
@@ -25,12 +25,16 @@ facade (``api``), ensembling, serving export, the experiments and
 campaign recipes under ``pinn_torch.experiments`` (with the custom-PDE
 example, the PINN-against-network comparisons and the figures of
 ``experiments.viz``, which import matplotlib only to draw) and the
-command line ``python -m pinn_torch`` (``pinn_torch.cli``).
+command line ``python -m pinn_torch`` (``pinn_torch.cli``), and the
+data-parallel tier (``pinn_torch.parallel``: meshes of shards, the
+fixed-order reduction, ``torch.distributed`` meshes; the fused DP
+losses; ``tpu_mesh``; ``pinn_torch.graft_entry``).
 """
 
 __version__ = "0.1.0"
 
-from pinn_torch import data, dtypes, ensemble, export, irk, optim, problems  # noqa: E402,F401
+from pinn_torch import (data, dtypes, ensemble, export, irk, optim,  # noqa: E402,F401
+                        parallel, problems)
 from pinn_torch.api import PhysicsInformedNN  # noqa: E402,F401
 from pinn_torch.dtypes import default_dtype, set_default_dtype  # noqa: E402,F401
 from pinn_torch.ensemble import EnsemblePINN  # noqa: E402,F401

@@ -11,7 +11,7 @@ case warm-starts from, and saves to, its own checkpoint
 from __future__ import annotations
 
 import os
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -40,16 +40,11 @@ def wants_bf16(value) -> bool:
     return str(value).lower() in ("bf16", "bfloat16")
 
 
-def setup(hp, not_ported: Sequence[str] = ()) -> Tuple[int, torch.dtype,
-                                                        torch.device]:
-    """Validate ``hp``, refuse keys the port lacks, seed numpy (the data
-    draws' RNG stream, as in the JAX run) and resolve dtype and device.
-    Returns ``(seed, dtype, device)``."""
+def setup(hp) -> Tuple[int, torch.dtype, torch.device]:
+    """Validate ``hp``, seed numpy (the data draws' RNG stream, as in the
+    JAX run) and resolve dtype and device.  Returns ``(seed, dtype,
+    device)``."""
     validate_hp(hp)
-    bad = [k for k in not_ported if hp.get(k)]
-    if bad:
-        raise NotImplementedError(f"hp key(s) {bad} are not ported to "
-                                  "pinn_torch yet")
     seed = hp.get("seed", 1234)
     np.random.seed(seed)
     dtype = resolve_dtype(hp)
@@ -67,6 +62,22 @@ def command_line(argv, defaults) -> Tuple[dict, bool]:
     matplotlib."""
     return (load_hp([a for a in argv if a != "--plot"], defaults),
             "--plot" in argv)
+
+
+def resolve_mesh(hp, device: torch.device):
+    """hp["tpu_mesh"] as a ``pinn_torch.parallel`` mesh, or None when
+    absent.  On the card ``true`` takes every visible CUDA device (one
+    shard on a one-card machine) and an int that many, raising when
+    fewer are visible; with ``device: "cpu"`` an int is that many CPU
+    shards and ``true`` one."""
+    req = hp.get("tpu_mesh")
+    if not req:
+        return None
+    from pinn_torch.parallel import make_mesh
+    n = None if req is True else int(req)
+    if device.type == "cpu":
+        return make_mesh(devices=[device] * (n or 1))
+    return make_mesh(n)
 
 
 def check_no_mesh(hp) -> None:

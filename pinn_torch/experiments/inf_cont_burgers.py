@@ -30,11 +30,18 @@ nu = 0.01/pi, Adam then L-BFGS, rel-L2 error on the full grid.
   by ``_common.residual_fn``: in float32 the residual-evaluation kernel,
   in float64 the eager residual.
 
+- ``tpu_mesh`` (``true``: every visible card; an int: that many, or
+  with ``device: "cpu"`` that many CPU shards) splits the collocation
+  axis over a ``pinn_torch.parallel`` mesh of D shards.  With
+  ``fused_residual`` each shard launches the fused kernels on its N_f/D
+  rows (``make_burgers_loss_dp``; N_f must divide); without it X_f is
+  padded to a multiple of D with zero weights (``f_w``) and each shard
+  runs the eager loss on its rows with weights ×D.  The shards are
+  summed in a fixed order and divided by D.  ``rar_init`` draws only
+  without a mesh, as in the JAX experiment.
 - ``plot=True`` draws ``plot_inf_cont_results``
   (``pinn_torch.experiments.viz``; needs matplotlib) under
   ``save_path`` (default ``experiments``, against the repo root).
-
-Not yet ported: the device mesh.
 
 Usage: ``python -m pinn_torch.experiments.inf_cont_burgers [hp.json]
 [--plot]``
@@ -49,8 +56,8 @@ import torch
 
 from pinn_torch.data import burgers_cont_inference, lhs
 from pinn_torch.experiments._common import (command_line, maybe_load_params,
-                                            maybe_save_params, residual_fn,
-                                            setup, wants_bf16)
+                                            maybe_save_params, resolve_mesh,
+                                            residual_fn, setup, wants_bf16)
 from pinn_torch.models import mlp
 from pinn_torch.problems import burgers
 from pinn_torch.train import Trainer
@@ -71,12 +78,10 @@ DEFAULT_HP = {
     "log_frequency": 10,
 }
 
-NOT_PORTED = ("tpu_mesh",)
-
 
 def run(hp=None, plot=False, save_path=None):
     hp = {**DEFAULT_HP, **(hp or {})}
-    seed, dtype, device = setup(hp, NOT_PORTED)
+    seed, dtype, device = setup(hp)
     if hp.get("rar_pool") and int(hp["rar_pool"]) < hp["N_f"]:
         raise ValueError(
             f"rar_pool ({hp['rar_pool']}) must be >= N_f ({hp['N_f']}): "
@@ -84,6 +89,11 @@ def run(hp=None, plot=False, save_path=None):
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def padded(X):
+        from pinn_torch.parallel import pad_points_with_weights
+        Xp, w = pad_points_with_weights(np.asarray(X), mesh.size)
+        return tensor(Xp), tensor(w)
 
     data = burgers_cont_inference(hp["N_u"], hp["N_f"])
     lb, ub = tensor(data.lb), tensor(data.ub)
@@ -94,28 +104,51 @@ def run(hp=None, plot=False, save_path=None):
     gen = torch.Generator().manual_seed(int(hp.get("init_seed") or seed))
     net = maybe_load_params(hp, mlp.init_mlp(hp["layers"], gen, dtype, device))
 
+    mesh = resolve_mesh(hp, device)
+    pad = mesh is not None and not hp.get("fused_residual")
     batch = {"X_u": X_u, "u": u, "X_f": X_f}
+    if pad:
+        # Eager mesh path: zero-weight pad rows so any N_f divides the
+        # mesh (the fused DP path requires N_f % D == 0 instead).
+        X_f, batch["f_w"] = padded(data.X_f)
+        batch["X_f"] = X_f
 
     adam_loss_fn = None  # the Adam phase's loss, when it differs
     if hp.get("fused_residual"):
         if dtype != torch.float32:
             raise ValueError("fused_residual requires dtype=float32 "
                              "(the eager loss covers float64)")
-        from pinn_torch.ops.fused_train import make_burgers_loss
-        sdt = "bfloat16" if wants_bf16(hp["fused_residual"]) else None
-        loss_fn = make_burgers_loss(data.lb, data.ub, nu, stream_dtype=sdt)
+        from pinn_torch.ops.fused_train import (make_burgers_loss,
+                                                make_burgers_loss_dp)
+
+        def build_fused(stream):
+            if mesh is not None:
+                return make_burgers_loss_dp(data.lb, data.ub, nu, mesh,
+                                            stream_dtype=stream)
+            return make_burgers_loss(data.lb, data.ub, nu, stream_dtype=stream)
+
+        loss_fn = build_fused("bfloat16" if wants_bf16(hp["fused_residual"])
+                              else None)
         if wants_bf16(hp.get("tf_net_dtype")):
             # bf16 warmup on the fused path: Adam on the bf16-stream
             # kernels (float32 weights and gradients, so no cast on
             # top), L-BFGS on loss_fn; the key is not logged.
-            adam_loss_fn = make_burgers_loss(data.lb, data.ub, nu,
-                                             stream_dtype="bfloat16")
+            adam_loss_fn = build_fused("bfloat16")
             hp = {k: v for k, v in hp.items() if k != "tf_net_dtype"}
     else:
         def loss_fn(p, b):
             return burgers.loss_cont_inference(p, b["X_u"], b["u"], b["X_f"],
                                                lb, ub, nu,
                                                f_weights=b.get("f_w"))
+
+        if mesh is not None:
+            from pinn_torch.parallel import data_parallel
+            eager = loss_fn
+
+            def local_loss(p, b):   # a shard's rows, its weights x D
+                return eager(p, {**b, "f_w": b["f_w"] * mesh.size})
+
+            loss_fn = data_parallel(local_loss, mesh, ("X_f", "f_w"))
 
     @torch.no_grad()
     def predict_u(p, X):
@@ -143,13 +176,16 @@ def run(hp=None, plot=False, save_path=None):
         rng = np.random.RandomState(seed + i)
         b = dict(batch)
         if hp.get("rar_pool"):
-            b["X_f"] = tensor(rar_draw(holder["trainer"].params, rng))
+            X_new = rar_draw(holder["trainer"].params, rng)
         else:
-            b["X_f"] = tensor(data.lb + (data.ub - data.lb)
-                              * lhs(2, hp["N_f"], rng))
+            X_new = data.lb + (data.ub - data.lb) * lhs(2, hp["N_f"], rng)
+        if pad:
+            b["X_f"], b["f_w"] = padded(X_new)
+        else:   # unsharded, or fused DP (N_f a multiple of D)
+            b["X_f"] = tensor(X_new)
         return b
 
-    if hp.get("rar_init") and hp.get("rar_pool"):
+    if hp.get("rar_init") and hp.get("rar_pool") and mesh is None:
         # One RAR draw from the starting net (a warm-started stage).
         batch["X_f"] = tensor(rar_draw(net, np.random.RandomState(seed + 999)))
 
@@ -168,7 +204,7 @@ def run(hp=None, plot=False, save_path=None):
     logger = Logger(hp, device=device)
     trainer = Trainer(loss_fn, net, batch, hp, logger,
                       resample_fn=resample_fn, val_fn=val_fn,
-                      adam_loss_fn=adam_loss_fn)
+                      adam_loss_fn=adam_loss_fn, mesh=mesh)
     holder["trainer"] = trainer
 
     def error():

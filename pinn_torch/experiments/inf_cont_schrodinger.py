@@ -25,10 +25,14 @@ grid.  Each log line carries the three loss terms.
   on every evaluation of the loss, the Adam phase's too, as the
   reference's ``tf.print`` and the JAX experiment's ``jax.debug.print``
   do: a debug mode, with a host sync per evaluation.
+- ``tpu_mesh`` splits the collocation axis over a
+  ``pinn_torch.parallel`` mesh of D shards, as in ``inf_cont_burgers``:
+  with ``fused_residual`` one residual kernel launch a shard on N_f/D
+  rows (``make_schrodinger_loss_dp``), else X_f padded with zero
+  weights (``f_w``) and the eager loss a shard, weights ×D; the IC/BC
+  terms on every shard.
 - ``plot=True`` draws ``plot_schrodinger_results``
   (``pinn_torch.experiments.viz``; needs matplotlib).
-
-Not yet ported: ``tpu_mesh``.
 
 Usage: ``python -m pinn_torch.experiments.inf_cont_schrodinger [hp.json]
 [--plot]``
@@ -43,8 +47,8 @@ import torch
 
 from pinn_torch.data import lhs, schrodinger_inference
 from pinn_torch.experiments._common import (command_line, maybe_load_params,
-                                            maybe_save_params, setup,
-                                            wants_bf16)
+                                            maybe_save_params, resolve_mesh,
+                                            setup, wants_bf16)
 from pinn_torch.models import mlp
 from pinn_torch.problems import schrodinger
 from pinn_torch.train import Trainer
@@ -66,15 +70,18 @@ DEFAULT_HP = {
     "log_frequency": 10,
 }
 
-NOT_PORTED = ("tpu_mesh",)
-
 
 def run(hp=None, plot=False, save_path=None):
     hp = {**DEFAULT_HP, **(hp or {})}
-    seed, dtype, device = setup(hp, NOT_PORTED)
+    seed, dtype, device = setup(hp)
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def padded(X):
+        from pinn_torch.parallel import pad_points_with_weights
+        Xp, w = pad_points_with_weights(np.asarray(X), mesh.size)
+        return tensor(Xp), tensor(w)
 
     data = schrodinger_inference(hp["N_0"], hp["N_b"], hp["N_f"])
     lb, ub = tensor(data.lb), tensor(data.ub)
@@ -87,6 +94,12 @@ def run(hp=None, plot=False, save_path=None):
     batch = {"X0": tensor(X0), "H0": tensor(H0), "X_lb": tensor(X_lb),
              "X_ub": tensor(X_ub), "X_f": tensor(data.X_f)}
     X_star = tensor(data.X_star)
+    mesh = resolve_mesh(hp, device)
+    pad = mesh is not None and not hp.get("fused_residual")
+    if pad:
+        # Eager mesh path: zero-weight pad rows so any N_f divides the
+        # mesh (the fused DP path requires N_f % D == 0 instead).
+        batch["X_f"], batch["f_w"] = padded(data.X_f)
 
     gen = torch.Generator().manual_seed(int(hp.get("init_seed") or seed))
     net = maybe_load_params(hp, mlp.init_mlp(hp["layers"], gen, dtype, device))
@@ -96,19 +109,36 @@ def run(hp=None, plot=False, save_path=None):
         if dtype != torch.float32:
             raise ValueError("fused_residual requires dtype=float32 "
                              "(the eager loss covers float64)")
-        from pinn_torch.ops.fused_schrodinger import make_schrodinger_loss
-        sdt = "bfloat16" if wants_bf16(hp["fused_residual"]) else None
-        loss_fn = make_schrodinger_loss(data.lb, data.ub, stream_dtype=sdt)
+        from pinn_torch.ops.fused_schrodinger import (
+            make_schrodinger_loss, make_schrodinger_loss_dp)
+
+        def build_fused(stream):
+            if mesh is not None:
+                return make_schrodinger_loss_dp(data.lb, data.ub, mesh,
+                                                stream_dtype=stream)
+            return make_schrodinger_loss(data.lb, data.ub, stream_dtype=stream)
+
+        loss_fn = build_fused("bfloat16" if wants_bf16(hp["fused_residual"])
+                              else None)
         if wants_bf16(hp.get("tf_net_dtype")):
             # bf16 warmup on the fused path: Adam on the bf16-stream
             # residual kernels, L-BFGS on loss_fn; the key is not logged.
-            adam_loss_fn = make_schrodinger_loss(data.lb, data.ub,
-                                                 stream_dtype="bfloat16")
+            adam_loss_fn = build_fused("bfloat16")
             hp = {k: v for k, v in hp.items() if k != "tf_net_dtype"}
     else:
         def loss_fn(p, b):
             return schrodinger.loss(p, b["X0"], b["H0"], b["X_lb"],
-                                    b["X_ub"], b["X_f"], lb, ub)
+                                    b["X_ub"], b["X_f"], lb, ub,
+                                    f_weights=b.get("f_w"))
+
+        if mesh is not None:
+            from pinn_torch.parallel import data_parallel
+            eager = loss_fn
+
+            def local_loss(p, b):   # a shard's rows, its weights x D
+                return eager(p, {**b, "f_w": b["f_w"] * mesh.size})
+
+            loss_fn = data_parallel(local_loss, mesh, ("X_f", "f_w"))
 
     final_loss_fn = loss_fn   # the final loss, printed by no wrapper
     if hp.get("print_loss_terms"):
@@ -116,7 +146,8 @@ def run(hp=None, plot=False, save_path=None):
             def wrapped(p, b):
                 with torch.no_grad():
                     t = schrodinger.loss_terms(p, b["X0"], b["H0"], b["X_lb"],
-                                               b["X_ub"], b["X_f"], lb, ub)
+                                               b["X_ub"], b["X_f"], lb, ub,
+                                               b.get("f_w"))
                 print(f"mse_0 {float(t.mse_0)}    mse_b {float(t.mse_b)}    "
                       f"mse_f    {float(t.mse_f)}")
                 return base(p, b)
@@ -133,7 +164,7 @@ def run(hp=None, plot=False, save_path=None):
         with torch.no_grad():
             t = schrodinger.loss_terms(p, batch["X0"], batch["H0"],
                                        batch["X_lb"], batch["X_ub"],
-                                       batch["X_f"], lb, ub)
+                                       batch["X_f"], lb, ub, batch.get("f_w"))
         return (f"mse_0 = {float(t.mse_0):.4e}  "
                 f"mse_b = {float(t.mse_b):.4e}  "
                 f"mse_f = {float(t.mse_f):.4e}")
@@ -141,8 +172,12 @@ def run(hp=None, plot=False, save_path=None):
     def resample_fn(i):
         # Fresh LHS collocation draw (new stream); IC/BC stacks stay.
         rng = np.random.RandomState(seed + i)
+        X_new = data.lb + (data.ub - data.lb) * lhs(2, hp["N_f"], rng)
         b = dict(batch)
-        b["X_f"] = tensor(data.lb + (data.ub - data.lb) * lhs(2, hp["N_f"], rng))
+        if pad:
+            b["X_f"], b["f_w"] = padded(X_new)
+        else:   # unsharded, or fused DP (N_f a multiple of D)
+            b["X_f"] = tensor(X_new)
         return b
 
     val_fn = None
@@ -165,7 +200,7 @@ def run(hp=None, plot=False, save_path=None):
     logger = Logger(hp, device=device)
     trainer = Trainer(loss_fn, net, batch, hp, logger,
                       epoch_extra=epoch_extra, resample_fn=resample_fn,
-                      val_fn=val_fn, adam_loss_fn=adam_loss_fn)
+                      val_fn=val_fn, adam_loss_fn=adam_loss_fn, mesh=mesh)
 
     def error(H=None):
         H = predict_h(trainer.params) if H is None else H

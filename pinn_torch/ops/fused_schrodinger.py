@@ -30,9 +30,8 @@ the wrappers launch the kernel or raise.  The f32 ones differentiate by
 autograd, the bf16 ones run ``fused_train``'s explicit backward with
 the bf16 rounding; as in the TPU kernel, the output bias gradient sums
 the unrounded value adjoints.  Host-side prep and reassembly are
-``fused_train``'s.  The multi-device variant
-(``make_schrodinger_loss_dp``) waits for the port's ``parallel``
-package.
+``fused_train``'s.  ``make_schrodinger_loss_dp`` is the data-parallel
+loss over a ``pinn_torch.parallel`` mesh.
 """
 
 from __future__ import annotations
@@ -199,3 +198,17 @@ def make_schrodinger_loss(lb, ub, stream_dtype=None):
         return mse_0 + mse_b + fused(params, batch["X_f"]) / n_f
 
     return loss
+
+
+def make_schrodinger_loss_dp(lb, ub, mesh, axis: str = "data",
+                             stream_dtype=None):
+    """Data-parallel :func:`make_schrodinger_loss`
+    (pallas_schrodinger.py:354-392): each shard of ``mesh`` runs the
+    loss on its rows of ``X_f``, one residual kernel launch a shard, with
+    the IC/BC terms (50 points each) on every shard; the shards are
+    summed in a fixed order and divided by the shard count D
+    (``pinn_torch.parallel.dp``), which gives ``mse_0 + mse_b + sse /
+    N_f``.  ``N_f % D == 0`` is required, else ``ValueError``."""
+    from pinn_torch.parallel.dp import data_parallel
+    return data_parallel(make_schrodinger_loss(lb, ub, stream_dtype), mesh,
+                         ("X_f",), axis)

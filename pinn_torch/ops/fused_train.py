@@ -2,7 +2,9 @@
 parameter gradient.
 
 Counterpart of ``pinn.ops.pallas_train.make_burgers_loss``,
-``make_burgers_ide_loss`` and ``make_burgers_sse``.
+``make_burgers_ide_loss``, ``make_burgers_sse`` and
+``make_burgers_loss_dp`` (the data-parallel loss over a
+``pinn_torch.parallel`` mesh).
 
 Inference.  Data and collocation points ride one stream with three aux
 rows (target, w, d):
@@ -821,3 +823,23 @@ def make_burgers_sse(lb, ub, nu: float):
         return burgers_sse(a0, z1row, z2row, wt_args, nu)
 
     return sse
+
+
+def make_burgers_loss_dp(lb, ub, nu: float, mesh, axis: str = "data",
+                         stream_dtype=None):
+    """Data-parallel :func:`make_burgers_loss` (``make_burgers_loss_dp``,
+    pinn/ops/pallas_train.py:779-841): each shard of ``mesh`` runs the
+    fused loss on (``X_u``, ``u``, its rows of ``X_f``), one kernel
+    launch a shard, and ``pinn_torch.parallel.dp`` sums the shards in
+    shard order (then process order) and divides by the shard count D.
+
+    Only the collocation axis shards; the N_u-point data term is
+    computed on every shard.  Each shard returns ``mse_u + sse_d /
+    (N_f / D)``, so the mean over shards is ``mse_u + mse_f`` up to the
+    float32 summation order.  ``N_f % D == 0`` is required (the fused
+    batch has no zero-weight pad rows), else ``ValueError``.  The shards
+    are not padded to whole 32-point tiles: the kernels mask the edge.
+    """
+    from pinn_torch.parallel.dp import data_parallel
+    return data_parallel(make_burgers_loss(lb, ub, nu, stream_dtype), mesh,
+                         ("X_f",), axis)

@@ -33,7 +33,13 @@ wraps it in ``jax.profiler.trace``: the CPU always, and CUDA when the
 parameters are on the card.  One Chrome-trace JSON lands in the
 directory (``<host>_<pid>.<ns>.pt.trace.json``, which Perfetto and
 TensorBoard's profile plugin open); the run's numbers are those without
-it.  Not yet ported: the device mesh.
+it.
+
+``mesh`` (a ``pinn_torch.parallel`` mesh), as the JAX Trainer's: the
+parameters and the batch are placed on the mesh's first device, and
+again after every resampling.  The loss does the sharding itself
+(``pinn_torch.parallel.data_parallel`` and the fused ``*_loss_dp``
+wrappers), where GSPMD does it for the JAX Trainer.
 """
 
 from __future__ import annotations
@@ -87,7 +93,12 @@ class Trainer:
                  val_fn: Optional[Callable[[Any], float]] = None,
                  adam_loss_fn: Optional[Callable[[Any, Any],
                                                  torch.Tensor]] = None,
-                 params_callback: Optional[Callable[[Any], None]] = None):
+                 params_callback: Optional[Callable[[Any], None]] = None,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            params0 = pcodec.tree_map(lambda a: a.to(mesh.devices[0]), params0)
+            batch = self._place(batch)
         self.loss_fn = loss_fn
         # The loss the Adam phase optimises (AdamRunner's loss_fn).
         self.adam_loss_fn = adam_loss_fn or loss_fn
@@ -112,7 +123,10 @@ class Trainer:
                              "(the path periodic saves write to)")
         # Wall-clock seconds and step counts of each phase (host clock
         # around work that ends in a device synchronisation).
-        self.timing = {"adam_s": 0.0, "lbfgs_s": 0.0, "lbfgs_iters": 0}
+        # lbfgs_evals counts the loss evaluations of the L-BFGS phase,
+        # with and without gradients (initial ones included).
+        self.timing = {"adam_s": 0.0, "lbfgs_s": 0.0, "lbfgs_iters": 0,
+                       "lbfgs_evals": 0}
 
     # -- logging helpers ---------------------------------------------------
     def _log(self, method: str, *args, **kw):
@@ -143,8 +157,14 @@ class Trainer:
             extra={"phase": phase, "epoch": int(epoch),
                    "phase_epoch": int(phase_done)})
 
+    def _place(self, batch):
+        """``batch`` on the mesh's first device (as it is without a mesh)."""
+        if self.mesh is None:
+            return batch
+        return {k: v.to(self.mesh.devices[0]) for k, v in batch.items()}
+
     def _resample(self, round_idx: int) -> None:
-        self.batch = self.resample_fn(round_idx)
+        self.batch = self._place(self.resample_fn(round_idx))
 
     # -- phases ------------------------------------------------------------
     def _adam_phase(self):
@@ -219,7 +239,7 @@ class Trainer:
         every = self.hp.get("nt_resample", 0) if self.resample_fn else 0
         done = 0
         resampled_at = -1
-        n_iters = 0
+        n_iters = n_evals = 0
 
         val_every = (int(self.hp.get("nt_val_every", 0) or 0)
                      if self.val_fn is not None else 0)
@@ -247,9 +267,11 @@ class Trainer:
                 if not every or done == resampled_at:
                     break
                 n_iters += state.n_iter
+                n_evals += state.n_evals
                 state, resampled_at = refresh(done), done
             elif every and done and done % every == 0 and done != resampled_at:
                 n_iters += state.n_iter
+                n_evals += state.n_evals
                 state, resampled_at = refresh(done), done
             chunk = min(self.CHUNK_CAP, self.nt_config.max_iter - done,
                         self.frequency - (done % self.frequency))
@@ -270,6 +292,7 @@ class Trainer:
                           self._extra(), True)
         self.timing["lbfgs_s"] += _now(device) - t0
         self.timing["lbfgs_iters"] += n_iters + state.n_iter
+        self.timing["lbfgs_evals"] += n_evals + state.n_evals
         self.params = to_params(state.x)
         if val_every:
             val_probe(state.x, done)

@@ -139,6 +139,8 @@ def test_port_never_imports_jax():
             "import pinn_torch.ops.fused_schrodinger, pinn_torch.ops.residual\n"
             "import pinn_torch.api, pinn_torch.ensemble, pinn_torch.export\n"
             "import pinn_torch.dtypes\n"
+            "import pinn_torch.parallel, pinn_torch.parallel.distributed\n"
+            "import pinn_torch.parallel.dp, pinn_torch.graft_entry\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinn', 'datagen', 'experiments', "
             "'matplotlib'))\n"
@@ -158,12 +160,15 @@ def test_top_level_names():
             "names = ['PhysicsInformedNN', 'EnsemblePINN', 'Trainer', 'HP',\n"
             "         'load_hp', 'default_dtype', 'set_default_dtype', 'mlp',\n"
             "         'data', 'dtypes', 'ensemble', 'export', 'irk', 'optim',\n"
-            "         'problems']\n"
+            "         'parallel', 'problems']\n"
             "missing = [n for n in names if not hasattr(pinn_torch, n)]\n"
             "assert not missing, missing\n"
             "assert pinn_torch.Trainer is __import__('pinn_torch.train').train.Trainer\n"
             "assert pinn_torch.optim.LbfgsConfig and pinn_torch.problems.kdv\n"
             "assert pinn_torch.mlp.taylor_apply and pinn_torch.load_hp\n"
+            "assert pinn_torch.parallel.make_mesh and pinn_torch.parallel.shard_points\n"
+            "assert pinn_torch.parallel.replicate\n"
+            "assert pinn_torch.parallel.pad_points_with_weights\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'matplotlib', 'pinn'))\n"
             "assert not bad, bad\n"
