@@ -182,6 +182,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    the loss falls, the launches of rows 1 + 2 (7 + 8) equal the Adam
    steps + the L-BFGS evaluations + the closing loss, and the counts
    and logged losses are bitwise the unsharded run's; both runs' rates.
+4u. Tensor parallelism (``make_mesh_2d``, ``shard_params_tp``,
+   ``pinn_torch.parallel.tp``) on a (2, 2) mesh of ``cuda:0``, four
+   shards on one card: (a) TP+DP loss and gradients (``data_parallel``
+   over the data rows, the net placed over the model columns) at full
+   width against the unsharded eager loss from the same weights, for
+   the flagship (N_u = 100, N_f = 10,000), Schrödinger [2, 100x4, 2]
+   (N_f = 20,000; its width-2 head column-split), Navier–Stokes [3,
+   40x8, 2] (N_u = 10,000; the head split too) and KdV's order-3 stream
+   [1, 50x3, 50] (200 + 200 points, its sum loss scaled by the two data
+   shards): the loss to rtol 1e-6, the gradients to rtol 2e-5 / atol
+   1e-7 * max|g|, two calls bitwise equal, the Adam step's ms for both
+   in turns; (b) a ``Trainer`` on TP parameters, 50 Adam steps + 20
+   L-BFGS iterations (Armijo) on the flagship, beside the unsharded
+   run: both losses fall, the final losses within 5e-2, the ms a step
+   of each phase; (c) ``inf_cont_burgers.run`` with ``dtype:
+   "bfloat16"`` at the flagship, 50 + 50: the loss falls, the
+   parameters stay bf16; no kernel of ours launches in (a)-(c); (d)
+   ``graft_entry.dryrun_multichip(4, "cuda")``: eager DP, fused DP (its
+   only launches: rows 1 and 2), TP+DP on a 2 x 2 mesh, two gloo
+   processes.
 Each main path runs with every launch count set to 0 just before its
 fused stage; every kernel of the path must have launched by its end
 (4k-4o: none may have), the logged loss must fall and every reported
@@ -1856,12 +1876,15 @@ def phase_bench_measure() -> None:
 
 
 def _dp_value_and_grad(loss_fn, params, batch):
-    """(loss, gradients) of ``loss_fn`` at ``params``, detached."""
+    """(loss, gradients) of ``loss_fn`` at ``params``, detached (zeros
+    for a leaf the loss does not use, as NS's last bias)."""
     import torch
     from pinn_torch.params import leaves, rebuild
     live = [a.detach().clone().requires_grad_(True) for a in leaves(params)]
     val = loss_fn(rebuild(params, live), batch)
-    return val.detach(), torch.autograd.grad(val, live)
+    grads = torch.autograd.grad(val, live, allow_unused=True)
+    return val.detach(), [torch.zeros_like(a) if g is None else g
+                          for a, g in zip(live, grads)]
 
 
 def _adam_ms(loss_fn, params, batch, steps=30):
@@ -2035,6 +2058,187 @@ def phase_data_parallel() -> None:
             f"bitwise the unsharded run's")
 
 
+def _tp_cases(rng):
+    """4u (a): (tag, layers, loss, params, batch, shard keys, scale) at
+    full width on the card; the loss is a mean over the shard keys' rows
+    (KdV's is a sum over both snapshots: each data shard's loss is
+    scaled by the shard count, 2, which is exact)."""
+    import torch
+    from pinn_torch import irk
+    from pinn_torch.problems import burgers, kdv, navierstokes, schrodinger
+
+    dev = torch.device("cuda", 0)
+
+    def cuda(arrays):
+        return {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for k, v in arrays.items()}
+
+    def const(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    lb, ub, s_lb, s_ub = const(LB), const(UB), const(S_LB), const(S_UB)
+    cases = []
+    b = cuda({"X_u": LB + (UB - LB) * rng.rand(100, 2), "u": rng.rand(100, 1),
+              "X_f": LB + (UB - LB) * rng.rand(10000, 2)})
+    cases.append(("burgers", FLAGSHIP,
+                  lambda p, b: burgers.loss_cont_inference(
+                      p, b["X_u"], b["u"], b["X_f"], lb, ub, NU),
+                  _weights(FLAGSHIP, rng), b, ("X_u", "u", "X_f"), 1))
+    x0 = S_LB[0] + (S_UB[0] - S_LB[0]) * rng.rand(50, 1)
+    tb = rng.rand(50, 1) * S_UB[1]
+    b = cuda({"X0": np.hstack([x0, 0 * x0]), "H0": rng.randn(50, 2),
+              "X_lb": np.hstack([0 * tb + S_LB[0], tb]),
+              "X_ub": np.hstack([0 * tb + S_UB[0], tb]),
+              "X_f": S_LB + (S_UB - S_LB) * rng.rand(20000, 2)})
+    cases.append(("schrodinger", S_FLAGSHIP, lambda p, b: schrodinger.loss(
+        p, b["X0"], b["H0"], b["X_lb"], b["X_ub"], b["X_f"], s_lb, s_ub),
+        _weights(S_FLAGSHIP, rng), b, ("X_f",), 1))
+    ns_lb, ns_ub = np.array([1.0, -2.0, 0.0]), np.array([8.0, 2.0, 20.0])
+    b = cuda({"X": ns_lb + (ns_ub - ns_lb) * rng.rand(10000, 3),
+              "u": rng.randn(10000, 1), "v": rng.randn(10000, 1)})
+    n_lb, n_ub = const(ns_lb), const(ns_ub)
+    net = _weights(NS_LAYERS, rng)
+    cases.append(("navier-stokes", NS_LAYERS,
+                  lambda p, b: navierstokes.loss_identification(
+                      p, b["X"], b["u"], b["v"], n_lb, n_ub),
+                  navierstokes.NSIdeParams(net, const([0.9]), const([0.01])),
+                  b, ("X", "u", "v"), 1))
+    q = 50
+    w = irk.irk_weights(q)[0].astype(np.float32)
+    alpha, beta = const(w[:-1]), const(w[-1:])
+    k_lb, k_ub = const([-1.0]), const([1.0])
+    b = cuda({"x_0": -1 + 2 * rng.rand(200, 1), "u_0": rng.randn(200, q),
+              "x_1": -1 + 2 * rng.rand(200, 1), "u_1": rng.randn(200, q)})
+    layers = [1, 50, 50, 50, q]
+    cases.append(("kdv", layers, lambda p, b: kdv.loss_disc_identification(
+        p, b["x_0"], b["u_0"], b["x_1"], b["u_1"], k_lb, k_ub, 0.6, alpha,
+        beta), burgers.IdeParams(_weights(layers, rng), const([0.9]),
+                                 const([np.log(0.002)])), b,
+        ("x_0", "u_0", "x_1", "u_1"), 2))
+    return cases
+
+
+def _tp_place(params, mesh):
+    """``params`` with its net placed by ``shard_params_tp``."""
+    from pinn_torch.parallel import shard_params_tp
+    if hasattr(params, "_fields"):
+        return params._replace(net=shard_params_tp(params.net, mesh))
+    return shard_params_tp(params, mesh)
+
+
+def phase_tensor_parallel() -> None:
+    """4u: tensor parallelism on a (2, 2) mesh of cuda:0: (a) TP+DP loss
+    and gradients at full width against the unsharded loss, (b) a
+    Trainer run on TP parameters beside the unsharded run, (c) the
+    flagship with ``dtype: "bfloat16"``, (d) the dry run with its TP+DP
+    leg.  No kernel of ours may launch."""
+    import torch
+    from pinn_torch import graft_entry
+    from pinn_torch.experiments import inf_cont_burgers
+    from pinn_torch.params import leaves
+    from pinn_torch.parallel import data_parallel, make_mesh_2d
+    from pinn_torch.train import Trainer
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
+    _reset_counts()
+    rng = np.random.RandomState(18)
+    for tag, layers, loss, params, batch, keys, scale in _tp_cases(rng):
+        local = loss if scale == 1 else (lambda p, b, f=loss: scale * f(p, b))
+        dp = data_parallel(local, mesh, keys)
+        tp = _tp_place(params, mesh)
+        kinds = [tp_net.kind(l) for tp_net in [getattr(tp, "net", tp)]
+                 for l in range(len(layers) - 1)]
+        val, grads = _dp_value_and_grad(loss, params, batch)
+        got, got_g = _dp_value_and_grad(dp, tp, batch)
+        again, again_g = _dp_value_and_grad(dp, tp, batch)
+        if not (torch.equal(got, again)
+                and all(torch.equal(a, b) for a, b in zip(got_g, again_g))):
+            raise AssertionError(f"4u {tag}: two TP+DP calls differ")
+        np.testing.assert_allclose(float(got), float(val), rtol=1e-6,
+                                   err_msg=f"4u {tag} loss")
+        # The sharded bars (tests/test_parallel.py), the gradients' atol
+        # taken relative to their largest element: KdV's reach ~50.
+        gmax = max(1.0, max(float(g.abs().max()) for g in grads))
+        errs = []
+        for a, b in zip(got_g, grads):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            np.testing.assert_allclose(a, b, rtol=2e-5, atol=1e-7 * gmax,
+                                       err_msg=f"4u {tag} gradients")
+            errs.append(float(np.max(np.abs(a - b))))
+        ms = {"unsharded": [], "TP+DP 2x2": []}
+        for name, fn, p in [("unsharded", loss, params),
+                            ("TP+DP 2x2", dp, tp)] * 2:
+            ms[name].append(_adam_ms(fn, p, batch, steps=10))
+        log(f"[4u {tag}] {layers}: layer kinds {kinds}; TP+DP loss "
+            f"{float(got):.9e} (unsharded {float(val):.9e}), max |dgrad| "
+            f"{max(errs):.3e} (max |grad| {gmax:.3e}); two calls bitwise "
+            f"equal; Adam ms a step "
+            f"(host clock, 10 steps, two turns): "
+            + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+                        for k, v in ms.items()))
+        _check_finite([float(got), *[t for v in ms.values() for t in v]])
+
+    # (b) The Trainer on TP parameters, Adam 50 + L-BFGS 20, beside the
+    # unsharded run from the same weights and points.
+    tag, layers, loss, params, batch, keys, _ = _tp_cases(
+        np.random.RandomState(19))[0]
+    hp = {"tf_epochs": 50, "tf_lr": 1e-3, "nt_epochs": 20,
+          "nt_line_search": "armijo", "log_frequency": 10}
+    with torch.no_grad():
+        first = float(loss(params, batch))
+    runs = {}
+    for name, fn, p in [("unsharded", loss, params),
+                        ("TP+DP 2x2", data_parallel(loss, mesh, keys),
+                         _tp_place(params, mesh))]:
+        trainer = Trainer(fn, p, batch, hp, mesh=mesh if name != "unsharded"
+                          else None)
+        out = trainer.fit()
+        with torch.no_grad():
+            final = float(loss(out, batch))
+        t = trainer.timing
+        runs[name] = (final, out)
+        log(f"[4u trainer] {name}: final loss {final:.6e} (first "
+            f"{first:.6e}), Adam "
+            f"{1e3 * t['adam_s'] / hp['tf_epochs']:.3f} ms a step, L-BFGS "
+            f"{1e3 * t['lbfgs_s'] / max(t['lbfgs_iters'], 1):.3f} ms an "
+            f"iteration ({t['lbfgs_iters']} iterations)")
+        _check_finite([final, t["adam_s"], t["lbfgs_s"]])
+    (f0, p0), (f1, p1) = runs["unsharded"], runs["TP+DP 2x2"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(leaves(p0),
+                                                          leaves(p1)))
+    log(f"[4u trainer] max |dparam| TP+DP against unsharded {diff:.3e}")
+    if not (f1 < first and abs(f1 - f0) <= 5e-2 * f0):
+        raise AssertionError(f"4u trainer: TP+DP final loss {f1} against "
+                             f"unsharded {f0}")
+
+    # (c) The flagship in bfloat16 end to end, 50 + 50.
+    hp = {"device": "cuda", "dtype": "bfloat16", "tf_epochs": 50,
+          "nt_epochs": 50, "log_frequency": 10,
+          "log_file": os.path.join(WORK_DIR, "4u_bf16.jsonl")}
+    r, s, _ = _run_stage("4u bf16", inf_cont_burgers.run, hp)
+    dtypes = {str(a.dtype) for a in leaves(r["params"])}
+    adam_rate, lbfgs_rate = _rates(r["timing"], hp["tf_epochs"])
+    log(f"[4u bf16] inf_cont_burgers dtype bfloat16 at {FLAGSHIP}: rel-L2 "
+        f"{r['error']:.6e}, {s:.2f} s, Adam {adam_rate:.2f} steps/s, L-BFGS "
+        f"{lbfgs_rate:.2f} iters/s ({r['timing']['lbfgs_iters']} "
+        f"iterations), parameters {dtypes}")
+    if dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"4u bf16: parameters in {dtypes}")
+    _check_finite([r["error"], adam_rate])
+    _expect_counts("4u (a)-(c)", {name: 0 for name in _counts()})
+
+    # (d) The dry run: eager DP, fused DP, TP+DP (2x2) and two processes.
+    _reset_counts()
+    graft_entry.dryrun_multichip(4, "cuda")
+    # Leg 2 (fused DP) launches rows 1 and 2; the rest of 4u none.
+    counts = {k: v for k, v in _counts().items() if v}
+    if set(counts) - {"burgers_loss_grad", "burgers_loss"}:
+        raise AssertionError(f"4u dry run: launches {counts}")
+    log(f"[4u dryrun] dryrun_multichip(4, 'cuda') OK; launches {counts} "
+        f"(leg 2, fused DP)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2093,7 +2297,10 @@ def main() -> int:
     log(f"[time] traces (4p) {t5 - t4:.1f} s, custom PDE, campaign and "
         f"bench (4q-4s) {t6 - t5:.1f} s")
     phase_data_parallel()
-    log(f"[time] data parallel (4t) {time.perf_counter() - t6:.1f} s")
+    t7 = time.perf_counter()
+    log(f"[time] data parallel (4t) {t7 - t6:.1f} s")
+    phase_tensor_parallel()
+    log(f"[time] tensor parallel (4u) {time.perf_counter() - t7:.1f} s")
     for module in ("jax", "matplotlib"):
         if module in sys.modules:
             raise AssertionError(f"the port imported {module}")

@@ -30,3 +30,10 @@ def set_default_dtype(dtype) -> None:
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the default dtype is float32 or float64, got {dtype}")
     _DEFAULT = dtype
+
+
+def to_numpy(t: torch.Tensor):
+    """``t`` as a numpy array on the host.  numpy has no bfloat16, so a
+    bf16 tensor widens to float32, which is exact."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -22,12 +22,16 @@ from pinn_torch.utils.config import load_hp, validate_hp
 
 
 def resolve_dtype(hp) -> torch.dtype:
-    """hp["dtype"] in {"float32", "float64"}; ``net_impl: "df32"`` (the
-    JAX package's double-f32 engine) runs as native float64."""
+    """hp["dtype"] in {"float32", "float64", "bfloat16"}, default
+    "float32".  "bfloat16" runs the whole experiment in bf16 where the
+    JAX one does: the init, the data, the bounds and the L-BFGS
+    iterate (unless ``nt_vector_dtype`` widens it).  ``net_impl:
+    "df32"`` (the JAX package's double-f32 engine) runs as native
+    float64 and requires "float64"."""
     name = hp.get("dtype", "float32")
-    if name not in ("float32", "float64"):
-        raise NotImplementedError(f"dtype {name!r} is not ported "
-                                  "(float32 and float64 are)")
+    if name not in ("float32", "float64", "bfloat16"):
+        raise ValueError(f"dtype {name!r}: the experiments run in float32, "
+                         "float64 or bfloat16")
     if hp.get("net_impl") == "df32" and name != "float64":
         raise ValueError("net_impl='df32' requires dtype=float64 "
                          "(on this port it runs as native float64)")

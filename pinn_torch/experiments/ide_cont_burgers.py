@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_cont_identification
+from pinn_torch.dtypes import to_numpy
 from pinn_torch.experiments._common import (check_no_mesh, command_line,
                                             maybe_load_params,
                                             maybe_save_params, setup,
@@ -151,7 +152,7 @@ def run(hp=None, plot=False, save_path=None):
 
     with torch.no_grad():
         X_star = torch.as_tensor(data.X_star, dtype=dtype, device=device)
-        u_pred = mlp.apply(params.net, X_star, lb, ub).cpu().numpy()
+        u_pred = to_numpy(mlp.apply(params.net, X_star, lb, ub))
     if plot:
         from pinn_torch.experiments.viz import plot_ide_cont_results
         plot_ide_cont_results(data.X_star, u_pred, data.X_u_train,

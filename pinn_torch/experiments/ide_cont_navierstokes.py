@@ -46,6 +46,7 @@ import torch
 from pinn_torch.data import lhs
 from pinn_torch.datagen import navierstokes_exact, navierstokes_spectral
 from pinn_torch.datagen.navierstokes_exact import NU_STAR
+from pinn_torch.dtypes import to_numpy
 from pinn_torch.experiments._common import (command_line, maybe_load_params,
                                             maybe_save_params, setup)
 from pinn_torch.models import mlp
@@ -162,8 +163,8 @@ def field_errors(params, data, dtype, device, chunk: int = 16384):
         X = torch.as_tensor(data.X_star[i:i + chunk], dtype=dtype,
                             device=device)
         u, v, p = ns.predict_uvp(params.net, X, lb, ub)
-        us.append(u.cpu().numpy()); vs.append(v.cpu().numpy())
-        ps.append(p.cpu().numpy())
+        us.append(to_numpy(u)); vs.append(to_numpy(v))
+        ps.append(to_numpy(p))
     u = np.concatenate(us); v = np.concatenate(vs); p = np.concatenate(ps)
 
     def rel(a, b):

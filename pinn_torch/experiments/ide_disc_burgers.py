@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_disc_identification
+from pinn_torch.dtypes import to_numpy
 from pinn_torch.experiments._common import (check_no_mesh, command_line,
                                             maybe_load_params,
                                             maybe_save_params, setup)
@@ -124,7 +125,7 @@ def fit_case(hp, seed, dtype, device, data, problem, error_fn, noise,
 
     @torch.no_grad()
     def predict_stages(p, x):
-        return tuple(a.cpu().numpy() for a in problem.disc_ide_stage_maps(
+        return tuple(to_numpy(a) for a in problem.disc_ide_stage_maps(
             p, tensor(x), lb, ub, data.dt, alpha, beta))
 
     return params, data, predict_stages, dict(trainer.timing)

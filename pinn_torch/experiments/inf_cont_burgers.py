@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_cont_inference, lhs
+from pinn_torch.dtypes import to_numpy
 from pinn_torch.experiments._common import (command_line, maybe_load_params,
                                             maybe_save_params, resolve_mesh,
                                             residual_fn, setup, wants_bf16)
@@ -163,7 +164,7 @@ def run(hp=None, plot=False, save_path=None):
         # from the others (pure top-k collapses onto the shock line).
         M = int(hp["rar_pool"])
         cand = data.lb + (data.ub - data.lb) * lhs(2, M, rng)
-        f = np.abs(residual_f(params, tensor(cand)).cpu().numpy())[:, 0]
+        f = np.abs(to_numpy(residual_f(params, tensor(cand))))[:, 0]
         k = hp["N_f"] // 2
         top = np.argsort(-f)[:k]
         rest = rng.choice(np.setdiff1d(np.arange(M), top), hp["N_f"] - k,
@@ -208,7 +209,7 @@ def run(hp=None, plot=False, save_path=None):
     holder["trainer"] = trainer
 
     def error():
-        u_pred = predict_u(trainer.params, X_star).cpu().numpy()
+        u_pred = to_numpy(predict_u(trainer.params, X_star))
         return float(np.linalg.norm(data.u_star - u_pred, 2)
                      / np.linalg.norm(data.u_star, 2))
 
@@ -218,7 +219,7 @@ def run(hp=None, plot=False, save_path=None):
 
     with torch.no_grad():  # on the fused path: the loss-only kernel
         loss = float(loss_fn(params, batch))
-    u_pred = predict_u(params, X_star).cpu().numpy()
+    u_pred = to_numpy(predict_u(params, X_star))
     if plot:
         from pinn_torch.experiments.viz import plot_inf_cont_results
         plot_inf_cont_results(data.X_star, u_pred, data.X_u_train,
@@ -226,7 +227,7 @@ def run(hp=None, plot=False, save_path=None):
                               data.x, data.t,
                               save_path=save_path or "experiments",
                               save_hp=hp)
-    f_pred = residual_f(params, X_f).cpu().numpy()
+    f_pred = to_numpy(residual_f(params, X_f))
     return {"params": params, "u_pred": u_pred, "f_pred": f_pred,
             "error": error(), "loss": loss, "data": data, "hp": hp,
             "loss_fn": loss_fn, "batch": batch, "predict_u": predict_u,

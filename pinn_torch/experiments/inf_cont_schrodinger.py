@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from pinn_torch.data import lhs, schrodinger_inference
+from pinn_torch.dtypes import to_numpy
 from pinn_torch.experiments._common import (command_line, maybe_load_params,
                                             maybe_save_params, resolve_mesh,
                                             setup, wants_bf16)
@@ -195,7 +196,7 @@ def run(hp=None, plot=False, save_path=None):
 
     @torch.no_grad()
     def predict_h(p):
-        return mlp.apply(p, X_star, lb, ub).cpu().numpy()
+        return to_numpy(mlp.apply(p, X_star, lb, ub))
 
     logger = Logger(hp, device=device)
     trainer = Trainer(loss_fn, net, batch, hp, logger,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from pinn_torch.data import burgers_disc_inference
+from pinn_torch.dtypes import to_numpy
 from pinn_torch.experiments._common import (check_no_mesh, command_line,
                                             maybe_load_params,
                                             maybe_save_params, setup)
@@ -107,7 +108,7 @@ def fit_disc_inference(hp, seed, dtype, device, data, arrays, loss) -> dict:
 
     @torch.no_grad()
     def predict_u1(p):
-        return mlp.apply(p, x_star, lb, ub)[:, -1].cpu().numpy()
+        return to_numpy(mlp.apply(p, x_star, lb, ub)[:, -1])
 
     logger = Logger(hp, device=device)
     trainer = Trainer(loss_fn, net, batch, hp, logger)

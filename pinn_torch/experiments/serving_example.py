@@ -62,6 +62,12 @@ DEFAULT_HP = {
 
 def run(hp=None):
     hp = {**DEFAULT_HP, **(hp or {})}
+    if hp.get("dtype") == "bfloat16":
+        # The JAX example fails its own served-vs-in-process check in
+        # bfloat16; the port refuses the run instead.
+        raise ValueError("serving_example runs in float32 or float64: in "
+                         "bfloat16 the served artifact does not reproduce "
+                         "the in-process ensemble")
     members_n = int(hp.pop("members"))
     artifact = hp.pop("artifact")
     seed = hp.get("seed", 1234)

@@ -9,8 +9,8 @@ at the reference's default shapes, [2, 20x8, 1], N_u = 100,
 N_f = 10,000, float32 — with example arguments, on the card unless
 ``device`` names another.
 
-``dryrun_multichip(n, device=None)`` runs one full Adam step three
-ways, each against the unsharded step:
+``dryrun_multichip(n, device=None)`` runs one full Adam step on every
+placement, each against the unsharded step:
 
 1. the eager loss on an n-shard mesh (``X_u``, ``u`` and ``X_f`` cut
    over the shards, ``pinn_torch.parallel.data_parallel``);
@@ -19,12 +19,13 @@ ways, each against the unsharded step:
 3. two processes on the CPU (gloo), each with its half of the points
    over ``max(1, n // 2)`` local shards of a (hosts, data) mesh
    (``pinn_torch.parallel.distributed``), eager and fused; both ranks
-   must end the step with bitwise-equal parameters.
+   must end the step with bitwise-equal parameters;
+4. when n is even, the eager loss on an (n/2, 2) (data, model) mesh:
+   the points cut over the data rows, the parameters placed by
+   ``shard_params_tp`` over the model axis (``pinn_torch.parallel.tp``).
 
-The mesh of legs 1-2 is the first n cards when that many are visible;
-otherwise n shards on one device (``device``, or the CPU's).  The JAX
-dry run's fourth placement, TP+DP on a (data, model) mesh, waits for
-the port's ``make_mesh_2d`` and ``shard_params_tp``.
+The meshes of legs 1, 2 and 4 are the first n cards when that many are
+visible; otherwise n shards on one device (``device``, or the CPU's).
 
 Run by hand: ``python -m pinn_torch.graft_entry [N] [--device cpu]``.
 """
@@ -199,8 +200,28 @@ def dryrun_multihost(n_local: int = 1, timeout: float = 120.0) -> None:
           flush=True)
 
 
+def _tp_leg(n_devices: int, dev: torch.device) -> None:
+    """Leg 4: one Adam step of the eager loss on tensor-parallel
+    parameters and sharded points, on an (n/2, 2) mesh."""
+    from pinn_torch.parallel import (data_parallel, make_mesh_2d,
+                                     shard_params_tp)
+
+    n_data = n_devices // 2
+    if dev.type == "cuda" and torch.cuda.device_count() >= n_devices:
+        mesh = make_mesh_2d(n_data, 2)
+    else:
+        mesh = make_mesh_2d(n_data, 2, devices=[dev] * n_devices)
+    home = mesh.devices[0]
+    params, batch = _inputs(2 * n_devices, 4 * n_devices, home)
+    eager = _eager_loss(home)
+    got = adam_step(data_parallel(eager, mesh, ("X_u", "u", "X_f")),
+                    shard_params_tp(params, mesh), batch)
+    _check_step(f"TP+DP ({n_data}x2 mesh)", got,
+                adam_step(eager, params, batch))
+
+
 def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> None:
-    """Legs 1-3 of the module's docstring; raises on any failure."""
+    """Legs 1-4 of the module's docstring; raises on any failure."""
     from pinn_torch.parallel import make_mesh
 
     dev = resolve_device(device)
@@ -211,6 +232,8 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> None:
         mesh = make_mesh(devices=[dev] * n_devices)
     print(f"dryrun_multichip({n_devices}): {mesh}", flush=True)
     _legs(mesh, dev, 2 * n_devices, 4 * n_devices)
+    if n_devices % 2 == 0:
+        _tp_leg(n_devices, dev)
     dryrun_multihost(n_local=max(1, n_devices // 2))
 
 

@@ -9,8 +9,11 @@ layout ``W: (fan_in, fan_out)`` so ``X @ W`` is the layer product and
 flat vectors match the JAX package byte for byte.
 
 The functions take the parameters explicitly (a list of ``(W, b)``
-pairs), as the losses and optimizers do; :class:`MLP` is the
-``nn.Module`` that owns such a list and predicts with it.
+pairs), as the losses and optimizers do; tensor-parallel parameters
+(``pinn_torch.parallel.shard_params_tp``) take the same functions,
+which then run each layer over the model shards
+(``pinn_torch.parallel.tp``) with the same tanh rules; :class:`MLP` is
+the ``nn.Module`` that owns such a list and predicts with it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import torch
 from torch import nn
 
 from pinn_torch.device import DeviceLike, resolve_device
+from pinn_torch.parallel import tp
+from pinn_torch.parallel.mesh import TPParams
 from pinn_torch.params import Params
 
 # std of the standard normal truncated to [-2, 2]
@@ -62,7 +67,11 @@ def normalize(X: torch.Tensor, lb, ub) -> torch.Tensor:
 
 
 def apply(params: Params, X: torch.Tensor, lb, ub) -> torch.Tensor:
-    """Plain forward pass: (N, din) -> (N, dout)."""
+    """Plain forward pass: (N, din) -> (N, dout).  Tensor-parallel
+    parameters (``shard_params_tp``) run over their mesh row's model
+    shards."""
+    if isinstance(params, TPParams):
+        return _apply_tp(params, X, lb, ub)
     a = normalize(X, lb, ub)
     for w, b in params[:-1]:
         a = torch.tanh(_mm(a, w) + b)
@@ -95,6 +104,8 @@ def taylor_apply(params: Params, X: torch.Tensor, lb, ub,
     over the points, and its second derivative is exactly zero — the
     fused kernels rely on that (they take the row, not a stream).
     """
+    if isinstance(params, TPParams):
+        return _taylor_apply_tp(params, X, lb, ub, v1, v2, order)
     scale = 2.0 / (ub - lb)
     a = normalize(X, lb, ub)
 
@@ -104,46 +115,16 @@ def taylor_apply(params: Params, X: torch.Tensor, lb, ub,
     z2 = _mm(v2 * scale, w).expand_as(z) if v2 is not None else None
 
     if len(params) == 1:  # single linear layer
-        return TaylorOut(
-            value=z, d1=z1,
-            d11=torch.zeros_like(z) if order >= 2 else None,
-            d2=z2,
-            d111=torch.zeros_like(z) if order >= 3 else None)
+        return _linear_out(z, z1, z2, order)
 
-    a = torch.tanh(z)
-    sp = 1.0 - a * a              # tanh'
-    a1 = sp * z1
-    if order >= 2:
-        spp = -2.0 * a * sp       # tanh''
-        a11 = spp * z1 * z1       # z11 of the first layer is exactly 0
-    else:
-        a11 = None
-    if order >= 3:
-        sppp = -2.0 * sp * (1.0 - 3.0 * a * a)   # tanh'''
-        a111 = sppp * z1 * z1 * z1
-    else:
-        a111 = None
-    a2 = sp * z2 if z2 is not None else None
-
+    a, a1, a11, a111, a2 = _first_rules(z, z1, z2, order)
     for w, b in params[1:-1]:
         z = _mm(a, w) + b
         z1 = _mm(a1, w)
         z11 = _mm(a11, w) if order >= 2 else None
         z111 = _mm(a111, w) if order >= 3 else None
         z2 = _mm(a2, w) if a2 is not None else None
-        a = torch.tanh(z)
-        sp = 1.0 - a * a
-        a1 = sp * z1
-        if order >= 2:
-            spp = -2.0 * a * sp
-            a11 = spp * z1 * z1 + sp * z11
-        if order >= 3:
-            sppp = -2.0 * sp * (1.0 - 3.0 * a * a)
-            a111 = (sppp * z1 * z1 * z1
-                    + 3.0 * spp * z1 * z11
-                    + sp * z111)
-        if z2 is not None:
-            a2 = sp * z2
+        a, a1, a11, a111, a2 = _hidden_rules(z, z1, z11, z111, z2, order)
 
     w, b = params[-1]
     return TaylorOut(
@@ -153,6 +134,94 @@ def taylor_apply(params: Params, X: torch.Tensor, lb, ub,
         d2=_mm(a2, w) if a2 is not None else None,
         d111=_mm(a111, w) if order >= 3 else None,
     )
+
+
+def _linear_out(z, z1, z2, order: int) -> TaylorOut:
+    """A single linear layer's streams: its curvature is zero."""
+    return TaylorOut(
+        value=z, d1=z1,
+        d11=torch.zeros_like(z) if order >= 2 else None,
+        d2=z2,
+        d111=torch.zeros_like(z) if order >= 3 else None)
+
+
+def _first_rules(z, z1, z2, order: int):
+    """tanh and its Taylor rules after the first layer, whose second
+    and third z-streams are exactly 0: (a, a1, a11, a111, a2)."""
+    a = torch.tanh(z)
+    sp = 1.0 - a * a              # tanh'
+    a1 = sp * z1
+    a11 = a111 = None
+    if order >= 2:
+        spp = -2.0 * a * sp       # tanh''
+        a11 = spp * z1 * z1       # z11 of the first layer is exactly 0
+    if order >= 3:
+        sppp = -2.0 * sp * (1.0 - 3.0 * a * a)   # tanh'''
+        a111 = sppp * z1 * z1 * z1
+    a2 = sp * z2 if z2 is not None else None
+    return a, a1, a11, a111, a2
+
+
+def _hidden_rules(z, z1, z11, z111, z2, order: int):
+    """tanh and its Taylor rules after a hidden layer:
+    (a, a1, a11, a111, a2)."""
+    a = torch.tanh(z)
+    sp = 1.0 - a * a
+    a1 = sp * z1
+    a11 = a111 = None
+    if order >= 2:
+        spp = -2.0 * a * sp
+        a11 = spp * z1 * z1 + sp * z11
+    if order >= 3:
+        sppp = -2.0 * sp * (1.0 - 3.0 * a * a)
+        a111 = (sppp * z1 * z1 * z1
+                + 3.0 * spp * z1 * z11
+                + sp * z111)
+    a2 = sp * z2 if z2 is not None else None
+    return a, a1, a11, a111, a2
+
+
+def _apply_tp(params: TPParams, X, lb, ub) -> torch.Tensor:
+    """:func:`apply` over the model shards of ``params.row``."""
+    devs = params.devices
+    s = [normalize(X, lb, ub)]
+    for l in range(len(params)):
+        w, b = params[l]
+        s, = tp.linear([s], w, b, params.kind(l), devs, _mm)
+        if l < len(params) - 1:
+            s = [torch.tanh(p) for p in s]
+    return tp.gather(s, devs)
+
+
+def _taylor_apply_tp(params: TPParams, X, lb, ub, v1, v2,
+                     order: int) -> TaylorOut:
+    """:func:`taylor_apply` over the model shards of ``params.row``:
+    each layer through ``pinn_torch.parallel.tp.linear``, the tanh
+    rules shard by shard, the output gathered."""
+    devs = params.devices
+    scale = 2.0 / (ub - lb)
+    w, b = params[0]
+    z, z1, z2 = tp.linear(
+        [[normalize(X, lb, ub)], [v1 * scale],
+         [v2 * scale] if v2 is not None else None],
+        w, b, params.kind(0), devs, _mm)
+    z1 = [r.expand_as(q) for r, q in zip(z1, z)]
+    z2 = [r.expand_as(q) for r, q in zip(z2, z)] if z2 is not None else None
+
+    if len(params) == 1:
+        return _linear_out(*(tp.gather(t, devs) for t in (z, z1, z2)), order)
+
+    acts = tp.map_shards(lambda z, z1, z2: _first_rules(z, z1, z2, order),
+                         [z, z1, z2])
+    for l in range(1, len(params) - 1):
+        w, b = params[l]
+        zs = tp.linear(acts, w, b, params.kind(l), devs, _mm)
+        acts = tp.map_shards(lambda *zl: _hidden_rules(*zl, order), zs)
+
+    w, b = params[-1]
+    a, a1, a11, a111, a2 = (tp.gather(t, devs) for t in tp.linear(
+        acts, w, b, params.kind(len(params) - 1), devs, _mm))
+    return TaylorOut(value=a, d1=a1, d11=a11, d2=a2, d111=a111)
 
 
 class MLP(nn.Module):

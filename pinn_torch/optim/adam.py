@@ -1,6 +1,7 @@
 """Adam warmup phase.
 
-Counterpart of ``pinn/optim/adam.py``: keras defaults — lr, beta1 and
+Counterpart of ``pinn/optim/adam.py``: :class:`AdamRunner`, which the
+Trainer's Adam phase is built on, with keras defaults — lr, beta1 and
 epsilon from hp["tf_lr"]/["tf_b1"]/["tf_eps"], beta2 = 0.999, and
 ``tf_eps: None`` meaning the keras epsilon 1e-7.  The update is
 ``torch.optim.Adam``'s, which is optax.adam's rule
@@ -29,7 +30,7 @@ per-product roundings cancel), so the per-product form is what matches.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, List, NamedTuple
 
 import torch
 
@@ -75,3 +76,59 @@ def net_dtype_cast(loss_fn: Callable[[Any, Any], torch.Tensor],
                        _cast_leaves(batch, dtype)).to(master)
 
     return loss
+
+
+class AdamState(NamedTuple):
+    """:class:`AdamRunner`'s optimiser state: the leaves it steps (which
+    require gradients) and the ``torch.optim.Adam`` over them, whose
+    moments and step count it holds.  A run advances it in place."""
+
+    leaves: List[torch.Tensor]
+    optimizer: torch.optim.Adam
+
+
+class AdamRunner:
+    """Adam over a parameter structure in chunks of steps, with the JAX
+    class's contract (pinn/optim/adam.py:42-103).
+
+    ``loss_fn(params, batch) -> scalar``.  ``.loss_fn`` is the loss
+    actually optimised: with hp["tf_net_dtype"] set, ``loss_fn``
+    wrapped by :func:`net_dtype_cast`.  ``init(params)`` returns an
+    :class:`AdamState`; ``run(params, state, batch, n_steps)`` returns
+    ``(params, state, losses)`` with ``losses[i]`` the loss at step i,
+    before its update.  PyTorch runs eagerly, so a run is ``n_steps``
+    eager steps where JAX scans them in one program.
+    """
+
+    def __init__(self, loss_fn: Callable[[Any, Any], torch.Tensor],
+                 hp: dict):
+        self.hp = hp
+        if hp.get("tf_net_dtype") is not None:
+            loss_fn = net_dtype_cast(loss_fn, hp["tf_net_dtype"])
+        self.loss_fn = loss_fn
+
+    def init(self, params) -> AdamState:
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in pcodec.leaves(params)]
+        return AdamState(leaves, adam_from_hp(leaves, self.hp))
+
+    def run(self, params, state: AdamState, batch, n_steps: int):
+        """Advance ``n_steps`` from ``params``; returns (params, state,
+        losses[n_steps]).  The parameters returned are copies, so a
+        later run does not move them."""
+        leaves = state.leaves
+        with torch.no_grad():
+            for live, a in zip(leaves, pcodec.leaves(params)):
+                if a.data_ptr() != live.data_ptr():
+                    live.copy_(a)
+        live_params = pcodec.rebuild(params, leaves)
+        opt, losses = state.optimizer, []
+        for _ in range(n_steps):
+            opt.zero_grad(set_to_none=True)
+            loss = self.loss_fn(live_params, batch)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        out = pcodec.rebuild(params, [a.detach().clone() for a in leaves])
+        return out, state, torch.stack(losses) if losses else \
+            torch.empty(0, dtype=leaves[0].dtype, device=leaves[0].device)

@@ -9,8 +9,11 @@ a per-shard loss into the mesh's loss:
     loss(params, batch) = (sum over shards d of local_loss(params, batch_d)) / D
 
 where ``batch_d`` holds shard d's rows of the ``shard_keys`` arrays and
-every other array whole, and D is the number of shards on every process
-of the mesh.
+every other array whole, and D is the number of data shards on every
+process of the mesh.  On a (data, model) mesh the data shards are its
+rows: shard d runs on row d's first device, with tensor-parallel
+parameters (``shard_params_tp``) over row d's model devices, and the
+model axis's own sums are ``pinn_torch.parallel.tp``'s.
 
 The order of every sum is fixed, so two calls, and two processes, give
 bitwise-equal values and gradients:
@@ -38,7 +41,8 @@ from typing import Callable, List, Sequence
 import torch
 
 from pinn_torch import params as pcodec
-from pinn_torch.parallel.mesh import DATA_AXIS, Mesh, shard_points
+from pinn_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, on_row,
+                                      shard_points)
 
 
 def _fold(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -67,7 +71,7 @@ def _gather_fold(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
 
 def _shard_batches(batch, mesh: Mesh, shard_keys: Sequence[str],
                    axis: str) -> List[dict]:
-    d = len(mesh.devices)
+    d = len(mesh.data_devices)
     for k in shard_keys:
         if batch[k].shape[0] % d:
             raise ValueError(
@@ -77,17 +81,24 @@ def _shard_batches(batch, mesh: Mesh, shard_keys: Sequence[str],
     cuts = {k: shard_points(batch[k], mesh, axis) for k in shard_keys}
     return [{k: (cuts[k][i] if k in cuts else v.to(dev))
              for k, v in batch.items()}
-            for i, dev in enumerate(mesh.devices)]
+            for i, dev in enumerate(mesh.data_devices)]
+
+
+def _on_shard(params, i: int, mesh: Mesh):
+    """``params`` for data shard ``i``: on a (data, model) mesh its
+    tensor-parallel layers run on row ``i``'s model devices."""
+    return on_row(params, i) if MODEL_AXIS in mesh.shape else params
 
 
 def _values(local_loss, params, shards, mesh: Mesh) -> torch.Tensor:
     with torch.no_grad():
-        vals = [local_loss(pcodec.tree_map(lambda a: a.to(b_dev), params), b)
-                for b, b_dev in zip(shards, mesh.devices)]
+        vals = [local_loss(_on_shard(pcodec.tree_map(lambda a: a.to(dev),
+                                                     params), i, mesh), b)
+                for i, (b, dev) in enumerate(zip(shards, mesh.data_devices))]
     value = _fold(vals)
     if mesh.group is not None:
         value, = _gather_fold([value], mesh.group)
-    return value / mesh.size
+    return value / mesh.n_data
 
 
 def _values_and_grads(local_loss, params, shards, mesh: Mesh):
@@ -95,10 +106,11 @@ def _values_and_grads(local_loss, params, shards, mesh: Mesh):
     the parameters' flat order."""
     vals, grads = [], []
     with torch.enable_grad():
-        for b, dev in zip(shards, mesh.devices):
+        for i, (b, dev) in enumerate(zip(shards, mesh.data_devices)):
             leaves = [a.detach().to(dev).requires_grad_(True)
                       for a in pcodec.leaves(params)]
-            val = local_loss(pcodec.rebuild(params, leaves), b)
+            val = local_loss(_on_shard(pcodec.rebuild(params, leaves), i,
+                                       mesh), b)
             g = torch.autograd.grad(val, leaves, allow_unused=True)
             vals.append(val.detach())
             grads.append(torch.cat([(torch.zeros_like(a) if gi is None
@@ -107,7 +119,7 @@ def _values_and_grads(local_loss, params, shards, mesh: Mesh):
     value, grad = _fold(vals), _fold(grads)
     if mesh.group is not None:
         value, grad = _gather_fold([value, grad], mesh.group)
-    return value / mesh.size, grad / mesh.size
+    return value / mesh.n_data, grad / mesh.n_data
 
 
 class _DataParallelLoss(torch.autograd.Function):

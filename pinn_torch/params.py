@@ -13,6 +13,10 @@ row-major.  So for ``(W, b)`` pairs it is W0, b0, W1, b1, ..., and for
 ``IdeParams`` the net's leaves then ``lambda1``, ``log_lambda2``.  A
 flat vector or an npz checkpoint is therefore the same bytes on both
 sides.
+
+A sequence with a ``remake(children)`` method (the tensor-parallel
+``pinn_torch.parallel.mesh.TPParams``) is rebuilt through it, so its
+placement survives ``rebuild`` and ``tree_map``.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ def rebuild(like, new_leaves: Sequence[Any]):
         children = [build(child) for child in node]
         if _is_namedtuple(node):
             return type(node)(*children)
+        if hasattr(node, "remake"):   # a placed structure keeps its placement
+            return node.remake(children)
         return type(node)(children)
 
     out = build(like)

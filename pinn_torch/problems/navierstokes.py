@@ -37,6 +37,8 @@ from typing import NamedTuple
 import torch
 
 from pinn_torch.models import mlp
+from pinn_torch.parallel import tp
+from pinn_torch.parallel.mesh import TPParams
 from pinn_torch.problems.burgers import mse
 
 
@@ -72,7 +74,11 @@ def ns_taylor_apply(params, X: torch.Tensor, lb, ub) -> NSStreams:
     tangents are the constant rows ``scale[i] * W0[i]`` broadcast over
     the points (an elementwise product, as in JAX, not ``(v·scale) @
     W0``), and its second and third z-streams are exactly zero.
+    Tensor-parallel parameters (``shard_params_tp``) run each layer
+    over their mesh row's model shards (``pinn_torch.parallel.tp``).
     """
+    if isinstance(params, TPParams):
+        return _ns_taylor_apply_tp(params, X, lb, ub)
     mm = mlp._mm
     scale = 2.0 / (ub - lb)
     a = mlp.normalize(X, lb, ub)
@@ -88,6 +94,18 @@ def ns_taylor_apply(params, X: torch.Tensor, lb, ub) -> NSStreams:
         zero = torch.zeros_like(z)
         return NSStreams(z, zx, zy, zt, *([zero] * 9))
 
+    acts = _first_rules(z, zx, zy, zt)
+    for w, b in params[1:-1]:
+        acts = _hidden_rules(mm(acts[0], w) + b,
+                             *(mm(a_i, w) for a_i in acts[1:]))
+
+    w, b = params[-1]
+    return NSStreams(mm(acts[0], w) + b, *(mm(a_i, w) for a_i in acts[1:]))
+
+
+def _first_rules(z, zx, zy, zt):
+    """tanh and its 13-stream rules after the first layer, whose second
+    and third z-streams are exactly 0 (the :class:`NSStreams` order)."""
     a = torch.tanh(z)
     sp = 1.0 - a * a                       # tanh'
     spp = -2.0 * a * sp                    # tanh''
@@ -102,39 +120,60 @@ def ns_taylor_apply(params, X: torch.Tensor, lb, ub) -> NSStreams:
     axxy = sppp * zx * zx * zy
     axyy = sppp * zx * zy * zy
     ayyy = sppp * zy * zy * zy
+    return (a, ax, ay, at, axx, axy, ayy, axt, ayt, axxx, axxy, axyy, ayyy)
 
-    for w, b in params[1:-1]:
-        z = mm(a, w) + b
-        zx, zy, zt = mm(ax, w), mm(ay, w), mm(at, w)
-        zxx, zxy, zyy = mm(axx, w), mm(axy, w), mm(ayy, w)
-        zxt, zyt = mm(axt, w), mm(ayt, w)
-        zxxx, zxxy, zxyy, zyyy = (mm(axxx, w), mm(axxy, w), mm(axyy, w),
-                                  mm(ayyy, w))
 
-        a = torch.tanh(z)
-        sp = 1.0 - a * a
-        spp = -2.0 * a * sp
-        sppp = -2.0 * sp * (1.0 - 3.0 * a * a)
+def _hidden_rules(z, zx, zy, zt, zxx, zxy, zyy, zxt, zyt, zxxx, zxxy, zxyy,
+                  zyyy):
+    """tanh and its 13-stream rules after a hidden layer."""
+    a = torch.tanh(z)
+    sp = 1.0 - a * a
+    spp = -2.0 * a * sp
+    sppp = -2.0 * sp * (1.0 - 3.0 * a * a)
 
-        ax, ay, at = sp * zx, sp * zy, sp * zt
-        axx = spp * zx * zx + sp * zxx
-        axy = spp * zx * zy + sp * zxy
-        ayy = spp * zy * zy + sp * zyy
-        axt = spp * zx * zt + sp * zxt
-        ayt = spp * zy * zt + sp * zyt
-        axxx = sppp * zx * zx * zx + 3.0 * spp * zx * zxx + sp * zxxx
-        axxy = (sppp * zx * zx * zy
-                + spp * (zxx * zy + 2.0 * zxy * zx) + sp * zxxy)
-        axyy = (sppp * zx * zy * zy
-                + spp * (zyy * zx + 2.0 * zxy * zy) + sp * zxyy)
-        ayyy = sppp * zy * zy * zy + 3.0 * spp * zy * zyy + sp * zyyy
+    ax, ay, at = sp * zx, sp * zy, sp * zt
+    axx = spp * zx * zx + sp * zxx
+    axy = spp * zx * zy + sp * zxy
+    ayy = spp * zy * zy + sp * zyy
+    axt = spp * zx * zt + sp * zxt
+    ayt = spp * zy * zt + sp * zyt
+    axxx = sppp * zx * zx * zx + 3.0 * spp * zx * zxx + sp * zxxx
+    axxy = (sppp * zx * zx * zy
+            + spp * (zxx * zy + 2.0 * zxy * zx) + sp * zxxy)
+    axyy = (sppp * zx * zy * zy
+            + spp * (zyy * zx + 2.0 * zxy * zy) + sp * zxyy)
+    ayyy = sppp * zy * zy * zy + 3.0 * spp * zy * zyy + sp * zyyy
+    return (a, ax, ay, at, axx, axy, ayy, axt, ayt, axxx, axxy, axyy, ayyy)
+
+
+def _ns_taylor_apply_tp(params: TPParams, X, lb, ub) -> NSStreams:
+    """:func:`ns_taylor_apply` over the model shards of ``params.row``:
+    each layer through ``pinn_torch.parallel.tp.linear``, the rules
+    shard by shard, the streams gathered."""
+    mm, devs = mlp._mm, params.devices
+    scale = 2.0 / (ub - lb)
+    w, b = params[0]
+    kind = params.kind(0)
+    z, = tp.linear([[mlp.normalize(X, lb, ub)]], w, b, kind, devs, mm)
+    # Each shard's tangent rows from its slice of W0's columns.
+    rows = [[_row(scale[i].to(wp.device), wp[i]).expand_as(zp)
+             for wp, zp in zip(tp.weight_parts(w, kind, devs), z)]
+            for i in range(3)]
+
+    if len(params) == 1:
+        z, zx, zy, zt = (tp.gather(s, devs) for s in [z] + rows)
+        zero = torch.zeros_like(z)
+        return NSStreams(z, zx, zy, zt, *([zero] * 9))
+
+    acts = tp.map_shards(_first_rules, [z] + rows)
+    for l in range(1, len(params) - 1):
+        w, b = params[l]
+        acts = tp.map_shards(_hidden_rules, tp.linear(
+            acts, w, b, params.kind(l), devs, mm))
 
     w, b = params[-1]
-    return NSStreams(
-        v=mm(a, w) + b, x=mm(ax, w), y=mm(ay, w), t=mm(at, w),
-        xx=mm(axx, w), xy=mm(axy, w), yy=mm(ayy, w), xt=mm(axt, w),
-        yt=mm(ayt, w), xxx=mm(axxx, w), xxy=mm(axxy, w), xyy=mm(axyy, w),
-        yyy=mm(ayyy, w))
+    return NSStreams(*(tp.gather(s, devs) for s in tp.linear(
+        acts, w, b, params.kind(len(params) - 1), devs, mm)))
 
 
 class NSIdeParams(NamedTuple):

@@ -14,14 +14,16 @@ runs in float32.  Parameters may be any structure the codec takes
 logger's ``custom`` field) and to the end line.  ``adam_loss_fn``, when
 given, is the loss the Adam phase optimises (a cheaper warmup loss,
 such as the bf16-stream fused kernel); L-BFGS always refines on
-``loss_fn``.  hp["tf_net_dtype"] wraps the Adam phase's loss in
-``pinn_torch.optim.adam.net_dtype_cast``, as ``AdamRunner`` does.
+``loss_fn``.  The Adam phase runs on ``pinn_torch.optim.AdamRunner``,
+as the JAX Trainer's does, in chunks of at most ``CHUNK_CAP`` steps
+that end on the log, resample and save boundaries; hp["tf_net_dtype"]
+wraps its loss in ``pinn_torch.optim.adam.net_dtype_cast``.
 ``params_callback(params)``, when given, is called with the current
 parameters right before every log line and at the end (the facade
 keeps its ``params`` live with it).
 
 PyTorch runs eagerly, so both phases step one iteration at a time.
-The L-BFGS phase keeps the JAX Trainer's chunk boundaries (at most
+Both keep the JAX Trainer's chunk boundaries (at most
 ``CHUNK_CAP`` iterations between host checks): they are where the loop
 logs, resamples, probes and revives a stalled run, so keeping them
 keeps the trajectory, and the resampling draws, equal to the JAX
@@ -53,7 +55,7 @@ import torch
 
 from pinn_torch import params as pcodec
 from pinn_torch.optim import lbfgs as lb
-from pinn_torch.optim.adam import adam_from_hp, net_dtype_cast
+from pinn_torch.optim.adam import AdamRunner
 from pinn_torch.utils import checkpoint
 from pinn_torch.utils.logger import Logger
 
@@ -84,7 +86,7 @@ class Trainer:
     ``params_callback(params)`` are optional, as in the JAX Trainer.
     """
 
-    CHUNK_CAP = 10  # iterations between host checks in the L-BFGS phase
+    CHUNK_CAP = 10  # iterations between host checks in each phase
 
     def __init__(self, loss_fn: Callable[[Any, Any], torch.Tensor], params0,
                  batch: Any, hp: dict, logger: Optional[Logger] = None,
@@ -100,11 +102,6 @@ class Trainer:
             params0 = pcodec.tree_map(lambda a: a.to(mesh.devices[0]), params0)
             batch = self._place(batch)
         self.loss_fn = loss_fn
-        # The loss the Adam phase optimises (AdamRunner's loss_fn).
-        self.adam_loss_fn = adam_loss_fn or loss_fn
-        if hp.get("tf_net_dtype") is not None:
-            self.adam_loss_fn = net_dtype_cast(self.adam_loss_fn,
-                                               hp["tf_net_dtype"])
         self.epoch_extra = epoch_extra
         self.params_callback = params_callback
         self.val_fn = val_fn
@@ -127,6 +124,9 @@ class Trainer:
         # with and without gradients (initial ones included).
         self.timing = {"adam_s": 0.0, "lbfgs_s": 0.0, "lbfgs_iters": 0,
                        "lbfgs_evals": 0}
+        # The Adam phase (its loss_fn wraps hp["tf_net_dtype"]'s cast).
+        self.adam = (AdamRunner(adam_loss_fn or loss_fn, hp)
+                     if self.tf_epochs > 0 else None)
 
     # -- logging helpers ---------------------------------------------------
     def _log(self, method: str, *args, **kw):
@@ -169,41 +169,31 @@ class Trainer:
     # -- phases ------------------------------------------------------------
     def _adam_phase(self):
         self._log("log_train_opt", "Adam")
-        leaves = [a.clone().requires_grad_(True)
-                  for a in pcodec.leaves(self.params)]
-        device = leaves[0].device
-        params = pcodec.rebuild(self.params, leaves)
-        opt = adam_from_hp(leaves, self.hp)
+        state = self.adam.init(self.params)
+        device = state.leaves[0].device
         every = self.hp.get("tf_resample", 0) if self.resample_fn else 0
-        self.params = _detached(params)  # views of the live leaves
-        pending = None  # (epoch, its loss, the step count it logs at)
+        done = 0
         t0 = _now(device)
-        for done in range(self.tf_epochs):
+        while done < self.tf_epochs:
             if every and done and done % every == 0:
                 self._resample(done)
-            opt.zero_grad(set_to_none=True)
-            loss = self.adam_loss_fn(params, self.batch)
-            loss.backward()
-            opt.step()
+            # Chunks end on log, resample and save boundaries, as the
+            # JAX Trainer's scan chunks do.
+            chunk = min(self.CHUNK_CAP, self.tf_epochs - done,
+                        self.frequency - (done % self.frequency))
+            if every:
+                chunk = min(chunk, every - (done % every))
+            if self.save_every:
+                chunk = min(chunk, self.save_every - (done % self.save_every))
+            self.params, state, losses = self.adam.run(
+                self.params, state, self.batch, chunk)
+            # losses[0] is the loss at epoch `done`, before its update.
             if done % self.frequency == 0:
-                # The loss at epoch `done`, before its update, logged
-                # with epoch_extra at the end of the JAX Trainer's
-                # chunk (at most CHUNK_CAP steps, cut at log, resample
-                # and save boundaries), where it sees the parameters.
-                chunk = min(self.CHUNK_CAP, self.tf_epochs - done,
-                            self.frequency)
-                for period in (every, self.save_every):
-                    if period:
-                        chunk = min(chunk, period - done % period)
-                pending = (done, loss.detach(), done + chunk)
-            if pending is not None and pending[2] == done + 1:
-                self._log("log_train_epoch", pending[0], float(pending[1]),
+                self._log("log_train_epoch", done, float(losses[0]),
                           self._extra(), False)
-                pending = None
-            self._maybe_save("adam", done + 1)
+            done += chunk
+            self._maybe_save("adam", done)
         self.timing["adam_s"] += _now(device) - t0
-        self.params = pcodec.tree_map(
-            lambda a: a.detach().clone(), params)
 
     def _lbfgs_phase(self):
         if self.nt_config.max_iter == 0:

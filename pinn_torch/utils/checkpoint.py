@@ -27,6 +27,7 @@ import torch
 
 from pinn_torch import params as pcodec
 from pinn_torch.device import DeviceLike, resolve_device
+from pinn_torch.dtypes import to_numpy
 
 
 def params_from_numpy(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
@@ -74,9 +75,12 @@ def _vec(a, device, dtype) -> torch.Tensor:
 
 def save_npz(path: str, params: Any, hp: Optional[dict] = None,
              extra: Optional[dict] = None) -> None:
-    """Flat-vector checkpoint (layout = the reference codec order)."""
+    """Flat-vector checkpoint (layout = the reference codec order).
+    bfloat16 parameters are written as float32 (exact; numpy has no
+    bfloat16), which :func:`load_npz` casts back to the template's
+    dtype."""
     with torch.no_grad():
-        flat = pcodec.ravel(params).cpu().numpy()
+        flat = to_numpy(pcodec.ravel(params))
     shapes = [list(a.shape) for a in pcodec.leaves(params)]
     meta = {"shapes": shapes, "hp": hp or {}, "extra": extra or {}}
     np.savez_compressed(path, flat=flat, meta=json.dumps(meta))
@@ -94,6 +98,10 @@ def load_npz(path: str, like: Any = None) -> Tuple[Any, dict]:
     with np.load(path, allow_pickle=False) as d:
         flat = d["flat"]
         meta = json.loads(str(d["meta"]))
+    if flat.dtype == np.dtype("V2"):
+        # The JAX package's bfloat16 checkpoint: raw bf16 bit patterns,
+        # each the top half of a float32's.
+        flat = (flat.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
     if like is not None:
         tmpl = pcodec.leaves(like)
         if flat.size != sum(a.numel() for a in tmpl):

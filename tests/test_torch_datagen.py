@@ -87,3 +87,32 @@ def test_load_dataset_generates_a_missing_file(monkeypatch, tmp_path, name,
     np.testing.assert_array_equal(t[:, 0], want["tt"].ravel())
     # The second call reads the file it wrote.
     np.testing.assert_array_equal(torch_exp.load_dataset()[2], uu)
+
+
+@pytest.mark.parametrize("n_images", ["auto", 2])
+def test_sympy_generator_bitwise(tmp_path, n_images):
+    """The port's sympy generator gives JAX's grid bit for bit (the NaNs
+    of the two-image contract at late times included), and writes the
+    same three files."""
+    pytest.importorskip("sympy")
+    from datagen import burgers_sympy as jax_sympy
+    from pinn_torch.datagen import burgers_sympy
+    kw = {"nu": 0.01 / np.pi, "nx": 40, "nt": 21, "n_images": n_images}
+    for got, want in zip(burgers_sympy.sample_grid(**kw),
+                         jax_sympy.sample_grid(**kw)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    (tmp_path / "p").mkdir()
+    (tmp_path / "j").mkdir()
+    burgers_sympy.generate(str(tmp_path / "p"), n_images=n_images)
+    jax_sympy.generate(str(tmp_path / "j"), n_images=n_images)
+    for name in ("burgers_x", "burgers_t", "burgers_u"):
+        np.testing.assert_array_equal(np.load(tmp_path / "p" / f"{name}.npy"),
+                                      np.load(tmp_path / "j" / f"{name}.npy"))
+
+
+def test_sympy_generator_says_it_needs_sympy(monkeypatch):
+    from pinn_torch.datagen import burgers_sympy
+    monkeypatch.setitem(sys.modules, "sympy", None)
+    with pytest.raises(ImportError, match="needs sympy"):
+        burgers_sympy.sample_grid(nx=4, nt=3)

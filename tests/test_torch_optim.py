@@ -1,6 +1,7 @@
 """The port's optimizers against the JAX package's: Adam against
-optax.adam over 5 steps, and L-BFGS on the quadratic and Rosenbrock
-cases of tests/test_lbfgs.py plus an iterate-by-iterate float64 trace
+optax.adam over 5 steps, ``AdamRunner`` against JAX's over 20 (and the
+Trainer's Adam phase on it bit for bit), and L-BFGS on the quadratic
+and Rosenbrock cases of tests/test_lbfgs.py plus an iterate-by-iterate float64 trace
 against pinn.optim.lbfgs for every line search and direction form
 (rtol 1e-9)."""
 
@@ -180,3 +181,116 @@ def test_trace_matches_jax(line_search, dir_impl):
         assert tstate.n_evals == int(jstate.n_evals), msg
         assert tstate.k == int(jstate.k), msg
         assert tstate.reason == int(jstate.reason), msg
+
+
+# ---------------------------------------------------------------------------
+# AdamRunner
+# ---------------------------------------------------------------------------
+
+def _runner_case(tmp_path, jdt):
+    """The Burgers continuous loss on [2, 10, 10, 1], both sides from one
+    JAX-saved npz: (JAX params, batch, loss; the port's)."""
+    from pinn.models import mlp as jax_mlp
+    from pinn.problems import burgers as jax_burgers
+    from pinn.utils import checkpoint as jax_checkpoint
+    from pinn_torch.problems import burgers
+    from pinn_torch.utils import checkpoint
+    from pinn_torch.utils.checkpoint import params_from_numpy
+
+    path = str(tmp_path / "init.npz")
+    init = jax_mlp.init_mlp(jax.random.PRNGKey(3), [2, 10, 10, 1], jdt)
+    jax_checkpoint.save_npz(path, init)
+    jparams, _ = jax_checkpoint.load_npz(path, like=init)
+    tdt = torch.float64 if jdt == jnp.float64 else torch.float32
+    tparams, _ = checkpoint.load_npz(path, like=params_from_numpy(
+        [(np.asarray(w), np.asarray(b)) for w, b in init], "cpu", tdt))
+    rng = np.random.RandomState(4)
+    lb, ub = np.array([-1.0, 0.0]), np.array([1.0, 1.0])
+    batch = {"X_u": lb + (ub - lb) * rng.rand(32, 2), "u": rng.rand(32, 1),
+             "X_f": lb + (ub - lb) * rng.rand(128, 2)}
+    npdt = np.float64 if tdt == torch.float64 else np.float32
+    batch = {k: v.astype(npdt) for k, v in batch.items()}
+    nu = 0.01 / np.pi
+
+    def jloss(p, b):
+        return jax_burgers.loss_cont_inference(
+            p, b["X_u"], b["u"], b["X_f"], jnp.asarray(lb, jdt),
+            jnp.asarray(ub, jdt), nu)
+
+    lb_t, ub_t = torch.tensor(lb, dtype=tdt), torch.tensor(ub, dtype=tdt)
+
+    def tloss(p, b):
+        return burgers.loss_cont_inference(p, b["X_u"], b["u"], b["X_f"],
+                                           lb_t, ub_t, nu)
+    return ((jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jloss),
+            (tparams, {k: torch.as_tensor(v) for k, v in batch.items()},
+             tloss))
+
+
+# (JAX dtype, hp extra, rtol of the losses, rtol and atol of the params).
+# With tf_net_dtype each product's gradient is rounded to bf16 on both
+# sides; the two sums of those roundings differ by an ulp here and there,
+# which 20 normalised Adam steps carry into the parameters: measured at
+# 2.6e-3 relative in the losses and 3.7e-4 absolute in the parameters
+# on this case (float32: 2.8e-7 and 6.0e-8; float64: 5.6e-16 and
+# 1.7e-16).
+RUNNER_CASES = {
+    "float32": (jnp.float32, {}, 1e-6, 1e-5, 1e-7),
+    "float64": (jnp.float64, {}, 1e-10, 1e-10, 1e-13),
+    "bf16_net": (jnp.float32, {"tf_net_dtype": "bfloat16"}, 5e-3, 0, 1e-3),
+}
+
+
+@pytest.mark.parametrize("case", list(RUNNER_CASES))
+def test_adam_runner_matches_jax(case, tmp_path):
+    """20 steps of ``AdamRunner.run`` against JAX's, and the same 20 as
+    runs of 7 + 13 bitwise equal to one of 20."""
+    from pinn.optim.adam import AdamRunner as JaxAdamRunner
+    from pinn_torch import params as pcodec
+    from pinn_torch.optim import AdamRunner
+
+    jdt, extra, rtol_l, rtol_p, atol_p = RUNNER_CASES[case]
+    (jp, jb, jloss), (tp, tb, tloss) = _runner_case(tmp_path, jdt)
+    hp = {"tf_lr": 1e-2, "tf_b1": 0.9, "tf_eps": None, **extra}
+    jr = JaxAdamRunner(jloss, hp)
+    want_p, _, want_l = jr.run(jp, jr.init(jp), jb, 20)
+
+    runner = AdamRunner(tloss, hp)
+    assert (runner.loss_fn is tloss) == (not extra)
+    got_p, _, got_l = runner.run(tp, runner.init(tp), tb, 20)
+    assert got_l.shape == (20,)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), rtol=rtol_l)
+    for g, w in zip(pcodec.leaves(got_p), jax.tree_util.tree_leaves(want_p)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol_p,
+                                   atol=atol_p)
+
+    state = runner.init(tp)
+    p7, state, l7 = runner.run(tp, state, tb, 7)
+    p20, _, l13 = runner.run(p7, state, tb, 13)
+    assert torch.equal(torch.cat([l7, l13]), got_l)
+    assert torch.equal(pcodec.ravel(p20), pcodec.ravel(got_p))
+    assert not torch.equal(pcodec.ravel(p7), pcodec.ravel(p20))
+
+
+def test_trainer_adam_losses_are_adam_runner_losses(tmp_path):
+    """The Trainer's logged Adam losses and its Adam-phase result are
+    ``AdamRunner.run``'s bit for bit (log_frequency 1: every step)."""
+    from pinn_torch import params as pcodec
+    from pinn_torch.optim import AdamRunner
+    from pinn_torch.train import Trainer
+
+    _, (tp, tb, tloss) = _runner_case(tmp_path, jnp.float32)
+    hp = {"tf_epochs": 23, "tf_lr": 1e-2, "nt_epochs": 0, "log_frequency": 1}
+    logged = []
+
+    class Log:
+        def __getattr__(self, name):
+            if name == "log_train_epoch":
+                return lambda epoch, loss, *a: logged.append((epoch, loss))
+            return lambda *a, **k: None
+
+    got = Trainer(tloss, tp, tb, hp, logger=Log()).fit()
+    runner = AdamRunner(tloss, hp)
+    want, _, losses = runner.run(tp, runner.init(tp), tb, 23)
+    assert logged == [(i, float(l)) for i, l in enumerate(losses)]
+    assert torch.equal(pcodec.ravel(got), pcodec.ravel(want))

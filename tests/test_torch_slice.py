@@ -141,9 +141,11 @@ def test_port_never_imports_jax():
             "import pinn_torch.dtypes\n"
             "import pinn_torch.parallel, pinn_torch.parallel.distributed\n"
             "import pinn_torch.parallel.dp, pinn_torch.graft_entry\n"
+            "import pinn_torch.parallel.tp, pinn_torch.parallel.mesh\n"
+            "import pinn_torch.datagen.burgers_sympy\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pinn', 'datagen', 'experiments', "
-            "'matplotlib'))\n"
+            "'matplotlib', 'sympy'))\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
@@ -169,6 +171,8 @@ def test_top_level_names():
             "assert pinn_torch.parallel.make_mesh and pinn_torch.parallel.shard_points\n"
             "assert pinn_torch.parallel.replicate\n"
             "assert pinn_torch.parallel.pad_points_with_weights\n"
+            "assert pinn_torch.parallel.make_mesh_2d and pinn_torch.parallel.MODEL_AXIS\n"
+            "assert pinn_torch.parallel.shard_params_tp and pinn_torch.optim.AdamRunner\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'matplotlib', 'pinn'))\n"
             "assert not bad, bad\n"
