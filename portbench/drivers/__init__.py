@@ -1,0 +1,14 @@
+"""One module a phase of training: ``Phase(cell)`` drives the program's
+optimizer over the cell's loss, composed as ``pinn_torch.train.Trainer``
+composes it, in chunks of ``Trainer.CHUNK_CAP``.
+
+A phase gives ``check_steps(n)`` (the first n steps, one call each,
+and what the check compares: the losses, the first gradient as the
+optimizer holds it, each leaf's change), ``warm()``, ``chunk() ->
+(units done, losses or None)``, ``totals() -> (units, loss
+evaluations)`` since the start; the module names ``RATE``, its
+end-to-end metric (units over the window's seconds), ``REFERENCE``,
+the module of ``portbench.reference`` that follows the same steps, and
+``NUMBERS``, the judge's numbers the phase reads.  A phase whose
+``NUMBERS`` take in the judge's late numbers also gives ``final()``,
+its state where the window left it (``drivers/lbfgs.py`` says what)."""
