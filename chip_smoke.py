@@ -231,6 +231,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -979,21 +980,22 @@ def _check_final_falls(tag, losses, result):
                              f"final {result['loss']}")
 
 
-def _counters():
-    from pinn_torch.ops import fused_schrodinger as fs
-    from pinn_torch.ops import fused_train as ft
-    from pinn_torch.ops import residual as rs
-    return ft.launches, fs.launches, rs.launches
+_COUNT_BASE = {}   # the launch counters at the last _reset_counts()
 
 
 def _reset_counts():
-    for counts in _counters():
-        for name in counts:
-            counts[name] = 0
+    global _COUNT_BASE
+    from pinn_torch.utils import trace
+    _COUNT_BASE = trace.counters()
 
 
-def _counts() -> dict:
-    return {name: n for counts in _counters() for name, n in counts.items()}
+def _counts() -> Counter:
+    """The CUDA launches of each entry point since :func:`_reset_counts`
+    (the ``launch.<entry>`` counters of ``pinn_torch.utils.trace``)."""
+    from pinn_torch.utils import trace
+    moved = trace.delta(_COUNT_BASE, trace.counters())
+    return Counter({k[len("launch."):]: n for k, n in moved.items()
+                    if k.startswith("launch.")})
 
 
 def _read_counts(names):

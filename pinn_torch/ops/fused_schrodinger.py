@@ -41,11 +41,7 @@ import torch
 
 from pinn_torch.ops import fused_train as ft
 from pinn_torch.params import Params, leaves
-
-# Launch counts of the kernels by entry point (CUDA launches only).
-launches = {name + sfx: 0
-            for name in ("schrodinger_sse_grad", "schrodinger_sse")
-            for sfx in ("", "_bf16")}
+from pinn_torch.utils import trace
 
 _LIMITS = "input 2, output 2, at most 15 hidden layers of width <= 128"
 
@@ -107,7 +103,6 @@ def schrodinger_sse_grad(a0, z1row, z2row, wt_args, bf16: bool = False):
     name = ft._entry("schrodinger_sse_grad", bf16)
     out = ft.launch(name, "schrodinger_train_sizes", _LIMITS, a0, [], z1row,
                     z2row, wt_args, bf16=bf16)
-    launches[name] += 1
     return ft._unpack(out, z1row, z2row, wt_args)
 
 
@@ -121,7 +116,6 @@ def schrodinger_sse(a0, z1row, z2row, wt_args,
     name = ft._entry("schrodinger_sse", bf16)
     out = ft.launch(name, "schrodinger_train_sizes", _LIMITS, a0, [], z1row,
                     z2row, wt_args, grads=False)
-    launches[name] += 1
     return out[0]
 
 
@@ -178,7 +172,9 @@ def make_schrodinger_loss(lb, ub, stream_dtype=None):
     ``mse_0 + mse_b + sse_f / N_f``, the IC/BC terms eager.  Batch
     keys: X0, H0, X_lb, X_ub, X_f.  With ``stream_dtype="bfloat16"``
     only the residual SSE takes bf16 streams; the IC/BC terms stay
-    float32 on the float32 parameters (pallas_schrodinger.py:344-349)."""
+    float32 on the float32 parameters (pallas_schrodinger.py:344-349).
+    Each call runs in the span ``loss``, the IC/BC terms in
+    ``loss.ic_bc`` (``pinn_torch.utils.trace``)."""
     from pinn_torch.problems import schrodinger as sprob
 
     fused = make_schrodinger_sse(lb, ub, stream_dtype=stream_dtype)
@@ -187,15 +183,17 @@ def make_schrodinger_loss(lb, ub, stream_dtype=None):
     bounds = {}   # per device, copied there once
 
     def loss(params: Params, batch) -> torch.Tensor:
-        dev = batch["X_f"].device
-        if dev not in bounds:
-            bounds[dev] = ft._tangents(lb_np, ub_np, dev)[:2]
-        lb_t, ub_t = bounds[dev]
-        mse_0, mse_b = sprob.ic_bc_terms(params, batch["X0"], batch["H0"],
-                                         batch["X_lb"], batch["X_ub"],
-                                         lb_t, ub_t)
-        n_f = batch["X_f"].shape[0]
-        return mse_0 + mse_b + fused(params, batch["X_f"]) / n_f
+        with trace.span("loss"):
+            dev = batch["X_f"].device
+            if dev not in bounds:
+                bounds[dev] = ft._tangents(lb_np, ub_np, dev)[:2]
+            lb_t, ub_t = bounds[dev]
+            with trace.span("loss.ic_bc"):
+                mse_0, mse_b = sprob.ic_bc_terms(
+                    params, batch["X0"], batch["H0"], batch["X_lb"],
+                    batch["X_ub"], lb_t, ub_t)
+            n_f = batch["X_f"].shape[0]
+            return mse_0 + mse_b + fused(params, batch["X_f"]) / n_f
 
     return loss
 

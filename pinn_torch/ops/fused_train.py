@@ -77,6 +77,12 @@ everything but the kernel body.  Both kinds of kernel take the same
 float32 inputs; the bf16 ones round them as they load them, and hand
 back float32 gradients, as the JAX custom_vjp does.
 
+Spans (``pinn_torch.utils.trace``): ``loss`` around each call of a
+``make_*_loss`` loss, ``loss.prep`` around the point and weight prep
+and the launch's checks and buffers, ``loss.launch`` around the C call,
+``loss.assemble`` around the gradients' reassembly; :func:`launch`
+counts ``launch.<entry>``.
+
 Layouts follow the TPU kernel: a0 (2, N) normalised points
 (features-major), aux (3, N), per layer Wt (h_out, h_in) and b
 (h_out, 1), z1row = (vx @ W0)[:, None], z2row = (vt @ W0)[:, None].
@@ -94,14 +100,7 @@ import torch
 from pinn_torch.models.mlp import normalize
 from pinn_torch.ops import _build
 from pinn_torch.params import Params, leaves
-
-# Launch counts of the kernels by entry point (CUDA launches only; the
-# plain versions do not count).
-launches = {name + sfx: 0
-            for name in ("burgers_loss_grad", "burgers_loss",
-                         "burgers_ide_loss_grad", "burgers_ide_loss")
-            for sfx in ("", "_bf16")}
-launches.update(burgers_sse_grad=0, burgers_sse=0)
+from pinn_torch.utils import trace
 
 TILE = 32  # points per partials row: one warp (pt_mlp.cuh PT_TILE)
 
@@ -112,40 +111,45 @@ TILE = 32  # points per partials row: one warp (pt_mlp.cuh PT_TILE)
 
 def _prep(params: Params, vx: torch.Tensor, vt: torch.Tensor):
     """First-layer tangent rows and the kernel's weight layout."""
-    w0 = params[0][0]
-    z1row = (vx @ w0)[:, None]                       # (h1, 1)
-    z2row = (vt @ w0)[:, None]
-    wt_args = []
-    for w, b in params:
-        wt_args += [w.t().contiguous(), b.reshape(-1, 1)]
-    return z1row, z2row, wt_args
+    with trace.span("loss.prep"):
+        w0 = params[0][0]
+        z1row = (vx @ w0)[:, None]                       # (h1, 1)
+        z2row = (vt @ w0)[:, None]
+        wt_args = []
+        for w, b in params:
+            wt_args += [w.t().contiguous(), b.reshape(-1, 1)]
+        return z1row, z2row, wt_args
 
 
 def _normalise(X: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor):
-    return normalize(X, lb, ub).t().contiguous()   # (2, N)
+    with trace.span("loss.prep"):
+        return normalize(X, lb, ub).t().contiguous()   # (2, N)
 
 
 def _prep_points(batch, lb: torch.Tensor, ub: torch.Tensor):
     """Stack [X_u; X_f], normalise, and build the aux rows (target, w, d)."""
-    X_u, u, X_f = batch["X_u"], batch["u"], batch["X_f"]
-    n_u, n_f = X_u.shape[0], X_f.shape[0]
-    dtype, dev = X_f.dtype, X_f.device
-    a0 = _normalise(torch.cat([X_u, X_f], dim=0), lb, ub)
-    target = torch.cat([u[:, 0], torch.zeros((n_f,), dtype=dtype, device=dev)])
-    w = torch.cat([torch.full((n_u,), 1.0 / n_u, dtype=dtype, device=dev),
-                   torch.full((n_f,), 1.0 / n_f, dtype=dtype, device=dev)])
-    d = torch.cat([torch.ones((n_u,), dtype=dtype, device=dev),
-                   torch.zeros((n_f,), dtype=dtype, device=dev)])
-    aux = torch.stack([target, w, d]).contiguous()             # (3, N)
-    return a0, aux
+    with trace.span("loss.prep"):
+        X_u, u, X_f = batch["X_u"], batch["u"], batch["X_f"]
+        n_u, n_f = X_u.shape[0], X_f.shape[0]
+        dtype, dev = X_f.dtype, X_f.device
+        a0 = _normalise(torch.cat([X_u, X_f], dim=0), lb, ub)
+        target = torch.cat([u[:, 0],
+                            torch.zeros((n_f,), dtype=dtype, device=dev)])
+        w = torch.cat([torch.full((n_u,), 1.0 / n_u, dtype=dtype, device=dev),
+                       torch.full((n_f,), 1.0 / n_f, dtype=dtype, device=dev)])
+        d = torch.cat([torch.ones((n_u,), dtype=dtype, device=dev),
+                       torch.zeros((n_f,), dtype=dtype, device=dev)])
+        aux = torch.stack([target, w, d]).contiguous()             # (3, N)
+        return a0, aux
 
 
 def _prep_ide_points(batch, lb: torch.Tensor, ub: torch.Tensor):
     """Normalise X_u and build the aux rows (target, w_d, w_f), w = 1/N."""
-    X, u = batch["X_u"], batch["u"]
-    n = X.shape[0]
-    w = torch.full((n,), 1.0 / n, dtype=X.dtype, device=X.device)
-    return _normalise(X, lb, ub), torch.stack([u[:, 0], w, w]).contiguous()
+    with trace.span("loss.prep"):
+        X, u = batch["X_u"], batch["u"]
+        n = X.shape[0]
+        w = torch.full((n,), 1.0 / n, dtype=X.dtype, device=X.device)
+        return _normalise(X, lb, ub), torch.stack([u[:, 0], w, w]).contiguous()
 
 
 def _lam(lambda1: torch.Tensor, log_lambda2: torch.Tensor) -> torch.Tensor:
@@ -157,14 +161,16 @@ def _lam(lambda1: torch.Tensor, log_lambda2: torch.Tensor) -> torch.Tensor:
 def _assemble_net_grads(params: Params, gwt, gz1row, gz2row, vx, vt):
     """Kernel-layout gradients -> params layout; the tangent-row
     adjoints fold into dW0 through z1row = vx @ W0, z2row = vt @ W0."""
-    grads = []
-    for l, (w, b) in enumerate(params):
-        gw = gwt[2 * l].t()
-        gb = gwt[2 * l + 1].reshape(b.shape)
-        if l == 0:
-            gw = gw + torch.outer(vx, gz1row[:, 0]) + torch.outer(vt, gz2row[:, 0])
-        grads += [gw, gb]
-    return grads
+    with trace.span("loss.assemble"):
+        grads = []
+        for l, (w, b) in enumerate(params):
+            gw = gwt[2 * l].t()
+            gb = gwt[2 * l + 1].reshape(b.shape)
+            if l == 0:
+                gw = (gw + torch.outer(vx, gz1row[:, 0])
+                      + torch.outer(vt, gz2row[:, 0]))
+            grads += [gw, gb]
+        return grads
 
 
 def _tangents(lb_np, ub_np, dev):
@@ -450,37 +456,38 @@ def _check_inputs(a0, aux, z1row, z2row, wt_args, n_out: int = 1,
     float32 inputs on the same device (the ide kernels' ``lam``).  The
     bf16-stream kernels take the same float32 inputs (they round them
     as they load them), so there is no second packing to check."""
-    dev = a0.device
-    n = a0.shape[1] if a0.dim() == 2 else -1
-    if a0.dim() != 2 or a0.shape[0] != 2 or n < 1:
-        raise ValueError(f"a0 must be (2, N) with N >= 1, got {tuple(a0.shape)}")
-    if aux is not None and tuple(aux.shape) != (3, n):
-        raise ValueError(f"aux must be (3, {n}), got {tuple(aux.shape)}")
-    if len(wt_args) < 4 or len(wt_args) % 2:
-        raise ValueError("wt_args must be [Wt, b] per layer, >= 2 layers")
-    h_in = 2
-    for l in range(len(wt_args) // 2):
-        wt, b = wt_args[2 * l], wt_args[2 * l + 1]
-        if wt.dim() != 2 or wt.shape[1] != h_in or tuple(b.shape) != (wt.shape[0], 1):
-            raise ValueError(f"layer {l}: Wt {tuple(wt.shape)} / b "
-                             f"{tuple(b.shape)} do not chain from width {h_in}")
-        h_in = wt.shape[0]
-    if h_in != n_out:
-        raise ValueError(f"these kernels need {n_out} output(s), got {h_in}")
-    h1 = wt_args[0].shape[0]
-    for name, z in (("z1row", z1row), ("z2row", z2row)):
-        if tuple(z.shape) != (h1, 1):
-            raise ValueError(f"{name} must be ({h1}, 1), got {tuple(z.shape)}")
-    tensors = [a for a in (a0, aux, z1row, z2row, *wt_args, *extra)
-               if a is not None]
-    for a in tensors:
-        if a.device != dev:
-            raise ValueError(f"all inputs must be on {dev}, got {a.device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernels take float32, got {a.dtype}")
-    for name, a in (("a0", a0), ("aux", aux), *(("lam", e) for e in extra)):
-        if a is not None and not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    with trace.span("loss.prep"):
+        dev = a0.device
+        n = a0.shape[1] if a0.dim() == 2 else -1
+        if a0.dim() != 2 or a0.shape[0] != 2 or n < 1:
+            raise ValueError(f"a0 must be (2, N) with N >= 1, got {tuple(a0.shape)}")
+        if aux is not None and tuple(aux.shape) != (3, n):
+            raise ValueError(f"aux must be (3, {n}), got {tuple(aux.shape)}")
+        if len(wt_args) < 4 or len(wt_args) % 2:
+            raise ValueError("wt_args must be [Wt, b] per layer, >= 2 layers")
+        h_in = 2
+        for l in range(len(wt_args) // 2):
+            wt, b = wt_args[2 * l], wt_args[2 * l + 1]
+            if wt.dim() != 2 or wt.shape[1] != h_in or tuple(b.shape) != (wt.shape[0], 1):
+                raise ValueError(f"layer {l}: Wt {tuple(wt.shape)} / b "
+                                 f"{tuple(b.shape)} do not chain from width {h_in}")
+            h_in = wt.shape[0]
+        if h_in != n_out:
+            raise ValueError(f"these kernels need {n_out} output(s), got {h_in}")
+        h1 = wt_args[0].shape[0]
+        for name, z in (("z1row", z1row), ("z2row", z2row)):
+            if tuple(z.shape) != (h1, 1):
+                raise ValueError(f"{name} must be ({h1}, 1), got {tuple(z.shape)}")
+        tensors = [a for a in (a0, aux, z1row, z2row, *wt_args, *extra)
+                   if a is not None]
+        for a in tensors:
+            if a.device != dev:
+                raise ValueError(f"all inputs must be on {dev}, got {a.device}")
+            if a.dtype != torch.float32:
+                raise TypeError(f"the CUDA kernels take float32, got {a.dtype}")
+        for name, a in (("a0", a0), ("aux", aux), *(("lam", e) for e in extra)):
+            if a is not None and not a.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
 
 
 def _pack(z1row, z2row, wt_args) -> torch.Tensor:
@@ -501,12 +508,13 @@ def _sizes(lib, sizes_fn: str, widths: Sequence[int], limits: str) -> Tuple[int,
 def _unpack(out: torch.Tensor, z1row, z2row, wt_args, n_extra: int = 0):
     """Split ``out`` = [loss, grad of wpack, extras] into the kernel's
     outputs ``(loss, gwt, gz1row, gz2row[, extras])``."""
-    shapes = [a.shape for a in (*wt_args, z1row, z2row)]
-    sizes = [int(np.prod(s)) for s in shapes]
-    parts = torch.split(out[1:], sizes + [n_extra])
-    grads = [p.view(s) for p, s in zip(parts, shapes)]
-    res = (out[0], grads[:-2], grads[-2], grads[-1])
-    return res + (parts[-1],) if n_extra else res
+    with trace.span("loss.assemble"):
+        shapes = [a.shape for a in (*wt_args, z1row, z2row)]
+        sizes = [int(np.prod(s)) for s in shapes]
+        parts = torch.split(out[1:], sizes + [n_extra])
+        grads = [p.view(s) for p, s in zip(parts, shapes)]
+        res = (out[0], grads[:-2], grads[-2], grads[-1])
+        return res + (parts[-1],) if n_extra else res
 
 
 def _on_cuda(a0) -> bool:
@@ -531,31 +539,34 @@ def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
     n_layers, n_pts, *scalars, [ws,] partials, out, stream)``; ``bf16``
     gives ws bf16 elements (the ``_bf16`` entry points).  Returns the
     output buffer: [loss, grad of wpack, n_extra extras] with
-    ``grads``, else [loss].  The caller has run :func:`_check_inputs`."""
-    lib = _build.library().lib
-    widths = _widths(a0, wt_args)
-    n_weights, ws_rows = _sizes(lib, sizes_fn, widths, limits)
-    n = a0.shape[1]
-    rows = -(-n // TILE)
-    wpack = _pack(z1row, z2row, wt_args)
+    ``grads``, else [loss].  The caller has run :func:`_check_inputs`.
+    Counts ``launch.<name>`` (``pinn_torch.utils.trace``)."""
+    with trace.span("loss.prep"):
+        lib = _build.library().lib
+        widths = _widths(a0, wt_args)
+        n_weights, ws_rows = _sizes(lib, sizes_fn, widths, limits)
+        n = a0.shape[1]
+        rows = -(-n // TILE)
+        wpack = _pack(z1row, z2row, wt_args)
 
-    def buf(size, dtype=torch.float32):
-        return torch.empty(size, dtype=dtype, device=a0.device)
+        def buf(size, dtype=torch.float32):
+            return torch.empty(size, dtype=dtype, device=a0.device)
 
-    cols = 1 + n_weights + n_extra
-    if grads:   # saved activations, per-tile partials, their sums
-        ws_dtype = torch.bfloat16 if bf16 else torch.float32
-        bufs = (buf(ws_rows * rows * TILE, ws_dtype), buf(rows * cols),
-                buf(cols))
-    else:       # per-tile partial losses, their sum
-        bufs = (buf(rows), buf(1))
-    with torch.cuda.device(a0.device):
+        cols = 1 + n_weights + n_extra
+        if grads:   # saved activations, per-tile partials, their sums
+            ws_dtype = torch.bfloat16 if bf16 else torch.float32
+            bufs = (buf(ws_rows * rows * TILE, ws_dtype), buf(rows * cols),
+                    buf(cols))
+        else:       # per-tile partial losses, their sum
+            bufs = (buf(rows), buf(1))
+    with trace.span("loss.launch"), torch.cuda.device(a0.device):
         err = getattr(lib, name)(
             a0.data_ptr(), *(t.data_ptr() for t in lead), wpack.data_ptr(),
             (ctypes.c_int * len(widths))(*widths), len(widths) - 1, n,
             *scalars, *(t.data_ptr() for t in bufs),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, name)
+        _build.check(lib, err, name)
+    trace.count("launch." + name)
     return bufs[-1]
 
 
@@ -573,7 +584,6 @@ def burgers_loss_grad(a0, aux, z1row, z2row, wt_args, nu, bf16: bool = False):
     name = _entry("burgers_loss_grad", bf16)
     out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0, [aux],
                  z1row, z2row, wt_args, [float(nu)], bf16=bf16)
-    launches[name] += 1
     return _unpack(out, z1row, z2row, wt_args)
 
 
@@ -588,7 +598,6 @@ def burgers_loss(a0, aux, z1row, z2row, wt_args, nu,
     name = _entry("burgers_loss", bf16)
     out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0, [aux],
                  z1row, z2row, wt_args, [float(nu)], grads=False)
-    launches[name] += 1
     return out[0]
 
 
@@ -605,7 +614,6 @@ def burgers_ide_loss_grad(a0, aux, lam, z1row, z2row, wt_args,
     name = _entry("burgers_ide_loss_grad", bf16)
     out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0,
                  [aux, lam], z1row, z2row, wt_args, n_extra=2, bf16=bf16)
-    launches[name] += 1
     return _unpack(out, z1row, z2row, wt_args, n_extra=2)
 
 
@@ -619,7 +627,6 @@ def burgers_ide_loss(a0, aux, lam, z1row, z2row, wt_args,
     name = _entry("burgers_ide_loss", bf16)
     out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0,
                  [aux, lam], z1row, z2row, wt_args, grads=False)
-    launches[name] += 1
     return out[0]
 
 
@@ -632,7 +639,6 @@ def burgers_sse_grad(a0, z1row, z2row, wt_args, nu):
     _check_inputs(a0, None, z1row, z2row, wt_args)
     out = launch("burgers_sse_grad", "burgers_train_sizes", _BURGERS_LIMITS,
                  a0, [], z1row, z2row, wt_args, [float(nu)])
-    launches["burgers_sse_grad"] += 1
     return _unpack(out, z1row, z2row, wt_args)
 
 
@@ -644,7 +650,6 @@ def burgers_sse(a0, z1row, z2row, wt_args, nu) -> torch.Tensor:
     _check_inputs(a0, None, z1row, z2row, wt_args)
     out = launch("burgers_sse", "burgers_train_sizes", _BURGERS_LIMITS, a0,
                  [], z1row, z2row, wt_args, [float(nu)], grads=False)
-    launches["burgers_sse"] += 1
     return out[0]
 
 
@@ -699,16 +704,17 @@ def make_burgers_loss(lb, ub, nu: float, stream_dtype=None):
     consts = {}
 
     def loss(params: Params, batch) -> torch.Tensor:
-        dev = batch["X_f"].device
-        if dev not in consts:
-            consts[dev] = _tangents(lb_np, ub_np, dev)
-        lb_t, ub_t, vx, vt = consts[dev]
-        a0, aux = _prep_points(batch, lb_t, ub_t)
-        net = leaves(params)
-        if _wants_grad(net):
-            return _FusedBurgersLoss.apply(a0, aux, vx, vt, nu, bf16, *net)
-        z1row, z2row, wt_args = _prep(params, vx, vt)
-        return burgers_loss(a0, aux, z1row, z2row, wt_args, nu, bf16)
+        with trace.span("loss"):
+            dev = batch["X_f"].device
+            if dev not in consts:
+                consts[dev] = _tangents(lb_np, ub_np, dev)
+            lb_t, ub_t, vx, vt = consts[dev]
+            a0, aux = _prep_points(batch, lb_t, ub_t)
+            net = leaves(params)
+            if _wants_grad(net):
+                return _FusedBurgersLoss.apply(a0, aux, vx, vt, nu, bf16, *net)
+            z1row, z2row, wt_args = _prep(params, vx, vt)
+            return burgers_loss(a0, aux, z1row, z2row, wt_args, nu, bf16)
 
     return loss
 
@@ -755,19 +761,21 @@ def make_burgers_ide_loss(lb, ub, stream_dtype=None):
     consts = {}
 
     def loss(params, batch) -> torch.Tensor:
-        dev = batch["X_u"].device
-        if dev not in consts:
-            consts[dev] = _tangents(lb_np, ub_np, dev)
-        lb_t, ub_t, vx, vt = consts[dev]
-        a0, aux = _prep_ide_points(batch, lb_t, ub_t)
-        net = leaves(params.net)
-        if _wants_grad(leaves(params)):
-            return _FusedBurgersIdeLoss.apply(a0, aux, vx, vt, bf16,
-                                              params.lambda1,
-                                              params.log_lambda2, *net)
-        z1row, z2row, wt_args = _prep(params.net, vx, vt)
-        return burgers_ide_loss(a0, aux, _lam(params.lambda1, params.log_lambda2),
-                                z1row, z2row, wt_args, bf16)
+        with trace.span("loss"):
+            dev = batch["X_u"].device
+            if dev not in consts:
+                consts[dev] = _tangents(lb_np, ub_np, dev)
+            lb_t, ub_t, vx, vt = consts[dev]
+            a0, aux = _prep_ide_points(batch, lb_t, ub_t)
+            net = leaves(params.net)
+            if _wants_grad(leaves(params)):
+                return _FusedBurgersIdeLoss.apply(a0, aux, vx, vt, bf16,
+                                                  params.lambda1,
+                                                  params.log_lambda2, *net)
+            z1row, z2row, wt_args = _prep(params.net, vx, vt)
+            return burgers_ide_loss(a0, aux,
+                                    _lam(params.lambda1, params.log_lambda2),
+                                    z1row, z2row, wt_args, bf16)
 
     return loss
 

@@ -28,8 +28,8 @@ its members.
 Each function takes float32 only, as the TPU kernels do, and raises on
 anything else.  For CPU tensors it runs its plain version (the TPU
 kernel's arithmetic on tensors, normalisation included); for CUDA
-tensors it launches its kernel or raises.  ``launches`` counts the CUDA
-launches by entry point.
+tensors it launches its kernel or raises.  A launch runs in the span
+``loss.launch`` and counts ``launch.<entry>`` (``pinn_torch.utils.trace``).
 """
 
 from __future__ import annotations
@@ -42,10 +42,7 @@ import torch
 from pinn_torch.ops import _build
 from pinn_torch.ops.fused_train import _on_cuda, _sizes
 from pinn_torch.params import Params
-
-# Launch counts of the kernels by entry point (CUDA launches only).
-launches = {"burgers_residual": 0, "burgers_residual_fmajor": 0,
-            "schrodinger_residual": 0}
+from pinn_torch.utils import trace
 
 _LIMITS = {1: ("burgers_train_sizes",
                "input 2, output 1, at most 15 hidden layers of width <= 64"),
@@ -177,14 +174,14 @@ def _launch(name: str, params: Params, X: torch.Tensor, n: int, n_out: int,
                        for a in ((w.t() if features_major else w), b)])
     out = torch.empty((n_out, n), dtype=torch.float32, device=X.device)
     lb_np, ub_np = _box(lb, ub)
-    with torch.cuda.device(X.device):
+    with trace.span("loss.launch"), torch.cuda.device(X.device):
         err = getattr(lib, name)(
             X.data_ptr(), wpack.data_ptr(), (ctypes.c_int * len(widths))(*widths),
             len(widths) - 1, n, float(lb_np[0]), float(lb_np[1]),
             float(ub_np[0]), float(ub_np[1]), *scalars, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, name)
-    launches[name] += 1
+        _build.check(lib, err, name)
+    trace.count("launch." + name)
     return out
 
 

@@ -35,6 +35,7 @@ from typing import Any, Callable, Iterable, List, NamedTuple
 import torch
 
 from pinn_torch import params as pcodec
+from pinn_torch.utils import trace
 
 KERAS_DEFAULT_EPS = 1e-7
 
@@ -97,7 +98,9 @@ class AdamRunner:
     :class:`AdamState`; ``run(params, state, batch, n_steps)`` returns
     ``(params, state, losses)`` with ``losses[i]`` the loss at step i,
     before its update.  PyTorch runs eagerly, so a run is ``n_steps``
-    eager steps where JAX scans them in one program.
+    eager steps where JAX scans them in one program, each in the span
+    ``adam.step`` (``pinn_torch.utils.trace``) with the update in
+    ``adam.update``.
     """
 
     def __init__(self, loss_fn: Callable[[Any, Any], torch.Tensor],
@@ -124,11 +127,13 @@ class AdamRunner:
         live_params = pcodec.rebuild(params, leaves)
         opt, losses = state.optimizer, []
         for _ in range(n_steps):
-            opt.zero_grad(set_to_none=True)
-            loss = self.loss_fn(live_params, batch)
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
+            with trace.span("adam.step"):
+                opt.zero_grad(set_to_none=True)
+                loss = self.loss_fn(live_params, batch)
+                loss.backward()
+                with trace.span("adam.update"):
+                    opt.step()
+                losses.append(loss.detach())
         out = pcodec.rebuild(params, [a.detach().clone() for a in leaves])
         return out, state, torch.stack(losses) if losses else \
             torch.empty(0, dtype=leaves[0].dtype, device=leaves[0].device)

@@ -17,6 +17,17 @@ place (the old ring is never read again).
 Loss-only evaluations (the Armijo backtracking trials) go through
 ``lossfunc``, which callers run under ``torch.no_grad()`` so that a
 fused loss takes its loss-only kernel.
+
+Every device value read on the host goes through :func:`_read`, which
+counts it as ``lbfgs.host_reads`` (``pinn_torch.utils.trace``): an
+Armijo iteration whose first trial is taken reads 7 (the memory's
+curvature guard, the descent test, the first Armijo test and the four
+convergence tests), a rejected first trial ``n_ls + 2`` more, the first
+iteration one fewer (no memory update) and ``lbfgs_init`` one.  Each
+iteration counts ``lbfgs.iters`` and runs in the span ``lbfgs.step``,
+with ``lbfgs.memory``, ``lbfgs.direction``, ``lbfgs.search`` (the loss
+calls nested) and ``lbfgs.checks`` inside; ``lbfgs_init`` runs in
+``lbfgs.init``.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from pinn_torch.utils import trace
 
 # Termination reason codes (state.reason)
 RUNNING = 0
@@ -98,20 +111,28 @@ OpFunc = Callable[[torch.Tensor, Any], Tuple[torch.Tensor, torch.Tensor]]
 LossFunc = Callable[[torch.Tensor, Any], torch.Tensor]
 
 
+def _read(value: torch.Tensor, kind=bool):
+    """``kind(value)`` of a device value (a host sync), counted."""
+    trace.count("lbfgs.host_reads")
+    return kind(value)
+
+
 def lbfgs_init(opfunc: OpFunc, x0: torch.Tensor, config: LbfgsConfig,
                batch: Any = None) -> LbfgsState:
     """Evaluate f, g at x0 and build the zeroed state."""
-    f0, g0 = opfunc(x0, batch)
-    m, p = config.n_correction, x0.shape[0]
-    opts = dict(dtype=x0.dtype, device=x0.device)
-    zero = torch.zeros((), **opts)
-    reason = GRAD_TOL if float(g0.abs().sum()) <= config.tol_fun else RUNNING
-    return LbfgsState(
-        x=x0, f=f0, g=g0, d=torch.zeros((p,), **opts), t=zero,
-        f_old=f0, g_old=g0,
-        S=torch.zeros((m, p), **opts), Y=torch.zeros((m, p), **opts),
-        hdiag=torch.ones((), **opts), k=0, head=0, n_iter=0, n_evals=1,
-        reason=reason)
+    with trace.span("lbfgs.init"):
+        f0, g0 = opfunc(x0, batch)
+        m, p = config.n_correction, x0.shape[0]
+        opts = dict(dtype=x0.dtype, device=x0.device)
+        zero = torch.zeros((), **opts)
+        reason = (GRAD_TOL if _read(g0.abs().sum(), float) <= config.tol_fun
+                  else RUNNING)
+        return LbfgsState(
+            x=x0, f=f0, g=g0, d=torch.zeros((p,), **opts), t=zero,
+            f_old=f0, g_old=g0,
+            S=torch.zeros((m, p), **opts), Y=torch.zeros((m, p), **opts),
+            hdiag=torch.ones((), **opts), k=0, head=0, n_iter=0, n_evals=1,
+            reason=reason)
 
 
 def _two_loop(g, S, Y, k, head, hdiag, m):
@@ -192,15 +213,15 @@ def _search(opfunc: OpFunc, lossfunc: LossFunc, config: LbfgsConfig,
         # Backtrack from t0 until f(x+td) <= f + c1 t g·d; rejected
         # trials are loss-only, one gradient at the accepted step.
         f_t0, g_t0 = opfunc(x + t0 * d, batch)
-        if bool(f_t0 <= f + c1 * t0 * gtd):
+        if _read(f_t0 <= f + c1 * t0 * gtd):
             return t0, f_t0, g_t0, 1, False
         t, f_t, n_ls = t0, f_t0, 0
-        while not bool(f_t <= f + c1 * t * gtd) and n_ls < config.ls_backtracks:
+        while not _read(f_t <= f + c1 * t * gtd) and n_ls < config.ls_backtracks:
             t = t * 0.5
             f_t = lossfunc(x + t * d, batch)
             n_ls += 1
         f_new, g_new = opfunc(x + t * d, batch)
-        fail = bool(f_new > f + c1 * t * gtd)
+        fail = _read(f_new > f + c1 * t * gtd)
         return t, f_new, g_new, n_ls + 2, fail
 
     if config.line_search == "wolfe":
@@ -212,15 +233,15 @@ def _search(opfunc: OpFunc, lossfunc: LossFunc, config: LbfgsConfig,
         hi = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
         n = 1
         while n < config.ls_backtracks:
-            armijo = bool(f_t <= f + c1 * t * gtd)
-            if armijo and bool(torch.dot(g_t, d) >= c2 * gtd):
+            armijo = _read(f_t <= f + c1 * t * gtd)
+            if armijo and _read(torch.dot(g_t, d) >= c2 * gtd):
                 break
             hi = hi if armijo else t
             lo = t if armijo else lo
-            t = 2.0 * lo if bool(torch.isinf(hi)) else 0.5 * (lo + hi)
+            t = 2.0 * lo if _read(torch.isinf(hi)) else 0.5 * (lo + hi)
             f_t, g_t = opfunc(x + t * d, batch)
             n += 1
-        fail = bool(f_t > f + c1 * t * gtd)
+        fail = _read(f_t > f + c1 * t * gtd)
         return t, f_t, g_t, n, fail
 
     raise ValueError(f"unknown line_search {config.line_search!r}")
@@ -237,21 +258,25 @@ def _step(opfunc: OpFunc, config: LbfgsConfig, state: LbfgsState,
     # ---- memory update (skipped on the first iteration) ----
     S, Y, head, k, hdiag = state.S, state.Y, state.head, state.k, state.hdiag
     if not first:
-        y = state.g - state.g_old
-        s = state.d * state.t
-        ys = torch.dot(y, s)
-        if bool(ys > 1e-10):
-            S[head] = s
-            Y[head] = y
-            head = (head + 1) % m
-            k = min(k + 1, m)
-            hdiag = ys / torch.dot(y, y)
+        with trace.span("lbfgs.memory"):
+            y = state.g - state.g_old
+            s = state.d * state.t
+            ys = torch.dot(y, s)
+            if _read(ys > 1e-10):
+                S[head] = s
+                Y[head] = y
+                head = (head + 1) % m
+                k = min(k + 1, m)
+                hdiag = ys / torch.dot(y, y)
 
     # ---- search direction ----
-    d = -state.g if first else _direction(config, state.g, S, Y, k, head,
-                                          hdiag, m)
+    if first:
+        d = -state.g
+    else:
+        with trace.span("lbfgs.direction"):
+            d = _direction(config, state.g, S, Y, k, head, hdiag, m)
     gtd = torch.dot(state.g, d)
-    no_progress = bool(gtd > -config.tol_x)
+    no_progress = _read(gtd > -config.tol_x)
     soft_restart = no_progress and config.restart and k > 0
 
     # ---- step size (skipped when the direction is not a descent) ----
@@ -259,23 +284,25 @@ def _step(opfunc: OpFunc, config: LbfgsConfig, state: LbfgsState,
         t = torch.zeros((), dtype=state.x.dtype, device=state.x.device)
         f_new, g_new, ls_evals, ls_fail = state.f, state.g, 0, False
     else:
-        t, f_new, g_new, ls_evals, ls_fail = _search(
-            opfunc, lossfunc, config, state, batch, d, gtd, first)
+        with trace.span("lbfgs.search"):
+            t, f_new, g_new, ls_evals, ls_fail = _search(
+                opfunc, lossfunc, config, state, batch, d, gtd, first)
     x_new = state.x + t * d
     no_progress = no_progress or ls_fail
 
     # ---- convergence checks on the new point ----
     n_evals = state.n_evals + ls_evals
     reason = RUNNING
-    if bool((f_new - state.f).abs() < config.tol_x):
-        reason = F_TOL
-    if bool((t * d).abs().sum() <= config.tol_x):
-        reason = STEP_TOL
-    if bool(g_new.abs().sum() <= config.tol_fun):
-        reason = GRAD_TOL
-    if n_evals >= config.resolved_max_eval():
-        reason = MAX_EVAL
-    non_finite = not bool(torch.isfinite(f_new))
+    with trace.span("lbfgs.checks"):
+        if _read((f_new - state.f).abs() < config.tol_x):
+            reason = F_TOL
+        if _read((t * d).abs().sum() <= config.tol_x):
+            reason = STEP_TOL
+        if _read(g_new.abs().sum() <= config.tol_fun):
+            reason = GRAD_TOL
+        if n_evals >= config.resolved_max_eval():
+            reason = MAX_EVAL
+        non_finite = not _read(torch.isfinite(f_new))
     if non_finite:
         reason = NON_FINITE
     if no_progress:
@@ -308,7 +335,9 @@ def make_lbfgs_run(opfunc: OpFunc, config: LbfgsConfig,
     def run(state: LbfgsState, batch: Any, n_steps: int):
         hist = []
         while len(hist) < n_steps and state.reason == RUNNING:
-            state = _step(opfunc, config, state, batch, lossfunc)
+            with trace.span("lbfgs.step"):
+                state = _step(opfunc, config, state, batch, lossfunc)
+            trace.count("lbfgs.iters")
             hist.append(state.f)
         hist += [state.f] * (n_steps - len(hist))
         return state, torch.stack(hist) if hist else state.f.new_empty((0,))
@@ -330,5 +359,5 @@ def minimize(opfunc: OpFunc, x0: torch.Tensor, config: LbfgsConfig,
         state, f_hist = run(state, batch, chunk)
         done += chunk
         if log_fn is not None:
-            log_fn(done, float(f_hist[-1]))
+            log_fn(done, _read(f_hist[-1], float))
     return state

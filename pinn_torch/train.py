@@ -35,7 +35,31 @@ wraps it in ``jax.profiler.trace``: the CPU always, and CUDA when the
 parameters are on the card.  One Chrome-trace JSON lands in the
 directory (``<host>_<pid>.<ns>.pt.trace.json``, which Perfetto and
 TensorBoard's profile plugin open); the run's numbers are those without
-it.
+it.  Beside PyTorch's own events the trace holds the port's spans
+(``pinn_torch.utils.trace``; they exist only while a profiler runs), so
+each idle gap of the device can be put down to a layer:
+
+- ``pinn_torch.trainer.boundary``: the host work between two chunks of
+  either phase (the log line and its loss read, resampling, saves, the
+  validation probe, a revived L-BFGS run);
+- ``pinn_torch.adam.step``: one Adam step (zero_grad, loss, backward,
+  update), with ``pinn_torch.adam.update`` around ``torch.optim.Adam``'s
+  per-leaf update;
+- ``pinn_torch.lbfgs.init``: a history's first evaluation;
+  ``pinn_torch.lbfgs.step``: one iteration, with
+  ``pinn_torch.lbfgs.memory`` (the curvature guard and the ring write),
+  ``pinn_torch.lbfgs.direction`` (the two-loop), ``pinn_torch.lbfgs.search``
+  (the step rule and its loss calls) and ``pinn_torch.lbfgs.checks``
+  (the convergence tests) inside;
+- ``pinn_torch.loss``: one call of a fused loss (``pinn_torch.ops``),
+  with ``pinn_torch.loss.ic_bc`` (Schrödinger's eager initial and
+  boundary terms), ``pinn_torch.loss.prep`` (points, weights, checks,
+  buffers), ``pinn_torch.loss.launch`` (the kernel's C call) and
+  ``pinn_torch.loss.assemble`` (the gradients' reassembly) inside.
+
+A loss's backward runs outside ``pinn_torch.loss``: under
+``pinn_torch.adam.step`` in Adam, under ``pinn_torch.lbfgs.search`` or
+``pinn_torch.lbfgs.init`` in L-BFGS.
 
 ``mesh`` (a ``pinn_torch.parallel`` mesh), as the JAX Trainer's: the
 parameters and the batch are placed on the mesh's first device, and
@@ -56,7 +80,7 @@ import torch
 from pinn_torch import params as pcodec
 from pinn_torch.optim import lbfgs as lb
 from pinn_torch.optim.adam import AdamRunner
-from pinn_torch.utils import checkpoint
+from pinn_torch.utils import checkpoint, trace
 from pinn_torch.utils.logger import Logger
 
 def lbfgs_config_from_hp(hp: dict) -> lb.LbfgsConfig:
@@ -175,24 +199,27 @@ class Trainer:
         done = 0
         t0 = _now(device)
         while done < self.tf_epochs:
-            if every and done and done % every == 0:
-                self._resample(done)
-            # Chunks end on log, resample and save boundaries, as the
-            # JAX Trainer's scan chunks do.
-            chunk = min(self.CHUNK_CAP, self.tf_epochs - done,
-                        self.frequency - (done % self.frequency))
-            if every:
-                chunk = min(chunk, every - (done % every))
-            if self.save_every:
-                chunk = min(chunk, self.save_every - (done % self.save_every))
+            with trace.span("trainer.boundary"):
+                if every and done and done % every == 0:
+                    self._resample(done)
+                # Chunks end on log, resample and save boundaries, as the
+                # JAX Trainer's scan chunks do.
+                chunk = min(self.CHUNK_CAP, self.tf_epochs - done,
+                            self.frequency - (done % self.frequency))
+                if every:
+                    chunk = min(chunk, every - (done % every))
+                if self.save_every:
+                    chunk = min(chunk,
+                                self.save_every - (done % self.save_every))
             self.params, state, losses = self.adam.run(
                 self.params, state, self.batch, chunk)
-            # losses[0] is the loss at epoch `done`, before its update.
-            if done % self.frequency == 0:
-                self._log("log_train_epoch", done, float(losses[0]),
-                          self._extra(), False)
-            done += chunk
-            self._maybe_save("adam", done)
+            with trace.span("trainer.boundary"):
+                # losses[0] is the loss at epoch `done`, before its update.
+                if done % self.frequency == 0:
+                    self._log("log_train_epoch", done, float(losses[0]),
+                              self._extra(), False)
+                done += chunk
+                self._maybe_save("adam", done)
         self.timing["adam_s"] += _now(device) - t0
 
     def _lbfgs_phase(self):
@@ -251,35 +278,39 @@ class Trainer:
             return lb.lbfgs_init(opfunc, state.x, self.nt_config, self.batch)
 
         while done < self.nt_config.max_iter:
-            if state.reason != lb.RUNNING:
-                # Terminal on this draw: with resampling, revive on a
-                # fresh one unless this draw already started here.
-                if not every or done == resampled_at:
-                    break
-                n_iters += state.n_iter
-                n_evals += state.n_evals
-                state, resampled_at = refresh(done), done
-            elif every and done and done % every == 0 and done != resampled_at:
-                n_iters += state.n_iter
-                n_evals += state.n_evals
-                state, resampled_at = refresh(done), done
-            chunk = min(self.CHUNK_CAP, self.nt_config.max_iter - done,
-                        self.frequency - (done % self.frequency))
-            if every:
-                chunk = min(chunk, every - (done % every))
-            if self.save_every:
-                chunk = min(chunk, self.save_every - (done % self.save_every))
-            if val_every:
-                chunk = min(chunk, val_every - (done % val_every))
+            with trace.span("trainer.boundary"):
+                if state.reason != lb.RUNNING:
+                    # Terminal on this draw: with resampling, revive on a
+                    # fresh one unless this draw already started here.
+                    if not every or done == resampled_at:
+                        break
+                    n_iters += state.n_iter
+                    n_evals += state.n_evals
+                    state, resampled_at = refresh(done), done
+                elif (every and done and done % every == 0
+                      and done != resampled_at):
+                    n_iters += state.n_iter
+                    n_evals += state.n_evals
+                    state, resampled_at = refresh(done), done
+                chunk = min(self.CHUNK_CAP, self.nt_config.max_iter - done,
+                            self.frequency - (done % self.frequency))
+                if every:
+                    chunk = min(chunk, every - (done % every))
+                if self.save_every:
+                    chunk = min(chunk,
+                                self.save_every - (done % self.save_every))
+                if val_every:
+                    chunk = min(chunk, val_every - (done % val_every))
             state, f_hist = run(state, self.batch, chunk)
-            done += chunk
-            self.params = to_params(state.x)
-            self._maybe_save("lbfgs", done)
-            if val_every and done % val_every == 0:
-                val_probe(state.x, done)
-            if done % self.frequency == 0:
-                self._log("log_train_epoch", done, float(f_hist[-1]),
-                          self._extra(), True)
+            with trace.span("trainer.boundary"):
+                done += chunk
+                self.params = to_params(state.x)
+                self._maybe_save("lbfgs", done)
+                if val_every and done % val_every == 0:
+                    val_probe(state.x, done)
+                if done % self.frequency == 0:
+                    self._log("log_train_epoch", done, float(f_hist[-1]),
+                              self._extra(), True)
         self.timing["lbfgs_s"] += _now(device) - t0
         self.timing["lbfgs_iters"] += n_iters + state.n_iter
         self.timing["lbfgs_evals"] += n_evals + state.n_evals

@@ -32,6 +32,7 @@ import torch
 from pinn_torch.ops import fused_schrodinger as fs
 from pinn_torch.ops import fused_train as ft
 from pinn_torch.ops import residual as rs
+from pinn_torch.utils import trace
 from pinn_torch.utils.checkpoint import params_from_numpy
 
 pytestmark = [
@@ -97,10 +98,11 @@ def _flat(out):
     return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)]
 
 
-def _launched(module, before, *names):
-    """Launches of each named kernel since ``before`` (a copy of
-    ``module.launches``)."""
-    return tuple(module.launches[n] - before[n] for n in names)
+def _launched(before, *names):
+    """Launches of each named kernel since ``before`` (a
+    ``trace.counters()`` snapshot): the ``launch.<entry>`` counters."""
+    moved = trace.delta(before, trace.counters())
+    return tuple(moved.get("launch." + n, 0) for n in names)
 
 
 @pytest.mark.parametrize("layers,n_u,n_f,n", [
@@ -113,13 +115,13 @@ def _launched(module, before, *names):
 def test_kernels_match_plain(layers, n_u, n_f, n):
     params, batch = _case(layers, n_u, n_f, seed=len(layers) + n_f, device="cuda")
     args = _kernel_args(params, batch, n)
-    n0 = dict(ft.launches)
+    n0 = trace.counters()
     got = _flat(ft.burgers_loss_grad(*args, NU))
     again = _flat(ft.burgers_loss_grad(*args, NU))
     loss_only = ft.burgers_loss(*args, NU)
     want = _flat(ft.burgers_loss_grad_plain(*args, NU))
     torch.cuda.synchronize()
-    assert _launched(ft, n0, "burgers_loss_grad", "burgers_loss") == (2, 1)
+    assert _launched(n0, "burgers_loss_grad", "burgers_loss") == (2, 1)
 
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
     gmax = max(float(w.abs().max()) for w in want[1:])
@@ -144,12 +146,12 @@ def test_inference_loss_only_is_the_loss_grad_loss_bitwise(layers, n_u, n_f,
     params, batch = _case(layers, n_u, n_f, seed=len(layers) + n_f + 3,
                           device="cuda")
     args = _kernel_args(params, batch, n)
-    n0 = dict(ft.launches)
+    n0 = trace.counters()
     loss_only = ft.burgers_loss(*args, NU, bf16=bf16)
     loss = ft.burgers_loss_grad(*args, NU, bf16=bf16)[0]
     torch.cuda.synchronize()
     sfx = "_bf16" if bf16 else ""
-    assert _launched(ft, n0, "burgers_loss" + sfx,
+    assert _launched(n0, "burgers_loss" + sfx,
                      "burgers_loss_grad" + sfx) == (1, 1)
     assert torch.equal(loss_only.reshape(1), loss.reshape(1))
 
@@ -235,13 +237,13 @@ def _ide_flat(out):
 @pytest.mark.parametrize("l1,logl2", [(0.0, -6.0), (1.3, -4.0)])
 def test_ide_kernels_match_plain(layers, n, l1, logl2):
     args = _ide_args(layers, n, l1, logl2, seed=n)
-    n0 = dict(ft.launches)
+    n0 = trace.counters()
     got = _ide_flat(ft.burgers_ide_loss_grad(*args))
     again = _ide_flat(ft.burgers_ide_loss_grad(*args))
     loss_only = ft.burgers_ide_loss(*args)
     want = _ide_flat(ft.burgers_ide_loss_grad_plain(*args))
     torch.cuda.synchronize()
-    assert _launched(ft, n0, "burgers_ide_loss_grad", "burgers_ide_loss") == (2, 1)
+    assert _launched(n0, "burgers_ide_loss_grad", "burgers_ide_loss") == (2, 1)
     _check_against_plain(got, again, want, loss_only, n_lam=1)
     assert torch.equal(loss_only.reshape(1), got[0])
 
@@ -253,12 +255,12 @@ def test_ide_loss_only_is_the_loss_grad_loss_bitwise(layers, n, bf16):
     burgers_ide_loss's loss is burgers_ide_loss_grad's bit for bit: both
     narrow kernels evaluate the identification head alike."""
     args = _ide_args(layers, n, 1.3, -4.0, seed=len(layers) + n + 3)
-    n0 = dict(ft.launches)
+    n0 = trace.counters()
     loss_only = ft.burgers_ide_loss(*args, bf16=bf16)
     loss = ft.burgers_ide_loss_grad(*args, bf16=bf16)[0]
     torch.cuda.synchronize()
     sfx = "_bf16" if bf16 else ""
-    assert _launched(ft, n0, "burgers_ide_loss" + sfx,
+    assert _launched(n0, "burgers_ide_loss" + sfx,
                      "burgers_ide_loss_grad" + sfx) == (1, 1)
     assert torch.equal(loss_only.reshape(1), loss.reshape(1))
 
@@ -349,13 +351,13 @@ def _schrodinger_args(layers, n, seed):
 ] + S_TILE_EDGES)
 def test_schrodinger_kernels_match_plain(layers, n):
     args = _schrodinger_args(layers, n, seed=n)
-    n0 = dict(fs.launches)
+    n0 = trace.counters()
     got = _flat(fs.schrodinger_sse_grad(*args))
     again = _flat(fs.schrodinger_sse_grad(*args))
     loss_only = fs.schrodinger_sse(*args)
     want = _flat(fs.schrodinger_sse_grad_plain(*args))
     torch.cuda.synchronize()
-    assert _launched(fs, n0, "schrodinger_sse_grad", "schrodinger_sse") == (2, 1)
+    assert _launched(n0, "schrodinger_sse_grad", "schrodinger_sse") == (2, 1)
     _check_against_plain(got, again, want, loss_only)
 
 
@@ -366,12 +368,12 @@ def test_schrodinger_loss_only_is_the_loss_grad_loss_bitwise(n, bf16):
     same grid, tiles and order of sums: the loss-only kernel's loss is
     the loss+grad kernel's, bit for bit."""
     args = _schrodinger_args([2, 100, 100, 100, 100, 2], n, seed=n + 2)
-    n0 = dict(fs.launches)
+    n0 = trace.counters()
     loss_only = fs.schrodinger_sse(*args, bf16=bf16)
     loss = fs.schrodinger_sse_grad(*args, bf16=bf16)[0]
     torch.cuda.synchronize()
     sfx = "_bf16" if bf16 else ""
-    assert _launched(fs, n0, "schrodinger_sse" + sfx,
+    assert _launched(n0, "schrodinger_sse" + sfx,
                      "schrodinger_sse_grad" + sfx) == (1, 1)
     assert torch.equal(loss_only.reshape(1), loss.reshape(1))
 
@@ -412,14 +414,14 @@ def _check_bf16(got, again, want, loss_only, want_loss, n_lam=0):
 def test_bf16_kernels_match_plain(layers, n_u, n_f, n):
     params, batch = _case(layers, n_u, n_f, seed=n_f, device="cuda")
     args = _kernel_args(params, batch, n)
-    n0 = dict(ft.launches)
+    n0 = trace.counters()
     got = _flat(ft.burgers_loss_grad(*args, NU, bf16=True))
     again = _flat(ft.burgers_loss_grad(*args, NU, bf16=True))
     loss_only = ft.burgers_loss(*args, NU, bf16=True)
     want = _flat(ft.burgers_loss_grad_bf16_plain(*args, NU))
     want_loss = ft.burgers_loss_bf16_plain(*args, NU)
     torch.cuda.synchronize()
-    assert _launched(ft, n0, "burgers_loss_grad_bf16", "burgers_loss_bf16",
+    assert _launched(n0, "burgers_loss_grad_bf16", "burgers_loss_bf16",
                      "burgers_loss_grad", "burgers_loss") == (2, 1, 0, 0)
     _check_bf16(got, again, want, loss_only, want_loss)
 
@@ -428,14 +430,14 @@ def test_bf16_kernels_match_plain(layers, n_u, n_f, n):
                                       ([2, 16, 1], 1017)] + IDE_EDGES)
 def test_bf16_ide_kernels_match_plain(layers, n):
     args = _ide_args(layers, n, 1.3, -4.0, seed=n + 1)
-    n0 = dict(ft.launches)
+    n0 = trace.counters()
     got = _ide_flat(ft.burgers_ide_loss_grad(*args, bf16=True))
     again = _ide_flat(ft.burgers_ide_loss_grad(*args, bf16=True))
     loss_only = ft.burgers_ide_loss(*args, bf16=True)
     want = _ide_flat(ft.burgers_ide_loss_grad_bf16_plain(*args))
     want_loss = ft.burgers_ide_loss_bf16_plain(*args)
     torch.cuda.synchronize()
-    assert _launched(ft, n0, "burgers_ide_loss_grad_bf16",
+    assert _launched(n0, "burgers_ide_loss_grad_bf16",
                      "burgers_ide_loss_bf16") == (2, 1)
     _check_bf16(got, again, want, loss_only, want_loss, n_lam=1)
     assert torch.equal(loss_only.reshape(1), got[0])
@@ -445,14 +447,14 @@ def test_bf16_ide_kernels_match_plain(layers, n):
                                       ([2, 32, 2], 512)] + S_TILE_EDGES)
 def test_bf16_schrodinger_kernels_match_plain(layers, n):
     args = _schrodinger_args(layers, n, seed=n + 1)
-    n0 = dict(fs.launches)
+    n0 = trace.counters()
     got = _flat(fs.schrodinger_sse_grad(*args, bf16=True))
     again = _flat(fs.schrodinger_sse_grad(*args, bf16=True))
     loss_only = fs.schrodinger_sse(*args, bf16=True)
     want = _flat(fs.schrodinger_sse_grad_bf16_plain(*args))
     want_loss = fs.schrodinger_sse_bf16_plain(*args)
     torch.cuda.synchronize()
-    assert _launched(fs, n0, "schrodinger_sse_grad_bf16",
+    assert _launched(n0, "schrodinger_sse_grad_bf16",
                      "schrodinger_sse_bf16") == (2, 1)
     _check_bf16(got, again, want, loss_only, want_loss)
 
@@ -488,13 +490,13 @@ def _sse_args(layers, n, seed):
 ] + SSE_EDGES)
 def test_sse_kernels_match_plain(layers, n):
     args = _sse_args(layers, n, seed=n)
-    n0 = dict(ft.launches)
+    n0 = trace.counters()
     got = _flat(ft.burgers_sse_grad(*args, NU))
     again = _flat(ft.burgers_sse_grad(*args, NU))
     loss_only = ft.burgers_sse(*args, NU)
     want = _flat(ft.burgers_sse_grad_plain(*args, NU))
     torch.cuda.synchronize()
-    assert _launched(ft, n0, "burgers_sse_grad", "burgers_sse",
+    assert _launched(n0, "burgers_sse_grad", "burgers_sse",
                      "burgers_loss_grad", "burgers_loss") == (2, 1, 0, 0)
     _check_against_plain(got, again, want, loss_only)
     assert torch.equal(loss_only.reshape(1), got[0])
@@ -506,11 +508,11 @@ def test_sse_loss_only_is_the_loss_grad_loss_bitwise(n):
     burgers_sse_grad's bit for bit: both narrow kernels run one forward
     and sum each tile and the tiles in one order."""
     args = _sse_args(FLAGSHIP, n, seed=n + 3)
-    n0 = dict(ft.launches)
+    n0 = trace.counters()
     loss_only = ft.burgers_sse(*args, NU)
     loss = ft.burgers_sse_grad(*args, NU)[0]
     torch.cuda.synchronize()
-    assert _launched(ft, n0, "burgers_sse", "burgers_sse_grad") == (1, 1)
+    assert _launched(n0, "burgers_sse", "burgers_sse_grad") == (1, 1)
     assert torch.equal(loss_only.reshape(1), loss.reshape(1))
 
 
@@ -548,11 +550,11 @@ def test_fused_sse_on_card_matches_cpu():
         X_f = torch.as_tensor(LB + (UB - LB) * rng.rand(500, 2),
                               dtype=torch.float32, device=dev)
         leaves = [a.requires_grad_(True) for wb in params for a in wb]
-        n0 = dict(ft.launches)
+        n0 = trace.counters()
         val = ft.make_burgers_sse(LB, UB, NU)(params, X_f)
         grads = torch.autograd.grad(val, leaves)
         if dev == "cuda":
-            assert _launched(ft, n0, "burgers_sse", "burgers_sse_grad") == (1, 1)
+            assert _launched(n0, "burgers_sse", "burgers_sse_grad") == (1, 1)
         outs[dev] = [val.detach().cpu()] + [g.cpu() for g in grads]
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-5, atol=0.0)
     gmax = max(float(g.abs().max()) for g in outs["cpu"][1:])
@@ -590,12 +592,12 @@ BURGERS_LAYOUTS = ["burgers_residual", "burgers_residual_fmajor"]
 @pytest.mark.parametrize("name", BURGERS_LAYOUTS)
 def test_burgers_residual_kernels_match_plain(layers, n, name):
     params, X = _residual_case(layers, n, LB, UB, seed=n)
-    n0 = dict(rs.launches)
+    n0 = trace.counters()
     got = getattr(rs, name)(params, X, LB, UB, NU)
     again = getattr(rs, name)(params, X, LB, UB, NU)
     want = getattr(rs, name + "_plain")(params, X, LB, UB, NU)
     torch.cuda.synchronize()
-    assert _launched(rs, n0, name) == (2,)
+    assert _launched(n0, name) == (2,)
     assert tuple(got.shape) == (n, 1)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
     assert torch.equal(got, again)
@@ -606,7 +608,7 @@ def _check_burgers_layouts(params, X, lb, ub):
     and twice bitwise equal, launched twice each; the two bitwise equal
     (one eval kernel, the same sums in the same order, only the loads
     differ)."""
-    n0 = dict(rs.launches)
+    n0 = trace.counters()
     outs = {}
     for name in BURGERS_LAYOUTS:
         got = getattr(rs, name)(params, X, lb, ub, NU)
@@ -617,7 +619,7 @@ def _check_burgers_layouts(params, X, lb, ub):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
         assert torch.equal(got, again)
         outs[name] = got
-    assert _launched(rs, n0, *BURGERS_LAYOUTS) == (2, 2)
+    assert _launched(n0, *BURGERS_LAYOUTS) == (2, 2)
     assert torch.equal(*outs.values())
 
 
@@ -656,12 +658,12 @@ def test_burgers_residual_block_rule_edge(past, box):
 def test_schrodinger_residual_kernel_matches_plain(layers, n):
     lbs, ubs = np.array([-5.0, 0.0], np.float32), np.array([5.0, np.pi / 2], np.float32)
     params, X = _residual_case(layers, n, lbs, ubs, seed=n)
-    n0 = dict(rs.launches)
+    n0 = trace.counters()
     got = torch.cat(rs.schrodinger_residual(params, X, lbs, ubs), dim=1)
     again = torch.cat(rs.schrodinger_residual(params, X, lbs, ubs), dim=1)
     want = torch.cat(rs.schrodinger_residual_plain(params, X, lbs, ubs), dim=1)
     torch.cuda.synchronize()
-    assert _launched(rs, n0, "schrodinger_residual") == (2,)
+    assert _launched(n0, "schrodinger_residual") == (2,)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-6)
     assert torch.equal(got, again)
 
@@ -734,12 +736,13 @@ def test_navierstokes_loss_grad_on_card_matches_cpu():
         X, X_f = (lb + (ub - lb) * rng.rand(n, 3) for n in (2000, 3000))
         u, v = rng.randn(2000, 1), rng.randn(2000, 1)
         leaves = [a.requires_grad_(True) for a in pcodec.leaves(params)]
-        n0 = {**ft.launches, **fs.launches, **rs.launches}
+        n0 = trace.counters()
         loss = ns.loss_identification(params, t(X), t(u), t(v), t(lb), t(ub),
                                       X_f=t(X_f))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        assert {**ft.launches, **fs.launches, **rs.launches} == n0
+        assert not [k for k in trace.delta(n0, trace.counters())
+                    if k.startswith("launch.")]
         if dev == "cuda":
             assert loss.is_cuda and all(a.is_cuda for a in leaves + list(grads))
         outs[dev] = [loss.detach().cpu()] + [g.cpu() for g in grads]

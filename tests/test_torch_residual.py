@@ -17,6 +17,7 @@ import torch
 from pinn.ops import pallas_residual
 from pinn_torch.ops import residual
 from pinn_torch.problems import burgers, schrodinger
+from pinn_torch.utils import trace
 from pinn_torch.utils.checkpoint import params_from_numpy
 
 torch.set_num_threads(1)
@@ -151,6 +152,8 @@ def test_wrappers_take_float32_only_and_check_shapes():
         residual.burgers_residual_fmajor(p32, torch.zeros(3, 3), LB, UB, 0.01)
     with pytest.raises(ValueError, match="2 output"):
         residual.schrodinger_residual(p32, torch.as_tensor(X), LB, UB)
-    before = dict(residual.launches)
+    before = trace.counters()
     residual.burgers_residual(p32, torch.as_tensor(X), LB, UB, 0.01)
-    assert residual.launches == before   # the plain version counts nothing
+    # the plain version counts no launch
+    assert not [k for k in trace.delta(before, trace.counters())
+                if k.startswith("launch.")]
