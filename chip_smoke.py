@@ -74,6 +74,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    pool and on the grid, and of the Schrödinger one on its grid, with
    its rounds of persistent tiles and the device ms of its last,
    partly full round.
+3f. The L-BFGS two-loop kernel (``lbfgs_two_loop``,
+   ``pinn_torch/csrc/lbfgs_direction.cu``) against the eager
+   ``_two_loop`` on the same ring, at P = 30,802 (Schrödinger [2,
+   100x4, 2]) and 3,021 (Burgers [2, 20x8, 1]), k = m = 50, float64 and
+   float32 (and bfloat16 at P = 3,021): the largest difference over the
+   largest entry, two launches bitwise equal, each counted; the
+   median ms a call by CUDA events and the host ms a call of both; the
+   kernel's device ms (profiler) and its bound (each ring row read
+   once, since both rings fit in the 50 MB L2 and the second loop
+   re-reads the rows the first just read, with g and the direction:
+   (2 k + 2) P elements over 3.35 TB/s); ptxas's lines; and the sweep of
+   the cluster size C (1-16) at each P and type, beside the C that
+   ``cluster_size`` picks.  The P = 30,802 float64 case (4c's) is the
+   kernel's line in the ``kernels`` table.
 4. Burgers inference main path: ``pinn_torch.experiments
    .inf_cont_burgers.run`` twice at the flagship width, a fused float32
    stage (Adam, then mixed-precision L-BFGS with a Wolfe search and
@@ -112,7 +126,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (pt_tile_eval_kernel) on its grid, under the nets trained in 4 and
    4c, against the eager residuals.
 4k-4n. The discrete-time IRK families at full width, on the eager
-   loss (no hand-written kernel; every launch count must stay 0), each
+   loss (no hand-written loss kernel; no loss or residual launch count
+   may move; the L-BFGS two-loop kernel launches in 4n's ``scan``
+   L-BFGS, once an iteration but the first of each history, and
+   never in the ``matrix`` stages of 4k-4m), each
    with its parameters on the card: 4k ``inf_disc_burgers.run`` at [1,
    50x3, 501], q = 500, N_n = 250; 4l ``ide_disc_burgers.run`` at [1,
    50x3, 81], q = 81, N_0 = 199, N_1 = 201, clean and noisy cases; 4m
@@ -204,8 +221,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    processes.
 Each main path runs with every launch count set to 0 just before its
 fused stage; every kernel of the path must have launched by its end
-(4k-4o: none may have), the logged loss must fall and every reported
-number must be finite.
+(4k-4o: no loss or residual kernel may have, and the two-loop kernel
+only where a ``scan`` L-BFGS runs), the logged loss must fall and
+every reported number must be finite.
 
 Bounds.  Each kernel's ``bound_ms`` is the larger of its bytes (inputs
 read once, outputs written once) over the card's 3.35 TB/s and its
@@ -298,6 +316,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "burgers_residual_fmajor": (RESIDUAL_SRC,
                                 "pinn/ops/pallas_residual.py:107"),
     "schrodinger_residual": (RESIDUAL_SRC, "pinn/ops/pallas_residual.py:248"),
+    # JAX's _two_loop is a lax loop that XLA compiles: no TPU kernel.
+    "lbfgs_two_loop": ("pinn_torch/csrc/lbfgs_direction.cu", "none"),
 }
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12             # float32 outside the tensor cores
@@ -1029,6 +1049,122 @@ def _rates(timing, adam_steps):
     return adam_steps / timing["adam_s"], timing["lbfgs_iters"] / timing["lbfgs_s"]
 
 
+def _quadratic_ring(p, m, k, head, dtype, seed):
+    """A history ring on the card as L-BFGS fills it on a quadratic with
+    a diagonal Hessian in [0.5, 2]: k pairs (s, y = H s) in ring order,
+    the other rows noise the direction must not read; g, and hdiag =
+    y.s / y.y of the newest pair."""
+    import torch
+    rng = np.random.RandomState(seed)
+    h = rng.uniform(0.5, 2.0, p)
+    S, Y = rng.randn(m, p), rng.randn(m, p)
+    for j in range(k):
+        row = (head - k + j) % m
+        Y[row] = h * S[row]
+    newest = (head - 1) % m
+    hdiag = S[newest] @ Y[newest] / (Y[newest] @ Y[newest]) if k else 1.0
+    return tuple(torch.as_tensor(a, dtype=dtype, device="cuda")
+                 for a in (rng.randn(p), S, Y, np.float64(hdiag)))
+
+
+def _host_ms(fn, reps=20):
+    """Host ms a call of ``fn`` (the enqueue, with the device drained
+    before each call)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def phase_lbfgs_direction(stats: dict) -> None:
+    """3f: the L-BFGS two-loop kernel against the eager recursion."""
+    import torch
+    from pinn_torch.ops import lbfgs_direction as ld
+    from pinn_torch.optim import lbfgs as lb
+    from pinn_torch.utils import trace
+
+    m = k = 50
+    head = 17
+    rtol = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 5e-2}
+    cases = [(30802, torch.float64), (30802, torch.float32),
+             (3021, torch.float64), (3021, torch.float32),
+             (3021, torch.bfloat16)]
+    for bf16 in (False, True):
+        for line in _ptxas_lines("lbfgs_two_loop_kernel", bf16):
+            log(f"[3f ptxas] {'bfloat16' if bf16 else 'float32, float64'}: "
+                f"{line}")
+    rows = []
+    for p, dtype in cases:
+        g, S, Y, hdiag = _quadratic_ring(p, m, k, head, dtype, seed=p)
+        ring = (g, S, Y, k, head, hdiag, m)
+        want = lb._two_loop(*ring)
+        before = trace.counters()
+        got = ld.two_loop(*ring)
+        again = ld.two_loop(*ring)
+        torch.cuda.synchronize()
+        launches = trace.delta(before, trace.counters()).get(
+            "launch.lbfgs_two_loop", 0)
+        err = float((got - want).abs().max() / want.abs().max())
+        if not torch.equal(got, again) or launches != 2 or not err <= rtol[dtype]:
+            raise AssertionError(
+                f"3f P={p} {dtype}: error {err:.3e} (bar {rtol[dtype]}), "
+                f"bitwise {torch.equal(got, again)}, launches {launches}")
+        item = torch.finfo(dtype).bits // 8
+        bound_ms = 1e3 * (2 * k + 2) * p * item / HBM_BYTES_PER_S
+        row = {"P": p, "dtype": str(dtype), "k": k, "m": m,
+               "cluster": ld.cluster_size(p), "max_rel_err": err,
+               "max_abs_err": float((got - want).abs().max()),
+               "ms": _median_ms(lambda: ld.two_loop(*ring)),
+               "eager_ms": _median_ms(lambda: lb._two_loop(*ring), reps=10),
+               "host_ms": _host_ms(lambda: ld.two_loop(*ring)),
+               "eager_host_ms": _host_ms(lambda: lb._two_loop(*ring), reps=5),
+               "device_ms": _device_ms(lambda: ld.two_loop(*ring)).get(
+                   "lbfgs_two_loop_kernel"),
+               "bound_ms": bound_ms, "sweep_ms": {}}
+        for c in range(1, ld.MAX_CLUSTER + 1):
+            d = ld._launch(g, S, Y, k, head, hdiag, m, c)
+            torch.cuda.synchronize()
+            err_c = float((d - want).abs().max() / want.abs().max())
+            if not err_c <= rtol[dtype]:
+                raise AssertionError(f"3f P={p} {dtype} C={c}: error {err_c:.3e}")
+            row["sweep_ms"][c] = _median_ms(
+                lambda: ld._launch(g, S, Y, k, head, hdiag, m, c), reps=30)
+        log(f"[3f] P={p} {dtype}: C={row['cluster']}, error {err:.3e}, "
+            f"kernel {row['ms']:.4f} ms (device {row['device_ms']}, bound "
+            f"{bound_ms:.4f}), host {row['host_ms']:.4f} ms; eager "
+            f"{row['eager_ms']:.3f} ms, host {row['eager_host_ms']:.3f} ms; "
+            "sweep " + ", ".join(f"C={c} {t:.4f}"
+                                 for c, t in row["sweep_ms"].items()))
+        rows.append(row)
+        if (p, dtype) == (30802, torch.float64):
+            stats["lbfgs_two_loop"] = dict(
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["eager_ms"], bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None)
+    print(json.dumps({"lbfgs_two_loop": rows}), flush=True)
+
+
+def _expect_no_loss_launches(tag, scan: bool) -> None:
+    """No fused-loss or residual kernel launched since
+    :func:`_reset_counts`; the L-BFGS two-loop kernel launched once an
+    iteration but the first of each history where ``scan`` (a ``scan``
+    L-BFGS ran on the card), else never."""
+    from pinn_torch.utils import trace
+    _expect_counts(tag, {name: 0 for name in _counts()
+                         if name != "lbfgs_two_loop"})
+    launches = _counts()["lbfgs_two_loop"]
+    iters = trace.delta(_COUNT_BASE, trace.counters()).get("lbfgs.iters", 0)
+    if not ((0 < launches < iters) if scan else launches == 0):
+        raise AssertionError(f"{tag}: {launches} two-loop launches in "
+                             f"{iters} L-BFGS iterations "
+                             f"({'scan' if scan else 'matrix'})")
+
+
 def phase_main_path() -> dict:
     """4: two stages of the Burgers inference recipe."""
     import torch
@@ -1162,7 +1298,8 @@ def phase_schrodinger_main_path() -> dict:
     r1 = inf_cont_schrodinger.run(stage1)
     torch.cuda.synchronize()
     s1_seconds = time.perf_counter() - t0
-    launches = _read_counts(["schrodinger_sse_grad", "schrodinger_sse"])
+    launches = _read_counts(["schrodinger_sse_grad", "schrodinger_sse",
+                             "lbfgs_two_loop"])
     log(f"[schrodinger] stage 1 launches: {launches}")
     TRAINED["schrodinger"] = r1["params"]
 
@@ -1577,10 +1714,12 @@ def phase_residual_diagnostics() -> dict:
     return launches
 
 
-def _disc_stages(tag, run, stages, layers):
+def _disc_stages(tag, run, stages, layers, scan=False):
     """Run one eager family's stages in order at full width (the
     discrete-time IRK families, Navier–Stokes: these paths launch no
-    hand-written kernel, so every count stays 0); each stage's
+    hand-written loss or residual kernel, so those counts stay 0, and
+    the two-loop kernel only where ``scan``, an L-BFGS stage with the
+    ``scan`` direction, runs); each stage's
     parameters on the card, its logged losses falling and every value
     finite.  ``layers`` is the full width the run must have taken (the
     output width set to q).  Prints the error (rel-L2, or the lambda
@@ -1636,7 +1775,7 @@ def _disc_stages(tag, run, stages, layers):
         for net in nets:
             values += _param_maxes(net)
         results.append(r)
-    _expect_counts(tag, {name: 0 for name in _counts()})
+    _expect_no_loss_launches(tag, scan)
     _check_finite(values)
     return results
 
@@ -1670,7 +1809,8 @@ def phase_disc_main_paths() -> dict:
     _disc_stages("4m allen-cahn", inf_disc_allencahn.run,
                  _disc_hp("allencahn"), [1, 200, 200, 200, 200, 101])
     _disc_stages("4n kdv", ide_disc_kdv.run,
-                 _disc_hp("kdv", two_stages=False), [1, 50, 50, 50, 50])
+                 _disc_hp("kdv", two_stages=False), [1, 50, 50, 50, 50],
+                 scan=True)
     return {}
 
 
@@ -1820,7 +1960,7 @@ def phase_traced_main_paths() -> None:
                 for k in ("pt_narrow", "pt_tile", "pt_reduce")}
         if any(ours.values()):
             raise AssertionError(f"{tag}: our kernels in the trace: {ours}")
-        _expect_counts(tag, {name: 0 for name in _counts()})
+        _expect_no_loss_launches(tag, scan=False)
 
 
 def phase_custom_pde() -> None:
@@ -2133,7 +2273,9 @@ def phase_tensor_parallel() -> None:
     and gradients at full width against the unsharded loss, (b) a
     Trainer run on TP parameters beside the unsharded run, (c) the
     flagship with ``dtype: "bfloat16"``, (d) the dry run with its TP+DP
-    leg.  No kernel of ours may launch."""
+    leg.  No loss or residual kernel of ours may launch in (a)-(c), and
+    the L-BFGS two-loop kernel only in the ``scan`` L-BFGS of (b) and
+    (c)."""
     import torch
     from pinn_torch import graft_entry
     from pinn_torch.experiments import inf_cont_burgers
@@ -2180,6 +2322,7 @@ def phase_tensor_parallel() -> None:
             + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
                         for k, v in ms.items()))
         _check_finite([float(got), *[t for v in ms.values() for t in v]])
+    _expect_counts("4u (a)", {name: 0 for name in _counts()})
 
     # (b) The Trainer on TP parameters, Adam 50 + L-BFGS 20, beside the
     # unsharded run from the same weights and points.
@@ -2228,7 +2371,7 @@ def phase_tensor_parallel() -> None:
     if dtypes != {"torch.bfloat16"}:
         raise AssertionError(f"4u bf16: parameters in {dtypes}")
     _check_finite([r["error"], adam_rate])
-    _expect_counts("4u (a)-(c)", {name: 0 for name in _counts()})
+    _expect_no_loss_launches("4u (b)-(c)", scan=True)
 
     # (d) The dry run: eager DP, fused DP, TP+DP (2x2) and two processes.
     _reset_counts()
@@ -2275,6 +2418,7 @@ def main() -> int:
     phase_schrodinger_kernels(stats)
     phase_bf16_kernels(stats)
     phase_v1_kernels(stats)
+    phase_lbfgs_direction(stats)
     t1 = time.perf_counter()
     launches = {**phase_main_path(), **phase_ide_main_path(),
                 **phase_schrodinger_main_path(), **phase_bf16_main_path(),

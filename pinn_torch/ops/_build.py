@@ -64,6 +64,9 @@ _F32_SIGNATURES = {
 }
 SIGNATURES = {
     "burgers_train_sizes": [_IP, _I, _IP, _IP],
+    # lbfgs_direction.cu: g, S, Y, hdiag, out, P, m, k, head, elem,
+    # cluster, stream.
+    "lbfgs_two_loop": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "schrodinger_train_sizes": [_IP, _I, _IP, _IP],
     **{name + sfx: sig for name, sig in _KERNEL_SIGNATURES.items()
        for sfx in ("", "_bf16")},

@@ -7,6 +7,9 @@ scaling ``H0 = y·s / y·y``, first step ``t = min(1, 1 / Σ|g|)``, the
 ``none``/``armijo``/``wolfe`` step rules, restart on a non-descent
 direction, the same stopping rules and reason codes, and the ``scan``
 (literal two-loop) and ``matrix`` (triangular-solve) direction forms.
+On CUDA tensors the ``scan`` direction is one launch of a hand-written
+kernel (``pinn_torch.ops.lbfgs_direction``), on CPU tensors the eager
+recursion.
 
 Where the JAX version is one compiled ``lax.while_loop`` with masked
 fixed-shape branches, this one is an ordinary loop: each branch is an
@@ -38,6 +41,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pinn_torch.ops.lbfgs_direction import check_args, two_loop
 from pinn_torch.utils import trace
 
 # Termination reason codes (state.reason)
@@ -187,10 +191,17 @@ def _two_loop_matrix(g, S, Y, k, head, hdiag, m):
 
 
 def _direction(config: LbfgsConfig, g, S, Y, k, head, hdiag, m):
+    """The search direction from the ring; ``scan`` on CUDA tensors is
+    one launch of ``pinn_torch.ops.lbfgs_direction.two_loop`` (which
+    checks its arguments and raises where it cannot launch), on CPU
+    tensors :func:`_two_loop`."""
+    if config.dir_impl not in ("scan", "matrix"):
+        raise ValueError(f"unknown dir_impl {config.dir_impl!r}")
+    if config.dir_impl == "scan" and g.device.type == "cuda":
+        return two_loop(g, S, Y, k, head, hdiag, m)
+    check_args(g, S, Y, k, head, hdiag, m)
     if config.dir_impl == "matrix":
         return _two_loop_matrix(g, S, Y, k, head, hdiag, m)
-    if config.dir_impl != "scan":
-        raise ValueError(f"unknown dir_impl {config.dir_impl!r}")
     return _two_loop(g, S, Y, k, head, hdiag, m)
 
 

@@ -137,6 +137,7 @@ def test_port_never_imports_jax():
             "import pinn_torch.datagen.navierstokes_exact\n"
             "import pinn_torch.ops.fused_train, pinn_torch.optim.lbfgs\n"
             "import pinn_torch.ops.fused_schrodinger, pinn_torch.ops.residual\n"
+            "import pinn_torch.ops.lbfgs_direction\n"
             "import pinn_torch.api, pinn_torch.ensemble, pinn_torch.export\n"
             "import pinn_torch.dtypes\n"
             "import pinn_torch.parallel, pinn_torch.parallel.distributed\n"
