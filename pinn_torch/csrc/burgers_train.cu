@@ -207,9 +207,26 @@ int burgers_train_sizes(const int* widths, int n_layers, int* n_weights,
   return pt_sizes(widths, n_layers, 1, BURGERS_MAX_WIDTH, n_weights, ws_rows);
 }
 
+// The floats of scratch that the partials' sum (pt_mlp.cuh's pt_reduce)
+// needs after rows x n_cols partials; every wrapper's partials buffer
+// holds them.
+int pt_reduce_scratch(int rows, int n_cols) {
+  return (int)pt_reduce_scratch_floats(rows, n_cols);
+}
+
+// pt_reduce on its own, as every entry runs it: out[p] = the sum of
+// column p of partials (rows x n_cols floats, then pt_reduce_scratch
+// floats of scratch).
+int pt_reduce_rows(float* partials, int rows, int n_cols, float* out,
+                   void* stream) {
+  return pt_reduce(partials, rows, n_cols, out, (cudaStream_t)stream);
+}
+
 // Loss and all gradients.  ws: ws_rows * (n_tiles * 32) floats (bf16
-// values for the _bf16 entry); partials: n_tiles * (1 + n_weights);
-// out: 1 + n_weights, where n_tiles = ceil(n_pts / 32).
+// values for the _bf16 entry); partials: n_tiles * (1 + n_weights),
+// then the reduction's scratch (pt_reduce_scratch); out: 1 + n_weights,
+// where n_tiles = ceil(n_pts / 32).  Every partials buffer below is
+// followed by that scratch.
 int burgers_loss_grad(const float* a0, const float* aux, const float* wpack,
                       const int* widths, int n_layers, int n_pts, float nu,
                       float* ws, float* partials, float* out, void* stream) {

@@ -100,9 +100,9 @@
 //     column sums of gz_1 and gz_2.
 // Each point's forward and head are the same expressions in both loss
 // kernels, each tile's loss the same pt_warp_sum, and pt_reduce sums
-// the tiles in row order, so the loss of the two kernels is the same
-// bit for bit on the same head; the block size changes the order of no
-// sum.  The eval kernel's forward makes the same sums in the same order
+// the tiles in a tree fixed by their count, so the loss of the two
+// kernels is the same bit for bit on the same head; the block size
+// changes the order of no sum.  The eval kernel's forward makes the same sums in the same order
 // whatever its input policy, so the two Burgers residual layouts give
 // the same values bit for bit on the same points and weights.
 // Every gradient is a fixed-order sum (the four stream parts added in
@@ -757,10 +757,10 @@ int pt_narrow_plan(const int* widths, int n_layers, int n_out, int max_width,
 
 // Loss, every gradient and the head's extras, through the narrow kernel
 // at hidden width <= W.  ws: ws_rows * n_tiles * 32 values of S;
-// partials: n_tiles * (1 + n_weights + kExtra) floats; out: 1 +
-// n_weights + kExtra floats, n_tiles = ceil(n_pts / 32).  A launch the
-// card refuses (shared memory, threads) returns its error; there is no
-// fallback.
+// partials: n_tiles * (1 + n_weights + kExtra) floats and pt_reduce's
+// scratch; out: 1 + n_weights + kExtra floats, n_tiles = ceil(n_pts /
+// 32).  A launch the card refuses (shared memory, threads) returns its
+// error; there is no fallback.
 template <class Head, int W, class S>
 int pt_narrow_launch_loss_grad(const int* widths, int n_layers,
                                const float* a0, const float* wpack, int n_pts,

@@ -71,12 +71,12 @@
 // Partials without atomics.  Block b owns row b of partials [grid, 1 +
 // n_weights] (loss+grad) or [grid] (loss only): its first tile stores
 // its sums there, each later tile adds its own by read-add-write in the
-// block's fixed tile order, and pt_reduce sums the grid rows in row
-// order.  Every sum over points or streams inside a tile has a fixed
-// order too, so two launches on the same inputs and card give
-// bitwise-equal results, and the two kernels give the same loss bit for
-// bit when their grids are equal (at widths 100 and 128 both run one
-// block an SM).
+// block's fixed tile order, and pt_reduce sums the grid rows in a
+// tree fixed by their count.  Every sum over points or streams inside
+// a tile has a fixed order too, so two launches on the same inputs and
+// card give bitwise-equal results, and the two kernels give the same
+// loss bit for bit when their grids are equal (at widths 100 and 128
+// both run one block an SM).
 //
 // Precision: IEEE f32 (fmaf, tanhf), no TF32, no fast math; with S =
 // __nv_bfloat16 the roundings of pt_mlp.cuh's header, at the same
@@ -748,7 +748,8 @@ int pt_tile_plan(const int* widths, int n_layers, int n_out, int max_width,
 
 // Loss, every gradient, through the tiled kernel at hidden width <= W.
 // The buffers are pt_narrow_launch_loss_grad's (ws: ws_rows * n_rows *
-// 32 values of S; partials: n_rows * (1 + n_weights) floats, n_rows =
+// 32 values of S; partials: n_rows * (1 + n_weights) floats and
+// pt_reduce's scratch, n_rows =
 // ceil(n_pts / 32)).  A launch the card refuses (shared memory,
 // threads) returns its error; there is no fallback.
 template <class Head, int W, class S>
@@ -773,7 +774,7 @@ int pt_tile_launch_loss_grad(const int* widths, int n_layers, const float* a0,
 }
 
 // The loss alone, through the tiled kernel at hidden width <= W.
-// partials: n_rows floats; out: 1 float.
+// partials: n_rows floats and pt_reduce's scratch; out: 1 float.
 template <class Head, int W, class S>
 int pt_tile_launch_loss(const int* widths, int n_layers, const float* a0,
                         const float* wpack, int n_pts,

@@ -101,8 +101,9 @@ int schrodinger_train_sizes(const int* widths, int n_layers, int* n_weights,
 }
 
 // SSE and all gradients.  ws: ws_rows * (n_tiles * 32) floats (bf16
-// values for the _bf16 entry); partials: n_tiles * (1 + n_weights);
-// out: 1 + n_weights, where n_tiles = ceil(n_pts / 32).
+// values for the _bf16 entry); partials: n_tiles * (1 + n_weights),
+// then pt_reduce's scratch; out: 1 + n_weights, where n_tiles =
+// ceil(n_pts / 32).
 int schrodinger_sse_grad(const float* a0, const float* wpack,
                          const int* widths, int n_layers, int n_pts,
                          float* ws, float* partials, float* out,
@@ -123,7 +124,8 @@ int schrodinger_sse_grad_bf16(const float* a0, const float* wpack,
       partials, out, stream);
 }
 
-// SSE only.  partials: n_tiles floats; out: 1 float.
+// SSE only.  partials: n_tiles floats, then pt_reduce's scratch; out:
+// 1 float.
 int schrodinger_sse(const float* a0, const float* wpack, const int* widths,
                     int n_layers, int n_pts, float* partials, float* out,
                     void* stream) {

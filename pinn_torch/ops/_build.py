@@ -64,6 +64,9 @@ _F32_SIGNATURES = {
 }
 SIGNATURES = {
     "burgers_train_sizes": [_IP, _I, _IP, _IP],
+    # burgers_train.cu: the partials' sum (pt_mlp.cuh) and its scratch.
+    "pt_reduce_rows": [_P, _I, _I, _P, _P],
+    "pt_reduce_scratch": [_I, _I],
     # lbfgs_direction.cu: g, S, Y, hdiag, out, P, m, k, head, elem,
     # cluster, stream.
     "lbfgs_two_loop": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

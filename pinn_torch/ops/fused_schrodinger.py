@@ -16,7 +16,8 @@ Kernels (``pinn_torch/csrc/schrodinger_train.cu``, built by ``_build``):
 
 - ``schrodinger_sse_grad`` replaces ``_make_fwd_bwd_kernel`` (:95): the
   SSE, every weight gradient and the first layer's tangent-row adjoints
-  in one launch, plus a fixed-order reduction of the per-tile partials.
+  in one launch, plus a fixed-shape float64 tree sum of the per-block
+  partials (``pt_mlp.cuh``'s ``pt_reduce``).
 - ``schrodinger_sse`` replaces ``_fwd_kernel`` (:70): the SSE alone.
 - ``schrodinger_sse_grad_bf16`` and ``schrodinger_sse_bf16`` replace
   the same two with ``stream_dtype="bfloat16"`` (bf16 streams and saved

@@ -37,8 +37,8 @@ Kernels (``pinn_torch/csrc/burgers_train.cu``, built by ``_build``):
 
 - ``burgers_loss_grad`` replaces ``_make_train_kernel``
   (pinn/ops/pallas_train.py:524): loss, all dW/db and the first-layer
-  tangent-row adjoints in one launch, plus a fixed-order reduction of
-  the per-tile partials.
+  tangent-row adjoints in one launch, plus a fixed-shape float64 tree
+  sum of the per-tile partials (``pt_mlp.cuh``'s ``pt_reduce``).
 - ``burgers_loss`` replaces ``_fwd_train_kernel`` (:576): the loss alone.
 - ``burgers_ide_loss_grad`` replaces ``_make_ide_kernel`` (:847): as
   ``burgers_loss_grad``, plus A1 and A2.
@@ -552,13 +552,14 @@ def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
         def buf(size, dtype=torch.float32):
             return torch.empty(size, dtype=dtype, device=a0.device)
 
-        cols = 1 + n_weights + n_extra
-        if grads:   # saved activations, per-tile partials, their sums
+        cols = 1 + n_weights + n_extra if grads else 1
+        # per-tile partials with the scratch of their sum after them
+        partials = buf(rows * cols + lib.pt_reduce_scratch(rows, cols))
+        if grads:   # saved activations, partials, their sums
             ws_dtype = torch.bfloat16 if bf16 else torch.float32
-            bufs = (buf(ws_rows * rows * TILE, ws_dtype), buf(rows * cols),
-                    buf(cols))
-        else:       # per-tile partial losses, their sum
-            bufs = (buf(rows), buf(1))
+            bufs = (buf(ws_rows * rows * TILE, ws_dtype), partials, buf(cols))
+        else:       # partial losses, their sum
+            bufs = (partials, buf(1))
     with trace.span("loss.launch"), torch.cuda.device(a0.device):
         err = getattr(lib, name)(
             a0.data_ptr(), *(t.data_ptr() for t in lead), wpack.data_ptr(),

@@ -26,8 +26,12 @@ counts it as ``lbfgs.host_reads`` (``pinn_torch.utils.trace``): an
 Armijo iteration whose first trial is taken reads 7 (the memory's
 curvature guard, the descent test, the first Armijo test and the four
 convergence tests), a rejected first trial ``n_ls + 2`` more, the first
-iteration one fewer (no memory update) and ``lbfgs_init`` one.  Each
-iteration counts ``lbfgs.iters`` and runs in the span ``lbfgs.step``,
+iteration one fewer (no memory update) and ``lbfgs_init`` one.  A
+Wolfe search counts its trials after the first by the end of the
+bracket that moved: ``lbfgs.wolfe.expand`` where t doubled (no upper
+end yet), ``lbfgs.wolfe.bisect`` where t halved the bracket (each
+counter is touched, by 0 where nothing moved, in every Wolfe search).
+Each iteration counts ``lbfgs.iters`` and runs in the span ``lbfgs.step``,
 with ``lbfgs.memory``, ``lbfgs.direction``, ``lbfgs.search`` (the loss
 calls nested) and ``lbfgs.checks`` inside; ``lbfgs_init`` runs in
 ``lbfgs.init``.
@@ -242,16 +246,21 @@ def _search(opfunc: OpFunc, lossfunc: LossFunc, config: LbfgsConfig,
         f_t, g_t = opfunc(x + t * d, batch)
         lo = torch.zeros((), dtype=x.dtype, device=x.device)
         hi = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
-        n = 1
+        n, expand = 1, 0
         while n < config.ls_backtracks:
             armijo = _read(f_t <= f + c1 * t * gtd)
             if armijo and _read(torch.dot(g_t, d) >= c2 * gtd):
                 break
             hi = hi if armijo else t
             lo = t if armijo else lo
-            t = 2.0 * lo if _read(torch.isinf(hi)) else 0.5 * (lo + hi)
+            if _read(torch.isinf(hi)):
+                t, expand = 2.0 * lo, expand + 1
+            else:
+                t = 0.5 * (lo + hi)
             f_t, g_t = opfunc(x + t * d, batch)
             n += 1
+        trace.count("lbfgs.wolfe.expand", expand)
+        trace.count("lbfgs.wolfe.bisect", n - 1 - expand)
         fail = _read(f_t > f + c1 * t * gtd)
         return t, f_t, g_t, n, fail
 
@@ -328,11 +337,17 @@ def _step(opfunc: OpFunc, config: LbfgsConfig, state: LbfgsState,
         S=S, Y=Y, hdiag=hdiag, k=k, head=head, n_iter=state.n_iter + 1,
         n_evals=n_evals, reason=reason)
     if no_progress or non_finite:
-        # Keep the old iterate; zero the rejected step so the next
-        # memory update sees s = 0 and its curvature guard rejects it.
+        # Keep the old iterate; zero the rejected step (t = 0) so the
+        # next memory update sees s = 0 and its curvature guard rejects
+        # it.  d stays the two-loop direction of the state's g_old and
+        # history: the direction tried, or after a soft restart -g, the
+        # cleared history's.  A departure from the JAX package, which
+        # zeroes d and keeps the older g_old; with s = 0 no later step
+        # reads either, so iterates, losses, counts and reasons are the
+        # JAX package's.
         new_state = replace(new_state, x=state.x, f=state.f, g=state.g,
-                            f_old=state.f_old, g_old=state.g_old,
-                            d=torch.zeros_like(d), t=torch.zeros_like(t))
+                            f_old=state.f_old, t=torch.zeros_like(t),
+                            d=-state.g if soft_restart else d)
     return new_state
 
 

@@ -61,6 +61,11 @@ A loss's backward runs outside ``pinn_torch.loss``: under
 ``pinn_torch.adam.step`` in Adam, under ``pinn_torch.lbfgs.search`` or
 ``pinn_torch.lbfgs.init`` in L-BFGS.
 
+The counters (``pinn_torch.utils.trace.counters``, always on) beside
+them: ``lbfgs.host_reads`` and ``lbfgs.iters``; ``lbfgs.wolfe.expand``
+and ``lbfgs.wolfe.bisect``, the Wolfe search's trials after the first,
+by whether t doubled or halved the bracket; ``launch.<entry>``.
+
 ``mesh`` (a ``pinn_torch.parallel`` mesh), as the JAX Trainer's: the
 parameters and the batch are placed on the mesh's first device, and
 again after every resampling.  The loss does the sharding itself

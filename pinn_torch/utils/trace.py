@@ -20,9 +20,11 @@ the port marks its own layers.
 Names: the first component is the layer (``adam``, ``lbfgs``,
 ``loss``, ``trainer``); ``pinn_torch/train.py``'s docstring lists the
 spans, and the counters are ``lbfgs.host_reads`` (each device value
-L-BFGS reads on the host), ``lbfgs.iters`` and ``launch.<entry>`` (the
-CUDA launches of each C entry point of ``pinn_torch.ops``).  Nothing is
-written to disk here.
+L-BFGS reads on the host), ``lbfgs.iters``, ``lbfgs.wolfe.expand`` and
+``lbfgs.wolfe.bisect`` (a Wolfe search's trials after the first, where
+t doubled because the bracket had no upper end yet, and where t halved
+the bracket) and ``launch.<entry>`` (the CUDA launches of each C entry
+point of ``pinn_torch.ops``).  Nothing is written to disk here.
 """
 
 from __future__ import annotations

@@ -93,6 +93,15 @@ NARROW_EDGES = [
 ]
 
 
+# Sizes at which pt_reduce (pt_mlp.cuh) sums the partials in more than
+# one pass: the inference flagship at N_f = 1,000,000 (31,254 rows, two
+# passes) and at 2,100,000 (65,629 rows, three).
+REDUCE_PASSES = [
+    (FLAGSHIP, 100, 1000000, None),
+    (FLAGSHIP, 100, 2100000, None),
+]
+
+
 def _flat(out):
     loss, gwt, gz1, gz2 = out
     return [loss.reshape(1)] + [g.reshape(-1) for g in (*gwt, gz1, gz2)]
@@ -136,13 +145,13 @@ def test_kernels_match_plain(layers, n_u, n_f, n):
 @pytest.mark.parametrize("layers,n_u,n_f,n", [
     (FLAGSHIP, 100, 10000, None),
     (FLAGSHIP, 100, 1948, None),
-] + NARROW_EDGES)
+] + NARROW_EDGES + REDUCE_PASSES)
 def test_inference_loss_only_is_the_loss_grad_loss_bitwise(layers, n_u, n_f,
                                                            n, bf16):
-    """At [2, 20x8, 1] (N = 10,100 and 2,048) and at the narrow kernels'
-    edges burgers_loss's loss is burgers_loss_grad's bit for bit: the
-    L-BFGS line search compares loss-only trials with loss+grad
-    values."""
+    """At [2, 20x8, 1] (N = 10,100 and 2,048), at the narrow kernels'
+    edges and where the partials' sum takes two and three passes
+    burgers_loss's loss is burgers_loss_grad's bit for bit: the L-BFGS
+    line search compares loss-only trials with loss+grad values."""
     params, batch = _case(layers, n_u, n_f, seed=len(layers) + n_f + 3,
                           device="cuda")
     args = _kernel_args(params, batch, n)
@@ -249,9 +258,11 @@ def test_ide_kernels_match_plain(layers, n, l1, logl2):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("layers,n", [(FLAGSHIP, 2000)] + IDE_EDGES)
+@pytest.mark.parametrize("layers,n", [(FLAGSHIP, 2000), (FLAGSHIP, 300000)]
+                         + IDE_EDGES)
 def test_ide_loss_only_is_the_loss_grad_loss_bitwise(layers, n, bf16):
-    """At [2, 20x8, 1] (N = 2,000) and at the narrow kernels' edges
+    """At [2, 20x8, 1] (N = 2,000, and 300,000: a two-pass sum of the
+    partials) and at the narrow kernels' edges
     burgers_ide_loss's loss is burgers_ide_loss_grad's bit for bit: both
     narrow kernels evaluate the identification head alike."""
     args = _ide_args(layers, n, 1.3, -4.0, seed=len(layers) + n + 3)
@@ -502,9 +513,10 @@ def test_sse_kernels_match_plain(layers, n):
     assert torch.equal(loss_only.reshape(1), got[0])
 
 
-@pytest.mark.parametrize("n", [10000, 316 * 32 + 7])
+@pytest.mark.parametrize("n", [10000, 316 * 32 + 7, 2100000])
 def test_sse_loss_only_is_the_loss_grad_loss_bitwise(n):
-    """At [2, 20x8, 1] (N = 10,000 and 10,119) burgers_sse's SSE is
+    """At [2, 20x8, 1] (N = 10,000, 10,119 and 2,100,000: a three-pass
+    sum of the partials) burgers_sse's SSE is
     burgers_sse_grad's bit for bit: both narrow kernels run one forward
     and sum each tile and the tiles in one order."""
     args = _sse_args(FLAGSHIP, n, seed=n + 3)
@@ -750,3 +762,96 @@ def test_navierstokes_loss_grad_on_card_matches_cpu():
     gmax = max(float(g.abs().max()) for g in outs["cpu"][1:])
     for a, b in zip(outs["cuda"][1:], outs["cpu"][1:]):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12 * gmax)
+
+
+# ---------------------------------------------------------------------------
+# The partials' sum (pt_mlp.cuh pt_reduce) and the flagship at N_f = 1M
+# ---------------------------------------------------------------------------
+
+def _reduce(partials, rows, cols):
+    """``pt_reduce_rows`` on the first rows x cols floats of
+    ``partials``, whose scratch follows them."""
+    from pinn_torch.ops import _build
+    lib = _build.library().lib
+    out = torch.empty(cols, device="cuda")
+    err = lib.pt_reduce_rows(partials.data_ptr(), rows, cols, out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "pt_reduce_rows")
+    return out
+
+
+@pytest.mark.parametrize("rows,cols", [
+    (1, 1), (31, 3), (255, 1), (257, 3062), (9375, 3064), (31254, 3062),
+    (65537, 5), (70001, 1),
+])
+def test_reduce_is_a_float64_sum_rounded_once(rows, cols):
+    """pt_reduce over row counts that are neither powers of two nor
+    multiples of its 256-row chunk (one, two and three passes): each
+    column is the float64 sum rounded to float32, within two roundings
+    of float32 and float64's own over the rows, and two calls are bitwise
+    equal.  The scratch the wrapper sizes with pt_reduce_scratch is
+    enough: a guard after it stays untouched.  Values of both signs and
+    of a positive mean, as a loss's tile sums are."""
+    from pinn_torch.ops import _build
+    lib = _build.library().lib
+    g = torch.Generator(device="cuda").manual_seed(rows * 7 + cols)
+    data = (torch.rand((rows, cols), generator=g, device="cuda") - 0.25) \
+        * torch.exp(4.0 * torch.rand((rows, cols), generator=g, device="cuda"))
+    scratch = lib.pt_reduce_scratch(rows, cols)
+    guard = 4096
+    buf = torch.full((rows * cols + scratch + guard,), 7.0, device="cuda")
+    buf[:rows * cols] = data.reshape(-1)
+    first = _reduce(buf, rows, cols)
+    second = _reduce(buf, rows, cols)
+    want = data.double().sum(0)
+    size = data.double().abs().sum(0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.all(buf[rows * cols + scratch:] == 7.0)
+    gap = (first.double() - want).abs()
+    assert torch.all(gap <= 2.0 ** -24 * want.abs() + 1e-14 * size), \
+        float((gap / want.abs()).max())
+
+
+def _flagship_1m(seed):
+    params, batch = _case(FLAGSHIP, 100, 1000000, seed=seed, device="cuda")
+    return params, batch, {"lb": LB, "ub": UB, "nu": NU}
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_flagship_at_1m_within_the_cell_limits(seed):
+    """Row 1 through make_burgers_loss at the inference flagship's
+    N = 1,000,100 (N_u = 100, N_f = 1,000,000): the loss and every
+    gradient against the benchmark's float64 reference within the
+    limits of the cell ``burgers.adam.nf1m`` (``loss_gap``, ``grad_gap``
+    as ``portbench.judge`` reads them), and a second call bitwise equal.
+    An in-order float32 sum of the 31,254 tile partials misses the loss
+    by 1e-4 to 5e-4 at this size."""
+    import json
+    import os
+    from pinn_torch.params import leaves
+    from portbench.reference import burgers as reference
+    from portbench.reference import precision
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "limits",
+                           "burgers.adam.nf1m.json")) as fh:
+        limits = json.load(fh)
+    params, batch, const = _flagship_1m(seed)
+    net = [a.requires_grad_(True) for a in leaves(params)]
+    loss_fn = ft.make_burgers_loss(LB, UB, NU)
+    runs = []
+    for _ in range(2):
+        loss = loss_fn(params, batch)
+        runs.append([loss.detach()] + list(torch.autograd.grad(loss, net)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    ref, ref_grads = reference.loss_and_grad(
+        [a.detach().double() for a in net], batch, const, precision.FLOAT64)
+    loss_gap = abs(float(runs[0][0]) - float(ref)) / abs(float(ref))
+    norms = [float(torch.linalg.vector_norm(g)) for g in ref_grads]
+    got = [float(torch.linalg.vector_norm(g.double())) for g in runs[0][1:]]
+    floor = float(np.median(norms))
+    grad_gap = max(abs(a - b) / max(b, floor) for a, b in zip(got, norms))
+    assert loss_gap <= limits["loss_gap"], loss_gap
+    assert grad_gap <= limits["grad_gap"], grad_gap

@@ -135,6 +135,40 @@ def test_early_stop_on_converged_start():
     assert state.reason == lb.GRAD_TOL and state.n_iter == 0
 
 
+@pytest.mark.parametrize("line_search", ["armijo", "wolfe"])
+def test_rejected_step_keeps_its_direction(line_search):
+    """A search that finds no sufficient decrease stops the run
+    (NO_PROGRESS) at the old iterate with t = 0, and the state holds the
+    direction it tried with the gradient and history it came from: the
+    two-loop from (g_old, S, Y) gives d again.  The loss is an
+    ill-conditioned quadratic for three evaluations and then reads 1e6
+    higher everywhere, so every trial of the third search fails."""
+    a = torch.tensor([1.0, 10.0, 100.0, 3.0], dtype=torch.float64)
+    calls = []
+
+    def opfunc(x, batch=None):
+        calls.append(1)
+        f = 0.5 * torch.dot(a * x, x) + (1e6 if len(calls) > 3 else 0.0)
+        return f, a * x
+
+    config = lb.LbfgsConfig(max_iter=10, n_correction=5,
+                            line_search=line_search)
+    x0 = torch.tensor([1.0, -2.0, 0.5, 3.0], dtype=torch.float64)
+    state = lb.lbfgs_init(opfunc, x0, config)
+    run = lb.make_lbfgs_run(opfunc, config)
+    state, _ = run(state, None, 2)
+    assert state.reason == lb.RUNNING and len(calls) == 3
+    x, g = state.x.clone(), state.g.clone()
+    state, _ = run(state, None, 1)
+    assert state.reason == lb.NO_PROGRESS and len(calls) > 4
+    assert torch.equal(state.x, x) and torch.equal(state.g, g)
+    assert float(state.t) == 0.0 and torch.equal(state.g_old, g)
+    want = lb._two_loop(state.g_old, state.S, state.Y, state.k, state.head,
+                        state.hdiag, config.n_correction)
+    assert float(torch.dot(want, want)) > 0.0
+    torch.testing.assert_close(state.d, want, rtol=1e-12, atol=0.0)
+
+
 def test_armijo_trials_use_lossfunc():
     """Rejected Armijo trials evaluate the loss alone."""
     calls = []
@@ -181,6 +215,75 @@ def test_trace_matches_jax(line_search, dir_impl):
         assert tstate.n_evals == int(jstate.n_evals), msg
         assert tstate.k == int(jstate.k), msg
         assert tstate.reason == int(jstate.reason), msg
+
+
+_DIAG = np.array([1.0, 10.0, 100.0, 3.0])
+
+
+def _trap(xp, where, case):
+    """A diagonal quadratic that changes inside the ball |x|^2 < 0.05,
+    which the iterates from [1, -2, 0.5, 3] enter at iteration 7.
+    ``rejected``: the gradient there points uphill, so the next search
+    finds no decrease.  ``soft_restart``: the loss drops by 1 there and
+    the gradient is 1e-12 a component, so the next direction is no
+    descent (g.d > -tol_x) with a full history."""
+    a = xp.asarray(_DIAG) if xp is jnp else torch.as_tensor(_DIAG)
+
+    def opfunc(x, batch=None):
+        f, g = 0.5 * xp.sum(a * x * x), a * x
+        inside = xp.sum(x * x) < 0.05
+        if case == "rejected":
+            return f, where(inside, -g, g)
+        return (where(inside, f - 1.0, f),
+                where(inside, 1e-12 * xp.ones_like(x), g))
+
+    return opfunc
+
+
+@pytest.mark.parametrize("case", ["rejected", "soft_restart"])
+@pytest.mark.parametrize("line_search", ["armijo", "wolfe"])
+def test_rejected_and_restarted_steps_match_jax(case, line_search):
+    """A rejected step (NO_PROGRESS after a failed search) and a soft
+    restart (non-descent with a history: cleared, still RUNNING) against
+    pinn.optim.lbfgs on x, f, g, n_iter, n_evals, k and reason at every
+    iteration.  The port's d stays the two-loop direction of its g_old
+    and history after every iteration, these two included, where the
+    JAX package's d is zero."""
+    kw = dict(max_iter=20, n_correction=5, line_search=line_search,
+              restart=True, tol_fun=1e-30)
+    x0 = np.array([1.0, -2.0, 0.5, 3.0])
+    jconf, tconf = jax_lb.LbfgsConfig(**kw), lb.LbfgsConfig(**kw)
+    jop, top = _trap(jnp, jnp.where, case), _trap(torch, torch.where, case)
+    jstate = jax_lb.lbfgs_init(jop, jnp.asarray(x0), jconf)
+    tstate = lb.lbfgs_init(top, torch.as_tensor(x0), tconf)
+    jrun = jax_lb.make_lbfgs_run(jop, jconf)
+    trun = lb.make_lbfgs_run(top, tconf)
+    events = []
+    while tstate.reason == lb.RUNNING and tstate.n_iter < 20:
+        k, n_evals = tstate.k, tstate.n_evals
+        jstate, _ = jrun(jstate, None, 1)
+        tstate, _ = trun(tstate, None, 1)
+        msg = f"iteration {tstate.n_iter}"
+        for got, want in ((tstate.x, jstate.x), (tstate.g, jstate.g)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-9, atol=1e-12, err_msg=msg)
+        np.testing.assert_allclose(float(tstate.f), float(jstate.f),
+                                   rtol=1e-9, err_msg=msg)
+        assert tstate.n_iter == int(jstate.n_iter), msg
+        assert tstate.n_evals == int(jstate.n_evals), msg
+        assert tstate.k == int(jstate.k), msg
+        assert tstate.reason == int(jstate.reason), msg
+        want = lb._two_loop(tstate.g_old, tstate.S, tstate.Y, tstate.k,
+                            tstate.head, tstate.hdiag, tconf.n_correction)
+        torch.testing.assert_close(tstate.d, want, rtol=1e-12, atol=0.0,
+                                   msg=msg)
+        rejected = tstate.reason == lb.NO_PROGRESS and tstate.n_evals > n_evals
+        restarted = tstate.reason == lb.RUNNING and k > 0 and tstate.k == 0
+        if rejected or restarted:
+            events.append("rejected" if rejected else "soft_restart")
+            assert float(jnp.abs(jstate.d).max()) == 0.0, msg
+            assert float(tstate.d.abs().max()) > 0.0, msg
+    assert events == [case]
 
 
 # ---------------------------------------------------------------------------

@@ -314,3 +314,40 @@ def test_tracing_changes_no_number():
     for k in ("x", "hist", "adam", "p"):
         assert torch.equal(a[k], b[k]), k
     assert (a["reason"], a["n"]) == (b["reason"], b["n"])
+
+
+def _quadratic(a, c):
+    """f(w) = a (w - c)^2 / 2 in one dimension, float64, and its
+    gradient."""
+    def opfunc(w, batch):
+        return 0.5 * a * torch.sum((w - c) ** 2), a * (w - c)
+    return opfunc
+
+
+@pytest.mark.parametrize("a,c,expand,bisect", [
+    # |g| = 100: t0 = 0.01 stops far short of the minimum, so the
+    # curvature test fails at t0, 0.02, 0.04, 0.08 and holds at 0.16.
+    (1.0, 100.0, 4, 0),
+    # |g| = 0.3: t0 = 1 overshoots threefold (f grows 4x), so hi = 1 and
+    # the bisected t = 0.5 meets both conditions.
+    (3.0, 0.1, 0, 1),
+])
+def test_wolfe_counters_count_each_bracket_move(a, c, expand, bisect):
+    """The first weak-Wolfe iteration on a one-dimensional quadratic
+    from 0, where t0 = min(1, 1/|g|): ``lbfgs.wolfe.expand`` counts the
+    trials where t doubled, ``lbfgs.wolfe.bisect`` those where it halved
+    the bracket, and their sum is the search's evaluations after the
+    first."""
+    from pinn_torch.optim import lbfgs as lb
+
+    opfunc = _quadratic(a, c)
+    config = lb.LbfgsConfig(max_iter=5, line_search="wolfe")
+    state = lb.lbfgs_init(opfunc, torch.zeros(1, dtype=torch.float64), config)
+    c0 = trace.counters()
+    state, _ = lb.make_lbfgs_run(opfunc, config)(state, None, 1)
+    moved = trace.delta(c0, trace.counters())
+    assert moved.get("lbfgs.wolfe.expand", 0) == expand
+    assert moved.get("lbfgs.wolfe.bisect", 0) == bisect
+    assert state.n_evals - 1 == 1 + expand + bisect
+    assert {"lbfgs.wolfe.expand",
+            "lbfgs.wolfe.bisect"} <= set(trace.counters())
