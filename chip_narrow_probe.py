@@ -20,16 +20,21 @@ at the facade's v1 SSE ([2, 20x8, 1], N = 10,000, the inputs of
 call launches (torch.profiler, 20 calls); so too for the residual
 evaluation (rows 9-11) at the inputs of phase 3e's times (both Burgers
 layouts on the 200,000-point pool, Schrödinger's on its grid) and rows 9
-and 10 also on the Burgers grid.  Rows 1, 1b, 3, 3b and 5 run
+and 10 also on the Burgers grid.  Row 1 runs
+``pt_narrow_rb.cuh``'s register-blocked kernel where the tree has it
+(float32 streams at hidden width 20), rows 1b, 3, 3b and 5
 ``pt_narrow.cuh``'s loss+grad kernel, rows 2, 2b, 4, 4b and 6 its
 loss-only kernel, rows 9 and 10 its eval kernel (on the points-major
 and the features-major input policy) and row 11 ``pt_tile.cuh``'s eval
-kernel.  So that two trees' outputs can be
-compared bit for bit, it prints the loss of each of rows 1-6 and the
-lambda adjoints (A1, -A2) of rows 3 and 3b as hex floats, and the
-SHA-256 of the bytes of rows 9-11's outputs at each of phase 3e's
-residual inputs (``chip_smoke._residual_cases``: the pool, both grids,
-the edges).
+kernel.  Row 1 is also timed at the benchmark cells' N = 1,000,100,
+and at both sizes through the narrow kernel's entry as well
+(``burgers_loss_grad`` launched as such), each with its bound, the
+SHA-256 of its loss and gradients, and ptxas's lines of both kernels.
+So that two trees' outputs can be compared bit for bit, it prints the
+loss of each of rows 1-6 and the lambda adjoints (A1, -A2) of rows 3
+and 3b as hex floats, and the SHA-256 of the bytes of rows 9-11's
+outputs at each of phase 3e's residual inputs
+(``chip_smoke._residual_cases``: the pool, both grids, the edges).
 
 ``--tree DIR`` times the ``pinn_torch`` of the checkout at DIR (another
 commit unpacked there, say) with this script's measurement code, so
@@ -151,6 +156,27 @@ def _calls(cs):
                 lambda b=bf16: ft.burgers_ide_loss_grad(*ide, bf16=b),
             "burgers_ide_loss" + sfx:
                 lambda b=bf16: ft.burgers_ide_loss(*ide, bf16=b)})
+    return calls
+
+
+def _row1_calls(cs):
+    """Row 1 at N = 10,100 and 1,000,100 through the wrapper (the
+    register-blocked kernel at width 20, in a tree that has it) and
+    through the narrow kernel's entry: {tag: (n, call)}."""
+    from pinn_torch.ops import fused_train as ft
+    calls = {}
+    for n in (10100, 1000100):
+        args = cs._kernel_inputs(cs.FLAGSHIP, 100, n - 100, seed=100)
+
+        def narrow(a=args):
+            a0, aux, z1row, z2row, wt_args = a
+            out = ft.launch("burgers_loss_grad", "burgers_train_sizes",
+                            ft._BURGERS_LIMITS, a0, [aux], z1row, z2row,
+                            wt_args, [float(cs.NU)])
+            return ft._unpack(out, z1row, z2row, wt_args)
+
+        calls[f"row 1 N={n}"] = (n, lambda a=args: ft.burgers_loss_grad(*a, cs.NU))
+        calls[f"row 1 narrow N={n}"] = (n, narrow)
     return calls
 
 
@@ -358,6 +384,17 @@ def main() -> int:
     calls = _calls(cs)
     for name, fn in calls.items():
         _time(cs, tag, name, fn)
+    for kernel in ("pt_narrow_rb_loss_grad_kernel", "pt_narrow_loss_grad_kernel"):
+        print(f"[probe] {tag} ptxas {kernel} (BurgersInfHead, f32): "
+              f"{cs._ptxas_lines(kernel, False, 'BurgersInfHead')}", flush=True)
+    for name, (n, fn) in _row1_calls(cs).items():
+        _time(cs, tag, name, fn)
+        bound_ms, by = cs._bound(cs.FLAGSHIP, n, True, False, 3)
+        digest = hashlib.sha256(b"".join(
+            a.float().contiguous().cpu().numpy().tobytes()
+            for a in _outputs(cs, fn))).hexdigest()
+        print(f"[probe] {tag} {name}: bound {bound_ms:.5f} ms ({by}); "
+              f"outputs sha256 {digest}", flush=True)
     for name in NARROW:
         out = _outputs(cs, calls[name])
         glam = (", glam " + ", ".join(float(v).hex() for v in out[-1])

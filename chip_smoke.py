@@ -20,10 +20,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    widest pack [2, 64x14, 1] and the most layers [2, 20x15, 1]; at
    every shape the loss-only loss bitwise the loss+grad loss; bitwise
    repeatability; median times at the flagship; ptxas's lines of the
-   two narrow kernels (``burgers_loss_grad`` runs
-   pt_narrow_loss_grad_kernel, ``burgers_loss`` pt_narrow_loss_kernel,
-   both on the inference head), their launch records and the device ms
-   a call of each kernel of a call (profiler trace).
+   two kernels of the flagship's calls (``burgers_loss_grad`` runs
+   pt_narrow_rb_loss_grad_kernel at hidden width 20 with float32
+   streams, pt_narrow_loss_grad_kernel otherwise; ``burgers_loss``
+   pt_narrow_loss_kernel; all on the inference head), their launch
+   records and the device ms a call of each kernel of a call (profiler
+   trace).
 3b. Burgers identification kernels vs plain, at [2, 20x8, 1] (N =
    2,000), [2, 20, 20, 20, 1] (N = 300), [2, 16, 1] (N = 1,017) and the
    narrow kernel's edges (the flagship at N = 1, 31, 33 and 2,023,
@@ -160,7 +162,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    search (its trials launch row 2), 50 Adam steps + 20 L-BFGS
    iterations.  The trace is
    read and deleted: the launches of rows 1 and 2's kernels in it
-   (``pt_narrow_loss_grad_kernel``, ``pt_narrow_loss_kernel``) must
+   (``pt_narrow_rb_loss_grad_kernel``, ``pt_narrow_loss_kernel``) must
    equal the launch counters less the run's closing loss evaluation,
    which falls after ``fit``.  Then, each traced alone, an Adam-only run
    (50 steps) and an L-BFGS-only run (20 iterations from the first
@@ -259,6 +261,9 @@ UB = np.array([1.0, 1.0], np.float32)
 S_LB = np.array([-5.0, 0.0], np.float32)        # Schrödinger domain
 S_UB = np.array([5.0, np.pi / 2], np.float32)
 FLAGSHIP = [2] + [20] * 8 + [1]
+# Row 1's entry at hidden width 20, float32 streams (the register-blocked
+# kernel; pinn_torch.ops.fused_train.loss_grad_entry).
+INF_GRAD = "burgers_loss_grad_rb"
 WIDE = [2] + [40] * 8 + [1]
 S_FLAGSHIP = [2, 100, 100, 100, 100, 2]
 KERNEL_SHAPES = [           # (layers, N_u, N_f)
@@ -310,6 +315,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                "pinn/ops/pallas_schrodinger.py:70"),
        }.items()
        for sfx in ("", "_bf16")},
+    "burgers_loss_grad_rb": (BURGERS_SRC, "pinn/ops/pallas_train.py:524"),
     "burgers_sse_grad": (BURGERS_SRC, "pinn/ops/pallas_train.py:305"),
     "burgers_sse": (BURGERS_SRC, "pinn/ops/pallas_train.py:277"),
     "burgers_residual": (RESIDUAL_SRC, "pinn/ops/pallas_residual.py:55"),
@@ -478,7 +484,8 @@ def _check_bf16_grads(tag, got, want):
 
 def _check_pair(stats, tag, grad_name, loss_name, kernel_grad, kernel_loss,
                 plain_grad, plain_loss, args, layers, n_aux, n_lam=0,
-                time_it=False, bf16=False, bitwise_loss=False):
+                time_it=False, bf16=False, bitwise_loss=False,
+                time_loss=True):
     """Hold the loss+grad and loss-only kernels to their plain versions
     on ``args`` (a net of ``layers``; ``n_aux`` aux rows).  float32:
     loss rtol 1e-5; net gradients rtol 5e-4 with atol 5e-6 * max|g|;
@@ -489,7 +496,7 @@ def _check_pair(stats, tag, grad_name, loss_name, kernel_grad, kernel_loss,
     losses rtol 2e-3, the net gradients and the lambda adjoints each
     rel-L2 <= 1e-2 and cosine >= 0.9999.  Two launches bitwise equal.
     Updates ``stats``; with ``time_it`` the times and the bound at this
-    shape."""
+    shape, of the loss+grad entry alone without ``time_loss``."""
     import torch
     got = _flat(kernel_grad(*args))
     again = _flat(kernel_grad(*args))
@@ -538,11 +545,13 @@ def _check_pair(stats, tag, grad_name, loss_name, kernel_grad, kernel_loss,
     if time_it:
         n = args[0].shape[1]
         t = {"grad": _median_ms(lambda: kernel_grad(*args)),
-             "plain_grad": _median_ms(lambda: plain_grad(*args)),
-             "loss": _median_ms(lambda: kernel_loss(*args)),
-             "plain_loss": _median_ms(lambda: plain_loss(*args))}
-        for name, kind, grads in ((grad_name, "grad", True),
-                                  (loss_name, "loss", False)):
+             "plain_grad": _median_ms(lambda: plain_grad(*args))}
+        timed = [(grad_name, "grad", True)]
+        if time_loss:
+            t.update(loss=_median_ms(lambda: kernel_loss(*args)),
+                     plain_loss=_median_ms(lambda: plain_loss(*args)))
+            timed.append((loss_name, "loss", False))
+        for name, kind, grads in timed:
             bound_ms, bound_by = _bound(layers, n, grads, bf16, n_aux,
                                         2 * n_lam if grads else 2 * (n_lam > 0))
             stats[name].update(ms=t[kind], plain_ms=t["plain_" + kind],
@@ -578,16 +587,29 @@ def phase_kernels(stats: dict, bf16: bool = False) -> None:
              for i, (layers, n_u, n_f) in enumerate(KERNEL_SHAPES)]
     cases += [(layers, n, _edge_inputs(layers, n, seed=700 + i))
               for i, (layers, n) in enumerate(NARROW_EDGES)]
+    # Each call's stats go to the entry that burgers_loss_grad launched:
+    # with float32 streams the register-blocked one at hidden width 20
+    # (timed at the flagship), the narrow one elsewhere (timed at the
+    # first such shape, [2, 40x8, 1]); the loss-only entry is timed at
+    # the flagship.
+    timed = set()
     for i, (layers, n, args) in enumerate(cases):
+        grad_name = ft.loss_grad_entry(args[0], args[4], bf16)
         _check_pair(stats, sfx[1:] + " " + _shape_tag(layers, n),
-                    "burgers_loss_grad" + sfx, "burgers_loss" + sfx, grad,
+                    grad_name, "burgers_loss" + sfx, grad,
                     loss, lambda *a: plain_grad(*a, NU),
                     lambda *a: plain_loss(*a, NU),
-                    args, layers, n_aux=3, time_it=i == 0, bf16=bf16,
-                    bitwise_loss=True)
+                    args, layers, n_aux=3, time_it=grad_name not in timed,
+                    time_loss=i == 0, bf16=bf16, bitwise_loss=True)
+        timed.add(grad_name)
 
+    # At the flagship's width float32 streams take the register-blocked
+    # kernel (pt_narrow_rb.cuh), bf16 streams the narrow one.
+    grad_kernel, grad_entry = (("pt_narrow_loss_grad_kernel", "burgers_loss_grad")
+                               if bf16 else
+                               ("pt_narrow_rb_loss_grad_kernel", INF_GRAD))
     _report_narrow(stats, bf16, "BurgersInfHead",
-                   [("pt_narrow_loss_grad_kernel", "burgers_loss_grad", grad),
+                   [(grad_kernel, grad_entry, grad),
                     ("pt_narrow_loss_kernel", "burgers_loss", loss)],
                    cases[0][2], _shape_tag(FLAGSHIP, cases[0][1]))
 
@@ -1190,7 +1212,11 @@ def phase_main_path() -> dict:
     r1 = inf_cont_burgers.run(stage1)
     torch.cuda.synchronize()
     s1_seconds = time.perf_counter() - t0
-    launches = _read_counts(["burgers_loss_grad", "burgers_loss"])
+    # At the flagship's width float32 loss+grad calls take INF_GRAD, so
+    # the narrow entry's count is measured here as 0.
+    _expect_counts("main", {"burgers_loss_grad": 0})
+    launches = {**_read_counts([INF_GRAD, "burgers_loss"]),
+                "burgers_loss_grad": _counts()["burgers_loss_grad"]}
     log(f"[main] stage 1 launches: {launches}")
 
     TRAINED["burgers"] = r1["params"]
@@ -1366,7 +1392,7 @@ def phase_bf16_main_path() -> dict:
     # L-BFGS phase, its line searches and the final loss are float32.
     _expect_counts("bf16 mixed", {"burgers_loss_grad_bf16": mixed["tf_epochs"],
                                   "burgers_loss_bf16": 0})
-    mixed_counts = _read_counts(["burgers_loss_grad", "burgers_loss"])
+    mixed_counts = _read_counts([INF_GRAD, "burgers_loss"])
     adam_rate, lbfgs_rate = _rates(r1["timing"], mixed["tf_epochs"])
     log(f"[bf16] mixed stage launches: {mixed_counts} + "
         f"{mixed['tf_epochs']} burgers_loss_grad_bf16 (the Adam steps)")
@@ -1612,7 +1638,8 @@ def phase_facade_main_path() -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     _expect_counts("facade", {"burgers_sse_grad": model.grad_evals,
-                              "burgers_loss_grad": 0, "burgers_loss": 0})
+                              "burgers_loss_grad": 0, INF_GRAD: 0,
+                              "burgers_loss": 0})
     launches = _read_counts(["burgers_sse_grad", "burgers_sse"])
     if launches["burgers_sse"] < model.grad_evals:
         raise AssertionError(f"facade: {launches} for {model.grad_evals} "
@@ -1929,7 +1956,7 @@ def phase_traced_main_paths() -> None:
     counts = _counts()
     # inf_cont_burgers.run's closing loss (one burgers_loss launch)
     # falls after fit, outside the trace.
-    want = {"pt_narrow_loss_grad_kernel": counts["burgers_loss_grad"],
+    want = {"pt_narrow_rb_loss_grad_kernel": counts[INF_GRAD],
             "pt_narrow_loss_kernel": counts["burgers_loss"] - 1}
     got = {kernel: _ours(names, kernel) for kernel in want}
     log(f"[trace] 4p launches in the trace {got}; counters {counts}")
@@ -2123,7 +2150,7 @@ def phase_data_parallel() -> None:
     _dp_case("burgers", ft.make_burgers_loss(LB, UB, NU),
              ft.make_burgers_loss_dp(LB, UB, NU, mesh4),
              ft.make_burgers_loss_dp(LB, UB, NU, mesh1), params, batch,
-             "burgers_loss_grad", "burgers_loss")
+             INF_GRAD, "burgers_loss")
     s_params = _weights(S_FLAGSHIP, rng)
     x0 = S_LB[0] + (S_UB[0] - S_LB[0]) * rng.rand(50, 1)
     tb = rng.rand(50, 1) * S_UB[1]
@@ -2161,7 +2188,7 @@ def phase_data_parallel() -> None:
     # (c) The two experiments with tpu_mesh: true (one shard on a
     # one-card machine) beside the unsharded run, cut to 50 + 50.
     cases = [("burgers", inf_cont_burgers, {}, _check_falls,
-              "burgers_loss_grad", "burgers_loss"),
+              INF_GRAD, "burgers_loss"),
              # A gentler Adam than the recipe's spike (see 4f).
              ("schrodinger", inf_cont_schrodinger,
               {"tf_lr": 0.005, "tf_b1": 0.9}, _check_final_falls,

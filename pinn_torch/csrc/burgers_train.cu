@@ -19,7 +19,10 @@
 //
 // Replaces (pinn/ops/pallas_train.py):
 //   burgers_loss_grad      <- _make_train_kernel (:524), launched by
-//                             _train_loss_grad_call (:665)
+//                             _train_loss_grad_call (:665); and
+//   burgers_loss_grad_rb      the same outputs bit for bit on
+//                             pt_narrow_rb.cuh's register-blocked
+//                             kernel, at hidden width 20 (below)
 //   burgers_loss           <- _fwd_train_kernel (:576), launched by
 //                             _train_loss_call (:619)
 //   burgers_ide_loss_grad  <- _make_ide_kernel (:847), launched by
@@ -76,11 +79,21 @@
 // 0.114 ms at N = 10,100 (f32 and bf16), 0.071 ms (f32) and 0.062 ms
 // (bf16) at N = 2,000; PERF.md has the rest.
 //
+// burgers_loss_grad_rb runs pt_narrow_rb_loss_grad_kernel instead: 128
+// threads a tile, each value loaded from shared memory feeding several
+// FMAs held in registers, and the tile's saved streams in shared memory
+// (110,096 bytes a block at [2, 20x8, 1], two blocks an SM) instead of
+// a workspace in device memory; ops/fused_train.py takes it for every
+// float32 inference call at hidden width 20 (pt_narrow_rb.cuh says why
+// and what it measured).
+//
 // Every entry returns cudaGetLastError().
 
 #include "pt_narrow.cuh"
+#include "pt_narrow_rb.cuh"
 
 #define BURGERS_MAX_WIDTH 64
+#define BURGERS_RB_WIDTH 20   // the hidden width of burgers_loss_grad_rb
 
 namespace {
 
@@ -245,6 +258,19 @@ int burgers_loss_grad_bf16(const float* a0, const float* aux,
                                     __nv_bfloat16>(widths, n_layers, a0, wpack,
                                                    n_pts, args, ws, partials,
                                                    out, stream);
+}
+
+// burgers_loss_grad's outputs bit for bit through pt_narrow_rb.cuh's
+// register-blocked kernel, for [2, 20, ..., 20, 1] (at most 15 hidden
+// layers), with no workspace: the tile's saved streams stay in shared
+// memory.  partials and out as burgers_loss_grad's.
+int burgers_loss_grad_rb(const float* a0, const float* aux,
+                         const float* wpack, const int* widths, int n_layers,
+                         int n_pts, float nu, float* partials, float* out,
+                         void* stream) {
+  const BurgersInfHead::Args args = {aux, nu};
+  return pt_narrow_rb_launch_loss_grad<BurgersInfHead, BURGERS_RB_WIDTH>(
+      widths, n_layers, a0, wpack, n_pts, args, partials, out, stream);
 }
 
 // Loss only.  partials: n_tiles floats; out: 1 float.

@@ -6,9 +6,15 @@
 // burgers_loss_grad[_bf16] on the inference head (BurgersInfHead),
 // burgers_ide_loss_grad[_bf16] on the identification head
 // (BurgersIdeHead, two extra accumulators A1, A2) and burgers_sse_grad
-// on the v1 residual-SSE head (BurgersSseHead).  pt_narrow_loss_kernel
-// gives the loss alone, with the same forward and nothing saved; the
-// five loss-only entries launch it on the same heads: burgers_loss[_bf16],
+// on the v1 residual-SSE head (BurgersSseHead).  On the inference head
+// with float32 streams it serves only nets whose hidden layers are not
+// all 20 wide; for those ops/fused_train.py launches
+// burgers_loss_grad_rb (pt_narrow_rb.cuh's register-blocked kernel, the
+// same outputs bit for bit), the faster at every point count measured
+// (N = 1,000 to 1,000,100 on an H100), and burgers_loss_grad is its
+// reference in the card tests.  pt_narrow_loss_kernel gives the loss
+// alone, with the same forward and nothing saved; the five loss-only
+// entries launch it on the same heads: burgers_loss[_bf16],
 // burgers_ide_loss[_bf16] and burgers_sse.  They replace the TPU
 // kernels _make_train_kernel (pinn/ops/pallas_train.py:524),
 // _fwd_train_kernel (:576), _make_ide_kernel (:847), _fwd_ide_kernel

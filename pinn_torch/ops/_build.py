@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,12 +52,14 @@ _KERNEL_SIGNATURES = {
     "schrodinger_sse_grad": [_P, _P, _IP, _I, _I, _P, _P, _P, _P],
     "schrodinger_sse": [_P, _P, _IP, _I, _I, _P, _P, _P],
 }
-# float32-only entry points: the v1 SSE pair (burgers_train.cu) and the
-# residual evaluation (residual_eval.cu; X, wpack, widths, n_layers,
-# n_pts, lb0, lb1, ub0, ub1, [nu,] out, stream).
+# float32-only entry points: the v1 SSE pair and burgers_loss_grad_rb
+# (burgers_train.cu) and the residual evaluation (residual_eval.cu; X,
+# wpack, widths, n_layers, n_pts, lb0, lb1, ub0, ub1, [nu,] out, stream).
 _F32_SIGNATURES = {
     "burgers_sse_grad": [_P, _P, _IP, _I, _I, _F, _P, _P, _P, _P],
     "burgers_sse": [_P, _P, _IP, _I, _I, _F, _P, _P, _P],
+    # burgers_loss_grad on the register-blocked kernel: no workspace.
+    "burgers_loss_grad_rb": [_P, _P, _P, _IP, _I, _I, _F, _P, _P, _P],
     "burgers_residual": [_P, _P, _IP, _I, _I, _F, _F, _F, _F, _F, _P, _P],
     "burgers_residual_fmajor": [_P, _P, _IP, _I, _I, _F, _F, _F, _F, _F,
                                 _P, _P],
@@ -75,6 +78,12 @@ SIGNATURES = {
        for sfx in ("", "_bf16")},
     **_F32_SIGNATURES,
 }
+
+
+def c_define(source: str, name: str) -> int:
+    """The integer that ``#define name`` gives in ``csrc/<source>``."""
+    text = (CSRC_DIR / source).read_text()
+    return int(re.search(rf"^#define {name} (\d+)", text, re.M).group(1))
 
 
 class KernelBuildFailed(RuntimeError):

@@ -39,6 +39,11 @@ Kernels (``pinn_torch/csrc/burgers_train.cu``, built by ``_build``):
   (pinn/ops/pallas_train.py:524): loss, all dW/db and the first-layer
   tangent-row adjoints in one launch, plus a fixed-shape float64 tree
   sum of the per-tile partials (``pt_mlp.cuh``'s ``pt_reduce``).
+- ``burgers_loss_grad_rb`` gives ``burgers_loss_grad``'s outputs bit for
+  bit on a register-blocked kernel (``pt_narrow_rb.cuh``) that keeps
+  each tile's saved streams in shared memory, so it takes no workspace;
+  hidden width ``RB_WIDTH`` alone.  :func:`burgers_loss_grad` launches
+  it for float32 streams at that width (:func:`loss_grad_entry`).
 - ``burgers_loss`` replaces ``_fwd_train_kernel`` (:576): the loss alone.
 - ``burgers_ide_loss_grad`` replaces ``_make_ide_kernel`` (:847): as
   ``burgers_loss_grad``, plus A1 and A2.
@@ -52,9 +57,10 @@ Kernels (``pinn_torch/csrc/burgers_train.cu``, built by ``_build``):
   ``burgers_sse`` replaces ``_fwd_kernel`` (:277): the v1 SSE with and
   without its gradients.
 
-All ten are bound by latency (a few hundred warps on 132 SMs); the
-source notes in ``pinn_torch/csrc/`` say what the design does about
-the saved activations and the cross-block sum.
+At the recipes' N the ten narrow entries are bound by latency (a few
+hundred warps on 132 SMs); the source notes in ``pinn_torch/csrc/`` say
+what each design does about the saved activations and the cross-block
+sum.
 
 Each kernel has a plain PyTorch version with the same signature
 (``burgers_loss_grad_plain(a0, aux, z1row, z2row, wt_args, nu) ->
@@ -530,14 +536,22 @@ def _entry(name: str, bf16: bool) -> str:
     return name + "_bf16" if bf16 else name
 
 
+def _takes_ws(name: str, n_in: int) -> bool:
+    """Whether the C entry ``name`` takes a workspace between its first
+    ``n_in`` arguments (a0 to the scalars) and partials, out, stream:
+    read from its signature in ``_build.SIGNATURES``."""
+    return len(_build.SIGNATURES[name]) == n_in + 4
+
+
 def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
            wt_args, scalars=(), grads: bool = True, n_extra: int = 0,
            bf16: bool = False):
     """Allocate scratch and output with ``torch.empty`` and launch the
     C entry point ``name`` on the current stream of ``a0``'s device; no
     synchronisation.  The call is ``name(a0, *lead, wpack, widths,
-    n_layers, n_pts, *scalars, [ws,] partials, out, stream)``; ``bf16``
-    gives ws bf16 elements (the ``_bf16`` entry points).  Returns the
+    n_layers, n_pts, *scalars, [ws,] partials, out, stream)``, ws where
+    the entry's signature has it (:func:`_takes_ws`); ``bf16`` gives ws
+    bf16 elements (the ``_bf16`` entry points).  Returns the
     output buffer: [loss, grad of wpack, n_extra extras] with
     ``grads``, else [loss].  The caller has run :func:`_check_inputs`.
     Counts ``launch.<name>`` (``pinn_torch.utils.trace``)."""
@@ -557,7 +571,9 @@ def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
         partials = buf(rows * cols + lib.pt_reduce_scratch(rows, cols))
         if grads:   # saved activations, partials, their sums
             ws_dtype = torch.bfloat16 if bf16 else torch.float32
-            bufs = (buf(ws_rows * rows * TILE, ws_dtype), partials, buf(cols))
+            bufs = (partials, buf(cols))
+            if _takes_ws(name, 5 + len(lead) + len(scalars)):
+                bufs = (buf(ws_rows * rows * TILE, ws_dtype),) + bufs
         else:       # partial losses, their sum
             bufs = (partials, buf(1))
     with trace.span("loss.launch"), torch.cuda.device(a0.device):
@@ -573,16 +589,31 @@ def launch(name: str, sizes_fn: str, limits: str, a0, lead, z1row, z2row,
 
 _BURGERS_LIMITS = "input 2, output 1, at most 15 hidden layers of width <= 64"
 
+RB_ENTRY = "burgers_loss_grad_rb"
+RB_WIDTH = _build.c_define("burgers_train.cu", "BURGERS_RB_WIDTH")
+
+
+def loss_grad_entry(a0, wt_args, bf16: bool = False) -> str:
+    """The C entry that :func:`burgers_loss_grad` launches on CUDA
+    tensors: ``RB_ENTRY`` for float32 streams where every hidden layer
+    has width ``RB_WIDTH``, else ``burgers_loss_grad`` (``_bf16`` with
+    ``bf16``).  The point count does not enter: on an H100 the
+    register-blocked kernel was the faster from N = 1,000 (32 tiles) to
+    N = 1,000,100 (PERF.md, row 1)."""
+    if not bf16 and all(w == RB_WIDTH for w in _widths(a0, wt_args)[1:-1]):
+        return RB_ENTRY
+    return _entry("burgers_loss_grad", bf16)
+
 
 def burgers_loss_grad(a0, aux, z1row, z2row, wt_args, nu, bf16: bool = False):
     """Loss and gradients ``(loss, gwt, gz1row, gz2row)``: the CUDA
-    kernel (``burgers_loss_grad``, or ``burgers_loss_grad_bf16`` with
-    ``bf16``) for CUDA tensors, its plain version for CPU tensors."""
+    kernel (:func:`loss_grad_entry`'s) for CUDA tensors, its plain
+    version for CPU tensors."""
     if not _on_cuda(a0):
         plain = burgers_loss_grad_bf16_plain if bf16 else burgers_loss_grad_plain
         return plain(a0, aux, z1row, z2row, wt_args, nu)
     _check_inputs(a0, aux, z1row, z2row, wt_args)
-    name = _entry("burgers_loss_grad", bf16)
+    name = loss_grad_entry(a0, wt_args, bf16)
     out = launch(name, "burgers_train_sizes", _BURGERS_LIMITS, a0, [aux],
                  z1row, z2row, wt_args, [float(nu)], bf16=bf16)
     return _unpack(out, z1row, z2row, wt_args)

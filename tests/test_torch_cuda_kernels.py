@@ -13,7 +13,11 @@ bf16: the same tiled forward, grid and order of sums), and so are the
 Burgers inference, identification and v1 SSE pairs' at [2, 20x8, 1]
 and at every edge of the narrow kernels, f32 and bf16 (the narrow
 loss+grad kernel and the narrow loss-only kernel share one forward,
-head and order of sums).  The bf16-stream
+head and order of sums).  At hidden width 20 the register-blocked
+inference loss+grad kernel (burgers_loss_grad_rb, which
+burgers_loss_grad launches there with float32 streams) gives the narrow
+kernel's partials rows, loss and gradients bit for bit, from one point
+to N = 1,000,100.  The bf16-stream
 kernels against their plain bf16 versions (the same roundings, summed
 in another order, which can move a rounding): loss rtol 2e-3, gradient
 rel-L2 <= 1e-2 and cosine >= 0.9999 (the net gradients and the lambda
@@ -130,7 +134,8 @@ def test_kernels_match_plain(layers, n_u, n_f, n):
     loss_only = ft.burgers_loss(*args, NU)
     want = _flat(ft.burgers_loss_grad_plain(*args, NU))
     torch.cuda.synchronize()
-    assert _launched(n0, "burgers_loss_grad", "burgers_loss") == (2, 1)
+    entry = ft.loss_grad_entry(args[0], args[4])
+    assert _launched(n0, entry, "burgers_loss") == (2, 1)
 
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
     gmax = max(float(w.abs().max()) for w in want[1:])
@@ -161,8 +166,69 @@ def test_inference_loss_only_is_the_loss_grad_loss_bitwise(layers, n_u, n_f,
     torch.cuda.synchronize()
     sfx = "_bf16" if bf16 else ""
     assert _launched(n0, "burgers_loss" + sfx,
-                     "burgers_loss_grad" + sfx) == (1, 1)
+                     ft.loss_grad_entry(args[0], args[4], bf16)) == (1, 1)
     assert torch.equal(loss_only.reshape(1), loss.reshape(1))
+
+
+def _raw_loss_grad(entry, args):
+    """The partials rows and the output of one launch of the inference
+    loss+grad ``entry`` (``burgers_loss_grad`` or ``ft.RB_ENTRY``)."""
+    import ctypes
+    from pinn_torch.ops import _build
+    a0, aux, z1row, z2row, wt_args = args
+    lib = _build.library().lib
+    widths = ft._widths(a0, wt_args)
+    n_weights, ws_rows = ft._sizes(lib, "burgers_train_sizes", widths, "")
+    n = a0.shape[1]
+    rows, cols = -(-n // ft.TILE), 1 + n_weights
+    partials = torch.empty(rows * cols + lib.pt_reduce_scratch(rows, cols),
+                           device="cuda")
+    bufs = [partials, torch.empty(cols, device="cuda")]
+    if ft._takes_ws(entry, 7):
+        bufs.insert(0, torch.empty(ws_rows * rows * ft.TILE, device="cuda"))
+    wpack = ft._pack(z1row, z2row, wt_args)
+    err = getattr(lib, entry)(
+        a0.data_ptr(), aux.data_ptr(), wpack.data_ptr(),
+        (ctypes.c_int * len(widths))(*widths), len(widths) - 1, n, float(NU),
+        *(b.data_ptr() for b in bufs), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, entry)
+    return [partials[:rows * cols].clone(), bufs[-1].clone()]
+
+
+def _bits(tensors):
+    return [t.view(torch.int32) for t in tensors]
+
+
+# The register-blocked kernel's shapes, (layers, N): the flagship at one
+# point, a tile less or more one point, the identification flagship's
+# 63 tiles and 7 points more, the inference flagship at N = 10,100, at
+# N = 100,003 and at the benchmark cells' N = 1,000,100; one, two and
+# the most hidden layers.
+RB_SHAPES = [(FLAGSHIP, n) for n in (1, 31, 33, 2023, 10100, 100003,
+                                     1000100)] \
+    + [([2, 20, 1], 1000), ([2, 20, 20, 1], 777), ([2] + [20] * 15 + [1], 5000)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("layers,n", RB_SHAPES)
+def test_register_blocked_kernel_is_the_narrow_kernel_bitwise(layers, n, seed):
+    """burgers_loss_grad_rb (pt_narrow_rb.cuh) gives burgers_loss_grad's
+    partials rows, loss and every gradient bit for bit, a second launch
+    its own, and burgers_loss's loss is its loss."""
+    n_u = max(1, min(100, n // 3))
+    params, batch = _case(layers, n_u, n - n_u + 1, seed=seed * 7919 + n,
+                          device="cuda")
+    args = _kernel_args(params, batch, n)
+    want = _raw_loss_grad("burgers_loss_grad", args)
+    got = _raw_loss_grad(ft.RB_ENTRY, args)
+    again = _raw_loss_grad(ft.RB_ENTRY, args)
+    loss_only = ft.burgers_loss(*args, NU)
+    torch.cuda.synchronize()
+    for a, b, what in zip(_bits(got), _bits(want), ("partials", "output")):
+        assert torch.equal(a, b), \
+            f"{what}: {int((a != b).sum())} of {a.numel()} floats differ"
+    assert all(torch.equal(a, b) for a, b in zip(_bits(again), _bits(got)))
+    assert torch.equal(_bits([loss_only.reshape(1)])[0], _bits([got[1][:1]])[0])
 
 
 def test_fused_loss_on_card_matches_cpu():

@@ -221,6 +221,39 @@ def test_kernel_input_checks():
         fused_train.make_burgers_loss(LB, UB, NU, stream_dtype="float16")
 
 
+@pytest.mark.parametrize("n", [1, 33, 10100, 1000100])
+@pytest.mark.parametrize("layers,bf16,want", [
+    ([2] + [20] * 8 + [1], False, fused_train.RB_ENTRY),
+    ([2, 20, 1], False, fused_train.RB_ENTRY),
+    ([2] + [20] * 15 + [1], False, fused_train.RB_ENTRY),
+    ([2] + [20] * 8 + [1], True, "burgers_loss_grad_bf16"),
+    ([2, 20, 20, 32, 1], False, "burgers_loss_grad"),
+    ([2, 16, 16, 1], False, "burgers_loss_grad"),
+])
+def test_loss_grad_entry_by_shape(layers, bf16, want, n):
+    """The C entry that burgers_loss_grad launches: the register-blocked
+    one for float32 streams where every hidden layer has width 20,
+    whatever the point count; the narrow kernel's entry otherwise."""
+    a0 = torch.empty((2, n))
+    wt_args = [t for a, b in zip(layers[:-1], layers[1:])
+               for t in (torch.empty(b, a), torch.empty(b, 1))]
+    assert fused_train.loss_grad_entry(a0, wt_args, bf16) == want
+
+
+@pytest.mark.parametrize("name,n_in,want", [
+    ("burgers_loss_grad", 7, True),
+    ("burgers_loss_grad_bf16", 7, True),
+    (fused_train.RB_ENTRY, 7, False),
+    ("burgers_ide_loss_grad", 7, True),
+    ("burgers_sse_grad", 6, True),
+    ("schrodinger_sse_grad", 5, True),
+])
+def test_workspace_from_signature(name, n_in, want):
+    """launch gives an entry a workspace where its C signature has one
+    more pointer than a0 to the scalars, partials, out and stream."""
+    assert fused_train._takes_ws(name, n_in) is want
+
+
 def test_bf16_streams_match_jax():
     """bf16 streams at the shape of tests/test_pallas_train.py's bf16
     test: the plain bf16 version (the explicit backward, rounded where
