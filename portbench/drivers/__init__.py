@@ -6,8 +6,10 @@ A phase gives ``check_steps(n)`` (the first n steps, one call each,
 and what the check compares: the losses, the first gradient as the
 optimizer holds it, each leaf's change), ``warm()``, ``chunk() ->
 (units done, losses or None)``, ``totals() -> (units, loss
-evaluations)`` since the start; the module names ``RATE``, its
-end-to-end metric (units over the window's seconds), ``REFERENCE``,
+evaluations)`` since the start; the module names ``RATES``, its
+end-to-end rates, each a function of the window's units and loss
+evaluations whose value over the window's seconds is the metric of
+that name (a cell reports those of them it lists), ``REFERENCE``,
 the module of ``portbench.reference`` that follows the same steps, and
 ``NUMBERS``, the judge's numbers the phase reads.  A phase whose
 ``NUMBERS`` take in the judge's late numbers also gives ``final()``,

@@ -13,7 +13,8 @@ from pinn_torch.train import Trainer
 
 from portbench import judge
 
-RATE = "adam_steps_per_s"   # the end-to-end metric: units over the window
+RATES = {   # the end-to-end rates, each from the window's (units, evaluations)
+    "adam_steps_per_s": lambda units, evals: units}
 REFERENCE = "adam"
 NUMBERS = judge.FIRST_STEPS   # the judge's numbers this phase reads
 

@@ -19,7 +19,9 @@ from pinn_torch.train import Trainer, lbfgs_config_from_hp
 
 from portbench import judge
 
-RATE = "lbfgs_iters_per_s"   # the end-to-end metric: units over the window
+RATES = {   # the end-to-end rates, each from the window's (units, evaluations)
+    "lbfgs_iters_per_s": lambda units, evals: units,
+    "lbfgs_evals_per_s": lambda units, evals: evals}
 REFERENCE = "lbfgs"
 NUMBERS = judge.NUMBERS      # the first steps and the state the window left
 

@@ -17,7 +17,13 @@ A run:
    ``CHECK_STEPS`` steps through the phase's own call (the check
    compares them later), then warms the rest of the window's path;
 2. window: whole chunks until ``seconds`` have passed, then a device
-   sync; the rate is the units of all chunks over all the time;
+   sync; each rate of the driver's ``RATES`` that the cell lists is the
+   units, or the loss calls, of all chunks over all the time.  The
+   program's counters are marked at the window's start and at the
+   first chunk boundary where the window's units reach the traffic's
+   ``count_units`` (at its close where they never do): the counter
+   readers read between the two marks, the same first units of a
+   seed's trajectory on any program that follows it;
 3. with ``trace``: a segment of the traffic's ``trace_units`` units
    under the profiler, which the per-layer readers read;
 4. where the phase reads the judge's late numbers, its state is taken
@@ -39,10 +45,12 @@ import time
 from collections import Counter
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from portbench import judge, tracing
+from portbench.metrics import _program
 from portbench.reference import precision
 from portbench.generate import ROOT, collocation, glorot_weights
 
@@ -103,8 +111,8 @@ def _sync(device):
 
 
 def counted(loss_fn, counts: Counter):
-    """``loss_fn`` inside a span and counted by kind: ``loss_grad``
-    where autograd wants its gradients, else ``loss``."""
+    """``loss_fn`` counted by kind: ``loss_grad`` where autograd wants
+    its gradients, else ``loss``."""
     from pinn_torch.params import leaves
 
     def loss(params, batch):
@@ -112,8 +120,7 @@ def counted(loss_fn, counts: Counter):
                                                 for a in leaves(params))
         kind = "loss_grad" if grads else "loss"
         counts[kind] += 1
-        with torch.profiler.record_function(tracing.SPAN_PREFIX + kind):
-            return loss_fn(params, batch)
+        return loss_fn(params, batch)
 
     return loss
 
@@ -159,20 +166,41 @@ def late(spec) -> bool:
     return bool(set(judge.LATE) & set(spec.driver.NUMBERS))
 
 
-def window(phase, seconds: float, device):
+class Mark(NamedTuple):
+    """A point of the window: its seconds and units so far, the phase's
+    ``totals()`` and a copy of the program's counters."""
+    seconds: float
+    units: int
+    totals: Tuple[int, int]
+    counters: Dict[str, int]
+
+
+def mark(phase, seconds: float, units: int) -> Mark:
+    return Mark(seconds, units, phase.totals(), _program.snapshot())
+
+
+def window(phase, seconds: float, device, count_units=None):
     """Whole chunks until ``seconds`` have passed, then a device sync:
-    ``(units, losses of the chunks, seconds)``."""
+    ``(units, losses of the chunks, seconds, (start, counted))``, where
+    ``start`` marks the window's start and ``counted`` the first chunk
+    boundary at which its units reach ``count_units``, or its close
+    where they never do (or no ``count_units`` is given).  The mark
+    inside the window is a dict copy, once a run."""
     losses, units = [], 0
+    start, counted = mark(phase, 0.0, 0), None
     t0 = time.perf_counter()
     while True:
         done, chunk_losses = phase.chunk()
         units += done
         if chunk_losses is not None:
             losses.append(chunk_losses)
+        if counted is None and count_units and units >= count_units:
+            counted = mark(phase, time.perf_counter() - t0, units)
         if done == 0 or time.perf_counter() - t0 >= seconds:
             break
     _sync(device)
-    return units, losses, time.perf_counter() - t0
+    window_s = time.perf_counter() - t0
+    return units, losses, window_s, (start, counted or mark(phase, window_s, units))
 
 
 def resolve(name: str):
@@ -251,15 +279,22 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
 
     # -- the measured window --------------------------------------------
     counts.clear()
-    before = phase.totals()
-    units, losses, window_s = window(phase, seconds, device)
-    after = phase.totals()
+    count_units = spec.traffic.get("count_units")
+    units, losses, window_s, (count_from, count_to) = window(
+        phase, seconds, device, count_units)
+    evals = phase.totals()[1] - count_from.totals[1]
     window_counts = dict(counts)
+    loss_calls = sum(window_counts.values())
     failed = _finite_failures(losses)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     kind = torch.cuda.get_device_name(device) if cuda else "cpu"
+    counted = (f"the first {count_to.units} units (count_units {count_units}), "
+               f"reached at {count_to.seconds:.3f} s"
+               if count_units and count_to.units >= count_units
+               else f"the whole window ({count_to.units} units)")
     log(f"[{name}] window {window_s:.3f} s, {units} {spec.driver.REFERENCE} "
-        f"units, {after[1] - before[1]} evaluations, counts {window_counts}")
+        f"units, {evals} evaluations, counts {window_counts}; "
+        f"counters read over {counted}")
 
     trace_read = traced_units = None
     traced_counts = {}
@@ -300,9 +335,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     ctx = SimpleNamespace(
         kind=kind, config=spec.config, n_f=int(n_f or spec.traffic["N_f"]),
         work=spec.work, window_s=window_s, units=units,
-        counts=window_counts, evals=after[1] - before[1],
-        iters=after[0] - before[0], trace=trace_read,
-        traced_units=traced_units, traced_counts=traced_counts)
+        counts=window_counts, count_from=count_from, count_to=count_to,
+        trace=trace_read, traced_units=traced_units,
+        traced_counts=traced_counts)
     metrics = {}
     if trace:
         for m in layer:
@@ -310,7 +345,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
-        values_e2e = {"setup_s": setup_s, spec.driver.RATE: units / window_s}
+        values_e2e = {"setup_s": setup_s}
+        for rate_name, rate in spec.driver.RATES.items():
+            values_e2e[rate_name] = rate(units, loss_calls) / window_s
         for m in e2e:
             metrics[m["name"]] = {"value": values_e2e[m["name"]],
                                   "unit": m["unit"]}

@@ -1,10 +1,12 @@
 """Launches of the L-BFGS two-loop kernel an iteration: the program's
 counters ``launch.lbfgs_two_loop`` over ``lbfgs.iters``
 (``pinn_torch/ops/lbfgs_direction.py``, ``pinn_torch/optim/lbfgs.py``),
-taken after the run, so over all its iterations.  Every iteration but
-the first of a history launches it once, so a run of ~900 iterations on
-one history reads just under 1; a program that runs the direction as
-eager operations has no such counter, and the metric is left out.
+between the harness's two marks in the untraced window: its first
+``count_units`` iterations, or the whole window where it closed before
+them.  Every iteration but the first of a history launches it once, so
+a stretch with no fresh draw in it reads 1; a program that runs the
+direction as eager operations has no such counter, and the metric is
+left out.
 
 An indicator of which mechanism computed the direction, not a quantity
 to raise: its ``better`` is only the direction the benchmark's format

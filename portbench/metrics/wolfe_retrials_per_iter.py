@@ -2,8 +2,10 @@
 iteration: the program's counters ``lbfgs.wolfe.expand`` (t doubled:
 the bracket had no upper end yet) and ``lbfgs.wolfe.bisect`` (t halved
 the bracket) over ``lbfgs.iters`` (``pinn_torch/optim/lbfgs.py``),
-taken after the run, so over all its iterations.  Each trial is a full
-loss and gradient.  A program without those counters gives None."""
+between the harness's two marks in the untraced window: its first
+``count_units`` iterations, or the whole window where it closed before
+them.  Each trial is a full loss and gradient.  A program without
+those counters gives None."""
 
 from portbench.metrics._program import counter
 

@@ -1,8 +1,9 @@
 """The harness: ``BENCHMARK.json`` against the shape its runner checks, every
 name found by the harness and an unknown one refused, the work counts
-at the cells' shapes, the generator's streams, the trace arithmetic
-and the metric readers, and whole runs of every cell on the CPU at a
-small N_f (the fused losses take their plain versions there)."""
+at the cells' shapes, the generator's streams, the trace arithmetic,
+the metric readers and the window's marks they read between, and whole
+runs of every cell on the CPU at a small N_f (the fused losses take
+their plain versions there)."""
 
 import json
 import re
@@ -58,11 +59,18 @@ def test_benchmark_json_shape():
 def test_every_name_is_found(cell):
     spec = harness.resolve(cell)
     assert set(spec.limits) == set(spec.driver.NUMBERS) <= set(judge.NUMBERS)
-    assert spec.driver.RATE in {m["name"] for m in harness.metrics_of(BENCH, cell)[0]}
+    rates = {m["name"] for m in harness.metrics_of(BENCH, cell)[0]} - {"setup_s"}
+    assert rates and rates <= set(spec.driver.RATES)
     for m in harness.metrics_of(BENCH, cell)[1]:
         assert callable(harness.find_module("metrics", m["name"].split(".")[0]).read)
     harness.find_module("reference", spec.config["problem"])
     harness.find_module("reference", spec.driver.REFERENCE)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_per_layer_metrics_move_what_their_cells_report(cell):
+    e2e, layer = harness.metrics_of(BENCH, cell)
+    assert {m["moves"] for m in layer} <= {m["name"] for m in e2e}
 
 
 @pytest.mark.parametrize("find", [
@@ -170,23 +178,24 @@ def test_trace_summary():
           {"ph": "X", "cat": "kernel", "name": "k2", "ts": 5, "dur": 10},
           {"ph": "X", "cat": "gpu_memset", "name": "m", "ts": 40, "dur": 5},
           {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 10, "dur": 40},
-          {"ph": "X", "cat": "user_annotation", "name": "portbench.loss", "ts": 20, "dur": 15},
+          {"ph": "X", "cat": "user_annotation", "name": "pinn_torch.loss", "ts": 20, "dur": 15},
           {"ph": "X", "cat": "kernel", "name": "k1", "ts": 100, "dur": 1}]
     t = tracing.summarise(ev, 1e-4)
     assert t.busy_s == pytest.approx(21e-6) and t.kernel_s == pytest.approx(21e-6)
-    assert t.n_kernels == 3 and t.spans["portbench.loss"] == [pytest.approx(15e-6)]
+    assert t.n_kernels == 3
     assert dict(t.device_ops) == pytest.approx({"k1": 11e-6, "k2": 10e-6, "m": 5e-6})
-    assert dict(t.idle_gaps) == pytest.approx({"portbench.loss": 25e-6,
+    assert dict(t.idle_gaps) == pytest.approx({"pinn_torch.loss": 25e-6,
                                                "(no host event)": 55e-6})
 
 
 def _ctx(**kw):
     base = dict(kind=H100, config=_config("schrodinger_inf_cont"), n_f=200000,
                 work=harness.find_module("work", "schrodinger"),
-                window_s=1.0, units=300, counts={"loss_grad": 300}, evals=300,
-                iters=300, trace=tracing.Trace(window_s=0.5, busy_s=0.4,
-                                               kernel_s=0.45, n_kernels=7000,
-                                               spans={"portbench.loss_grad": [1e-4, 3e-4]}),
+                window_s=1.0, units=300, counts={"loss_grad": 300},
+                count_from=harness.Mark(0.0, 0, (3, 4), {}),
+                count_to=harness.Mark(1.0, 300, (303, 304), {}),
+                trace=tracing.Trace(window_s=0.5, busy_s=0.4,
+                                    kernel_s=0.45, n_kernels=7000),
                 traced_units=100, traced_counts={"loss_grad": 100})
     base.update(kw)
     return SimpleNamespace(**base)
@@ -194,17 +203,82 @@ def _ctx(**kw):
 
 def test_metric_readers():
     read = {n: harness.find_module("metrics", n).read for n in
-            ("loss_roofline", "step_mfu", "loss_call_host_us", "launches_per_step",
+            ("loss_roofline", "step_mfu", "launches_per_step",
              "lbfgs_evals_per_iter", "device_idle")}
     c = _ctx()
     assert read["loss_roofline"](c) == pytest.approx(100 * 100 * 746400 * 200000 / 67e12 / 0.45)
     assert read["step_mfu"](c) == pytest.approx(100 * 300 * 746400 * 200000 / 67e12)
-    assert read["loss_call_host_us"](c) == pytest.approx(200.0)
     assert read["launches_per_step"](c) == 70
     assert read["lbfgs_evals_per_iter"](c) == 1.0
     assert read["device_idle"](c) == pytest.approx(20.0)
-    blank = _ctx(kind="cpu", trace=None, iters=0, traced_units=0, counts={})
+    iters_per_s = harness.find_module("metrics", "lbfgs_iters_per_s").read
+    assert iters_per_s(_ctx(window_s=2.0)) == 150.0
+    assert iters_per_s(_ctx(units=0)) is None
+    blank = _ctx(kind="cpu", trace=None, count_to=harness.Mark(0.0, 0, (3, 4), {}),
+                 traced_units=0, counts={})
     assert all(r(blank) is None for r in read.values())
+
+
+COUNTER_READERS = ("lbfgs_evals_per_iter", "lbfgs_host_reads_per_iter",
+                   "wolfe_retrials_per_iter", "wolfe_bisects_per_iter",
+                   "two_loop_launches_per_iter")
+
+
+class _Phase:
+    """``chunks`` chunks of 10 iterations whose evaluations and counters
+    grow with the chunk's index n (1, 2, ...), so that a ratio tells over
+    which chunks it was read: 10 + n evaluations, 90 + n host reads, n
+    expansions, 2n bisections and 10 two-loop launches."""
+
+    def __init__(self, chunks):
+        self.chunks, self.n, self.evals = chunks, 0, 0
+
+    def chunk(self):
+        from pinn_torch.utils import trace
+        if self.n == self.chunks:
+            return 0, None
+        self.n += 1
+        self.evals += 10 + self.n
+        for name, k in (("lbfgs.iters", 10), ("lbfgs.host_reads", 90 + self.n),
+                        ("lbfgs.wolfe.expand", self.n),
+                        ("lbfgs.wolfe.bisect", 2 * self.n),
+                        ("launch.lbfgs_two_loop", 10)):
+            trace.count(name, k)
+        return 10, None
+
+    def totals(self):
+        return 10 * self.n, self.evals
+
+
+@pytest.mark.parametrize("count_units, counted", [
+    (30, 3),     # the first chunk boundary at or past 30 iterations
+    (35, 4),
+    (400, 8),    # the window closed first: read over all of it
+    (None, 8),   # a traffic without count_units (Adam's)
+])
+def test_counter_readers_read_between_the_marks(monkeypatch, count_units, counted):
+    """The harness's window on a made-up phase: the five counter readers
+    read between its two marks, not the process's counters before the
+    window (a run's checked steps) or after it (its traced segment)."""
+    from pinn_torch.utils import trace
+    monkeypatch.setattr(trace, "_counts", {})
+    trace.count("lbfgs.iters", 3)
+    trace.count("lbfgs.host_reads", 1000)
+    phase = _Phase(8)
+    units, _, _, (start, to) = harness.window(phase, 60.0, "cpu", count_units)
+    trace.count("lbfgs.host_reads", 10 ** 6)
+    assert units == 80 and start.units == 0 and to.units == 10 * counted
+    c = counted
+    tri = c * (c + 1) // 2
+    want = {"lbfgs_evals_per_iter": (10 * c + tri) / (10 * c),
+            "lbfgs_host_reads_per_iter": (90 * c + tri) / (10 * c),
+            "wolfe_retrials_per_iter": 3 * tri / (10 * c),
+            "wolfe_bisects_per_iter": 2 * tri / (10 * c),
+            "two_loop_launches_per_iter": 1.0}
+    ctx = SimpleNamespace(trace=tracing.Trace(window_s=1.0, busy_s=0.5),
+                          count_from=start, count_to=to)
+    got = {n: harness.find_module("metrics", n).read(ctx) for n in COUNTER_READERS}
+    assert got == pytest.approx(want)
 
 
 def test_judge():
@@ -238,22 +312,56 @@ def test_judge_late():
     assert judge.late_readings(zero, ref)["direction_gap"] == pytest.approx(1.0)
 
 
+# each cell's rate besides setup_s: Burgers L-BFGS's iterations take as
+# many evaluations as a seed's line searches ask, so its rate is theirs
+RATE_OF = {"schrodinger.adam.nf1m": "adam_steps_per_s",
+           "burgers.adam.nf1m": "adam_steps_per_s",
+           "schrodinger.lbfgs.nf1m": "lbfgs_iters_per_s",
+           "burgers.lbfgs.nf1m": "lbfgs_evals_per_s"}
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_run_on_the_cpu(cell):
     result, checks = harness.run_cell(cell, 2 ** 31 + 5, 0.2, False,
                                       device="cpu", n_f=256, log=lambda m: None)
     assert list(result)[-1] == "checks" and result["correct"] is True
     assert result["attempted"] > 0 and result["failed"] == 0
-    spec = harness.resolve(cell)
-    assert set(result["metrics"]) == {"setup_s", spec.driver.RATE}
+    assert set(result["metrics"]) == {"setup_s", RATE_OF[cell]}
     assert all(c["value"] <= c["limit"] for c in checks.values())
     json.dumps(result)
+
+
+@pytest.mark.parametrize("cell", ["schrodinger.lbfgs.nf1m", "burgers.lbfgs.nf1m"])
+def test_rates_are_the_windows_work_over_its_seconds(monkeypatch, cell):
+    """On a CPU run, each L-BFGS rate over the window it came from:
+    iterations, and loss calls, which are the optimizer state's own
+    evaluations (its ``n_evals`` over the window's draws)."""
+    seen = {}
+    window = harness.window
+
+    def spy(phase, *a, **kw):
+        out = window(phase, *a, **kw)
+        seen.update(out=out, evals=phase.totals()[1])
+        return out
+
+    monkeypatch.setattr(harness, "window", spy)
+    monkeypatch.setattr(harness, "metrics_of", lambda bench, c: (
+        [{"name": n, "unit": "1/s"} for n in ("setup_s", "lbfgs_iters_per_s",
+                                             "lbfgs_evals_per_s")], []))
+    result, _ = harness.run_cell(cell, 2 ** 31 + 11, 0.3, False,
+                                 device="cpu", n_f=256, log=lambda m: None)
+    units, _, window_s, (start, _) = seen["out"]
+    evals = seen["evals"] - start.totals[1]
+    assert units > 0 and evals >= units
+    got = {k: v["value"] for k, v in result["metrics"].items()}
+    assert got["lbfgs_iters_per_s"] == pytest.approx(units / window_s, rel=1e-12)
+    assert got["lbfgs_evals_per_s"] == pytest.approx(evals / window_s, rel=1e-12)
 
 
 def test_traced_run_on_the_cpu():
     result, _ = harness.run_cell("schrodinger.lbfgs.nf1m", 7, 0.2, True,
                                  device="cpu", n_f=128, log=lambda m: None)
     assert result["correct"] is True
-    # no device on the CPU: only the host span and the counters read
-    assert set(result["metrics"]) == {"loss_call_host_us.lbfgs", "lbfgs_evals_per_iter"}
+    # no device on the CPU: only the optimizer state's own counts read
+    assert set(result["metrics"]) == {"lbfgs_evals_per_iter"}
     assert result["device"]["busy_s"] == 0.0 and result["breakdown"]["device_ops"] == []

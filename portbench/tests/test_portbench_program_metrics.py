@@ -11,7 +11,8 @@ import pytest
 
 from portbench import harness, tracing
 
-READERS = ("lbfgs_host_reads_per_iter", "direction_host_ms", "ic_bc_host_us")
+READERS = ("lbfgs_host_reads_per_iter", "direction_host_ms", "ic_bc_host_us",
+           "loss_call_host_us")
 CELL = "schrodinger.lbfgs.nf1m"
 
 
@@ -19,18 +20,26 @@ def _read(ctx):
     return {n: harness.find_module("metrics", n).read(ctx) for n in READERS}
 
 
-def _ctx(busy_s=0.9):
-    return SimpleNamespace(trace=tracing.Trace(window_s=1.5, busy_s=busy_s))
+# the program's counters at the harness's two marks in the window
+COUNTED = {"lbfgs.host_reads": 6301 + 9, "lbfgs.iters": 875 + 1, "launch.x": 3}
+BEFORE = {"lbfgs.host_reads": 9, "lbfgs.iters": 1}
+
+
+def _ctx(busy_s=0.9, before=BEFORE, counted=COUNTED):
+    """A run's context; ``busy_s`` None for a run without a traced segment."""
+    trace = None if busy_s is None else tracing.Trace(window_s=1.5, busy_s=busy_s)
+    return SimpleNamespace(trace=trace,
+                           count_from=harness.Mark(0.0, 0, (1, 1), before),
+                           count_to=harness.Mark(20.0, 875, (876, 944), counted))
 
 
 @pytest.fixture
 def registry(monkeypatch):
-    """The program's counters and span totals, as a run left them."""
+    """The program's span totals, as a run left them."""
     from pinn_torch.utils import trace
-    monkeypatch.setattr(trace, "counters", lambda: {
-        "lbfgs.host_reads": 6301, "lbfgs.iters": 875, "launch.x": 3})
     monkeypatch.setattr(trace, "span_totals", lambda: {
-        "lbfgs.direction": (20, 0.1), "loss.ic_bc": (22, 0.055)})
+        "lbfgs.direction": (20, 0.1), "loss.ic_bc": (22, 0.055),
+        "loss": (22, 0.121)})
 
 
 def test_readers_read_the_registry(registry):
@@ -38,6 +47,7 @@ def test_readers_read_the_registry(registry):
     assert got["lbfgs_host_reads_per_iter"] == pytest.approx(6301 / 875)
     assert got["direction_host_ms"] == pytest.approx(5.0)
     assert got["ic_bc_host_us"] == pytest.approx(2500.0)
+    assert got["loss_call_host_us"] == pytest.approx(5500.0)
 
 
 def test_every_reader_is_listed_for_the_lbfgs_cell():
@@ -47,7 +57,7 @@ def test_every_reader_is_listed_for_the_lbfgs_cell():
 
 
 @pytest.mark.parametrize("ctx", [
-    SimpleNamespace(trace=None),   # an untraced run
+    _ctx(busy_s=None),             # an untraced run
     _ctx(busy_s=0.0),              # no device activity: the CPU rehearsal
 ])
 def test_nothing_to_read(registry, ctx):
@@ -56,9 +66,8 @@ def test_nothing_to_read(registry, ctx):
 
 def test_a_span_never_entered_reads_nothing(monkeypatch):
     from pinn_torch.utils import trace
-    monkeypatch.setattr(trace, "counters", lambda: {})
     monkeypatch.setattr(trace, "span_totals", lambda: {})
-    assert all(v is None for v in _read(_ctx()).values())
+    assert all(v is None for v in _read(_ctx(before={}, counted={})).values())
 
 
 def test_a_program_without_spans_reads_nothing(monkeypatch):
@@ -71,14 +80,15 @@ def test_a_program_without_spans_reads_nothing(monkeypatch):
 @pytest.mark.cuda
 def test_traced_lbfgs_run_on_the_card(cuda_card):
     """A short traced run of the cell at a tenth of its N_f on the card:
-    the three readings are on the line, host reads between 6 and 12 an
+    the four readings are on the line, host reads between 6 and 12 an
     iteration."""
     result, _ = harness.run_cell(CELL, 2 ** 31 + 77, 2.0, True,
                                  device=cuda_card, n_f=100000,
                                  log=lambda m: None)
     metrics = result["metrics"]
     assert {"lbfgs_host_reads_per_iter", "direction_host_ms.lbfgs",
-            "ic_bc_host_us.lbfgs"} <= set(metrics)
+            "ic_bc_host_us.lbfgs", "loss_call_host_us.lbfgs"} <= set(metrics)
     assert 6.0 <= metrics["lbfgs_host_reads_per_iter"]["value"] <= 12.0
     assert metrics["direction_host_ms.lbfgs"]["value"] > 0
     assert metrics["ic_bc_host_us.lbfgs"]["value"] > 0
+    assert metrics["loss_call_host_us.lbfgs"]["value"] > metrics["ic_bc_host_us.lbfgs"]["value"]

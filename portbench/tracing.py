@@ -9,7 +9,6 @@ it and deletes it.  From the trace:
   intervals (``chip_smoke.py`` phase 4p's arithmetic);
 - ``kernel_s`` and ``n_kernels``: the summed durations and the number
   of kernel executions (one a launch);
-- ``spans``: the durations of the benchmark's own spans by name;
 - ``device_ops``: device time by operation name;
 - ``idle_gaps``: the device's idle gaps, each put to the innermost host
   event that covers its midpoint, summed by that event's name.
@@ -24,12 +23,11 @@ import tempfile
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATEGORIES = ("cpu_op", "user_annotation", "cuda_runtime",
                    "cuda_driver", "python_function")
-SPAN_PREFIX = "portbench."
 _SCAN = 256   # host events looked back through for a gap's cover
 
 
@@ -39,7 +37,6 @@ class Trace:
     busy_s: float = 0.0
     kernel_s: float = 0.0
     n_kernels: int = 0
-    spans: Dict[str, List[float]] = field(default_factory=dict)
     device_ops: List[Tuple[str, float]] = field(default_factory=list)
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
 
@@ -71,7 +68,6 @@ def summarise(events, window_s: float) -> Trace:
     out = Trace(window_s=window_s)
     device, host = [], []
     ops = defaultdict(float)
-    spans = defaultdict(list)
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
@@ -84,9 +80,6 @@ def summarise(events, window_s: float) -> Trace:
                 out.n_kernels += 1
         elif cat in HOST_CATEGORIES:
             host.append((ts, ts + dur, e["name"]))
-            if e["name"].startswith(SPAN_PREFIX):
-                spans[e["name"]].append(dur * 1e-6)
-    out.spans = dict(spans)
     out.device_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
     merged = []
     for a, b in sorted(device):
